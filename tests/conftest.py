@@ -56,3 +56,8 @@ def ref_extrinsics():
     rvec = np.array([-0.8631369244225452, -0.3919482615538663, -1.3591256137314185])
     tvec = np.array([0.005016396186926285, 0.03590342712705542, 0.09382141278570659])
     return rvec, tvec
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with the CUDA toolkit; skips without one")

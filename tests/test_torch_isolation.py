@@ -1,0 +1,63 @@
+"""tti_torch stands alone: it imports neither jax (nor flax, optax, msgpack)
+nor anything of tti, and a tiny CPU step runs with all of them blocked."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "tti_torch"
+
+SCRIPT = r"""
+import pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "tti"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import importlib
+import tti_torch
+names = [m.name for m in pkgutil.walk_packages(tti_torch.__path__, "tti_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+import numpy as np
+from tti_torch.calib.io import CalibrationData
+from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
+from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
+from tti_torch.parallel.runtime import InspectionPipeline
+from tests.torch_synth import textile_frames
+
+path = "checkpoints/yolov8n_textile_cam.msgpack"
+meta = checkpoint_metadata(path)
+K = np.array([[90.0, 0, 64], [0, 90.0, 48], [0, 0, 1]])
+calib = CalibrationData(K=K, dist=np.array([0.05, 0.01, 0, 0, 0.0]),
+                        rvec=np.array([-0.86, -0.39, -1.36]), tvec=np.array([0.005, 0.036, 0.094]))
+pipe = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_stride=2,
+                                      proto_head="subpixel"),
+                          load_flax_msgpack(path), (96, 128), calib,
+                          MeasureConfig().with_subcell_from(meta), RoiConfig(x_min=1, x_max=127,
+                                                                             y_min=1, y_max=95),
+                          device="cpu")
+out = pipe.process_batch(textile_frames(1, 96, 128))
+assert out.boxes_frame.shape == (1, 200, 4) and out.envelope.shape == (1, 64)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tti") and sys.modules[m]]
+assert not bad, bad
+print("OK", len(names))
+"""
+
+
+def test_port_imports_nothing_of_jax_or_tti():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_sources_name_no_forbidden_module():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti)\b", re.M)
+    sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 10
+    offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
+                 for p in sources if pattern.search(p.read_text())}
+    assert not offenders, offenders

@@ -1,0 +1,13 @@
+"""Exception hierarchy (copy of ``tti.core.errors``)."""
+
+
+class TtiError(Exception):
+    """Base class for all framework errors."""
+
+
+class ConfigError(TtiError):
+    """Invalid or missing configuration."""
+
+
+class CalibrationError(TtiError):
+    """Intrinsics/extrinsics missing or calibration failed."""

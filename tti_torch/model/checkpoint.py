@@ -1,0 +1,244 @@
+"""Flax msgpack checkpoints -> PyTorch state dicts, without flax or msgpack.
+
+Three parts:
+
+- :func:`load_flax_msgpack` is a small pure-Python msgpack decoder for the
+  files ``flax.serialization.to_bytes`` writes: maps, strings, bin, arrays,
+  ints, floats, nil/bool, and ext type 1 (a packed ``(shape, dtype_name,
+  buffer)`` ndarray; ext 3 is the same for numpy scalars).
+  :func:`checkpoint_metadata` reads the ``.json`` sidecar.
+- :func:`stem_to_s2d` and :func:`fold_batchnorm` are copies of the exact
+  inference transforms in ``tti.model.convert``.
+- :func:`from_flax_variables` maps the (folded, s2d) flax tree onto
+  :class:`tti_torch.model.yolo.YOLOv8Seg`'s state dict: module paths are the
+  flax paths joined with '.', conv kernels go (kH, kW, I, O) -> (O, I, kH,
+  kW), and transposed-conv kernels go (kH, kW, I, O) -> (I, O, kH, kW) with
+  both spatial axes flipped (flax's ConvTranspose applies its kernel
+  un-flipped, torch's ConvTranspose2d is the gradient of a correlation).
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import struct
+from typing import Any
+
+import numpy as np
+
+Tree = dict[str, Any]
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+class _Reader:
+    """Decoder state over one msgpack byte string (big-endian wire format)."""
+
+    def __init__(self, data: bytes) -> None:
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str) -> Any:
+        size = struct.calcsize(fmt)
+        return struct.unpack(">" + fmt, self.take(size))[0]
+
+    def obj(self) -> Any:
+        b = self.unpack("B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {  # code -> (length format, kind)
+            0xC4: ("B", "bin"), 0xC5: ("H", "bin"), 0xC6: ("I", "bin"),
+            0xD9: ("B", "str"), 0xDA: ("H", "str"), 0xDB: ("I", "str"),
+            0xDC: ("H", "array"), 0xDD: ("I", "array"),
+            0xDE: ("H", "map"), 0xDF: ("I", "map"),
+            0xC7: ("B", "ext"), 0xC8: ("H", "ext"), 0xC9: ("I", "ext"),
+        }
+        if b in sized:
+            fmt, kind = sized[b]
+            n = self.unpack(fmt)
+            if kind == "bin":
+                return bytes(self.take(n))
+            if kind == "str":
+                return str(self.take(n), "utf-8")
+            if kind == "array":
+                return self.array(n)
+            if kind == "map":
+                return self.map(n)
+            return self.ext(n)
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if b in fixext:
+            return self.ext(fixext[b])
+        numbers = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I",
+                   0xCF: "Q", 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def array(self, n: int) -> list:
+        return [self.obj() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.obj()
+            out[key] = self.obj()
+        return out
+
+    def ext(self, n: int) -> np.ndarray:
+        code = self.unpack("b")
+        payload = bytes(self.take(n))
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"unsupported msgpack ext type {code}")
+        shape, dtype_name, buf = _Reader(payload).obj()
+        if isinstance(dtype_name, bytes):
+            dtype_name = dtype_name.decode()
+        if dtype_name == "bfloat16":  # upper half of an f32 bit pattern
+            raw = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+            arr = raw.view(np.float32)
+        else:
+            arr = np.frombuffer(buf, np.dtype(dtype_name)).copy()
+        return arr.reshape(tuple(shape))
+
+
+def _unchunk(tree: Any) -> Any:
+    """Reassemble flax's chunked-array leaves (written for very large arrays)."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree.get("__msgpack_chunked_array__"):
+        shape = tuple(tree["shape"][k] for k in sorted(tree["shape"], key=int))
+        chunks = [tree["chunks"][k] for k in sorted(tree["chunks"], key=int)]
+        return np.concatenate([c.reshape(-1) for c in chunks]).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def load_flax_msgpack(path: str) -> Tree:
+    """Decode a flax msgpack checkpoint into a nested dict of numpy arrays."""
+    with open(path, "rb") as f:
+        reader = _Reader(f.read())
+    tree = reader.obj()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack object")
+    return _unchunk(tree)
+
+
+def checkpoint_metadata(path: str) -> dict:
+    """The ``{path}.json`` sidecar, or {} when there is none."""
+    sidecar = path + ".json"
+    if not os.path.isfile(sidecar):
+        return {}
+    with open(sidecar, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def stem_to_s2d(variables: Tree) -> Tree:
+    """Rewrite the k3/s2 stem (m0) into the exact space-to-depth form (m0s2d):
+    a k2/s1 conv over the 2x2-blocked 12-channel input, applied after one row
+    and one column of zero padding at the top/left (copy of the reference)."""
+    new_vars = {
+        "params": dict(variables["params"]),
+        "batch_stats": dict(variables["batch_stats"]),
+    }
+    w = np.asarray(variables["params"]["m0"]["conv"]["kernel"])  # (3,3,3,C)
+    c_in, c_out = w.shape[2], w.shape[3]
+    k2 = np.zeros((2, 2, 4 * c_in, c_out), w.dtype)
+    for P in (0, 1):
+        for a in (0, 1):
+            di = 2 * P + a - 1
+            if not 0 <= di <= 2:
+                continue
+            for Q in (0, 1):
+                for b in (0, 1):
+                    dj = 2 * Q + b - 1
+                    if not 0 <= dj <= 2:
+                        continue
+                    k2[P, Q, (a * 2 + b) * c_in:(a * 2 + b + 1) * c_in] = w[di, dj]
+    m0 = copy.deepcopy(dict(variables["params"]["m0"]))
+    m0["conv"] = {"kernel": k2}
+    new_vars["params"].pop("m0")
+    new_vars["params"]["m0s2d"] = m0
+    bs = dict(new_vars["batch_stats"])
+    bs["m0s2d"] = bs.pop("m0")
+    new_vars["batch_stats"] = bs
+    return new_vars
+
+
+def fold_batchnorm(variables: Tree) -> Tree:
+    """Fold every Conv-block BatchNorm into its conv: W' = W*s/sqrt(v+eps),
+    b' = beta - m*s/sqrt(v+eps), computed in float64 (copy of the
+    reference). Returns {'params': ...} with no 'bn' nodes."""
+    eps = 1e-3  # BatchNorm epsilon of the YOLOv8 Conv block
+
+    def fold(params: Tree, stats: Tree) -> Tree:
+        out: Tree = {}
+        for key, node in params.items():
+            if not isinstance(node, dict):
+                out[key] = node
+                continue
+            if "conv" in node and "bn" in node and "kernel" in node.get("conv", {}):
+                kernel = np.asarray(node["conv"]["kernel"], np.float64)
+                scale = np.asarray(node["bn"]["scale"], np.float64)
+                beta = np.asarray(node["bn"]["bias"], np.float64)
+                mean = np.asarray(stats[key]["bn"]["mean"], np.float64)
+                var = np.asarray(stats[key]["bn"]["var"], np.float64)
+                g = scale / np.sqrt(var + eps)
+                folded = dict(node)
+                folded["conv"] = {
+                    "kernel": (kernel * g).astype(np.float32),
+                    "bias": (beta - mean * g).astype(np.float32),
+                }
+                folded.pop("bn")
+                rest = {k: v for k, v in folded.items() if k != "conv"}
+                if any(isinstance(v, dict) for v in rest.values()):
+                    folded.update(fold(rest, stats.get(key, {})))
+                out[key] = folded
+            else:
+                out[key] = fold(node, stats.get(key, {}))
+        return out
+
+    return {"params": fold(dict(variables["params"]), dict(variables["batch_stats"]))}
+
+
+def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
+    """Folded flax variables ({'params': ...}, numpy leaves) -> a state dict
+    for :class:`tti_torch.model.yolo.YOLOv8Seg` (numpy float32 values)."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node: Tree, path: list[str]) -> None:
+        for key, child in node.items():
+            if isinstance(child, dict):
+                if key == "bn":
+                    raise ValueError(
+                        f"{'/'.join(path)}: unfolded BatchNorm; run fold_batchnorm first")
+                walk(child, path + [key])
+                continue
+            arr = np.asarray(child, np.float32)
+            name = ".".join(path + ["weight" if key == "kernel" else key])
+            if key == "kernel":
+                if path[-1].startswith("upsample"):
+                    arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)
+            out[name] = np.ascontiguousarray(arr)
+
+    walk(variables_np["params"], [])
+    return out

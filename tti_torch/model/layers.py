@@ -1,0 +1,133 @@
+"""YOLOv8 building blocks as ``nn.Module``s (port of ``tti.model.layers``).
+
+This slice carries the inference form only: BatchNorm is folded into each
+conv's weights and bias (:func:`tti_torch.model.checkpoint.fold_batchnorm`),
+so ``Conv`` is Conv2d(bias=True) + SiLU. Modules run NCHW inside; attribute
+names mirror the flax tree so the weight map is a rename.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    return int(math.ceil(x / divisor) * divisor)
+
+
+def autopad(k: int, d: int = 1) -> int:
+    return (d * (k - 1) + 1) // 2
+
+
+class Conv(nn.Module):
+    """Conv2d with folded BN + SiLU. ``pad=None`` is 'same' padding for odd
+    kernels; 0 is VALID (the caller pre-pads, as the s2d stem does)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 pad: int | None = None, act: bool = True) -> None:
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k) if pad is None else pad, bias=True)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return F.silu(x) if self.act else x
+
+
+class Bottleneck(nn.Module):
+    """Two 3x3 Convs with optional residual (C2f inner block, e=1.0)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True) -> None:
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3)
+        self.cv2 = Conv(c2, c2, 3)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Cross-stage partial block with n bottlenecks and dense skip concat.
+    Bottlenecks are attributes m0, m1, ... as in the flax tree."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 e: float = 0.5) -> None:
+        super().__init__()
+        self.c = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", Bottleneck(self.c, self.c, shortcut))
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = list(self.cv1(x).split(self.c, dim=1))
+        for i in range(self.n):
+            outs.append(getattr(self, f"m{i}")(outs[-1]))
+        return self.cv2(torch.cat(outs, dim=1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): 3 chained k-pools, concat, project."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5) -> None:
+        super().__init__()
+        self.cv1 = Conv(c1, c1 // 2, 1)
+        self.cv2 = Conv(c1 // 2 * 4, c2, 1)
+        self.k = k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pools = [self.cv1(x)]
+        for _ in range(3):
+            pools.append(F.max_pool2d(pools[-1], self.k, 1, self.k // 2))
+        return self.cv2(torch.cat(pools, dim=1))
+
+
+def depth_to_space2(x: torch.Tensor, c: int) -> torch.Tensor:
+    """NCHW (B, 4C, H, W) -> (B, C, 2H, 2W); channel (a*2 + b)*C + c feeds
+    output pixel (2i + a, 2j + b), the reference's NHWC reshape order."""
+    b, _, h, w = x.shape
+    x = x.view(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c, 2 * h, 2 * w)
+
+
+class Proto(nn.Module):
+    """Mask prototype head: conv -> learned 2x deconv -> conv -> 1x1 to nm.
+
+    ups=2 emits protos at input/2: ``subpixel=True`` is a 1x1 conv to the 4
+    spatial phases' protos + depth-to-space; ``subpixel=False`` a second
+    deconv + 3x3 conv stage (upsample2/cv2b) before the 1x1.
+    """
+
+    def __init__(self, c1: int, c_hidden: int, nm: int = 32, ups: int = 1,
+                 subpixel: bool = False) -> None:
+        super().__init__()
+        self.nm = nm
+        self.ups = ups
+        self.subpixel = subpixel
+        self.cv1 = Conv(c1, c_hidden, 3)
+        self.upsample = nn.ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
+        self.cv2 = Conv(c_hidden, c_hidden, 3)
+        if ups == 2 and subpixel:
+            self.cv3sp = Conv(c_hidden, 4 * nm, 1)
+            return
+        if ups == 2:
+            self.upsample2 = nn.ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
+            self.cv2b = Conv(c_hidden, c_hidden, 3)
+        self.cv3 = Conv(c_hidden, nm, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cv2(self.upsample(self.cv1(x)))
+        if self.ups == 2 and self.subpixel:
+            # SiLU is elementwise, so applying it before the permutation
+            # equals applying it after.
+            return depth_to_space2(self.cv3sp(x), self.nm)
+        if self.ups == 2:
+            x = self.cv2b(self.upsample2(x))
+        return self.cv3(x)

@@ -1,0 +1,174 @@
+"""YOLOv8-seg as an ``nn.Module`` (port of ``tti.model.yolo``).
+
+The public boundary is NHWC like the reference: the input is (B, H, W, 3),
+or (B, H/2, W/2, 12) already space-to-depth blocked when ``s2d_input``, and
+every field of :class:`RawPredictions` is NHWC. Inside, the network runs
+NCHW tensors in channels_last memory, which is cuDNN's fast layout; the
+NHWC outputs are then views, not copies.
+
+Only the inference form is ported: folded BatchNorm and the exact
+space-to-depth stem (``m0s2d``), which the runtime always uses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tti_torch.model.layers import C2f, Conv, Proto, SPPF, make_divisible
+
+SCALES: dict[str, tuple[float, float, int]] = {
+    "n": (1 / 3, 0.25, 1024),
+    "s": (1 / 3, 0.50, 1024),
+    "m": (2 / 3, 0.75, 768),
+    "l": (1.0, 1.0, 512),
+    "x": (1.0, 1.25, 512),
+}
+
+STRIDES = (8, 16, 32)
+REG_MAX = 16  # DFL bins per box side
+
+
+def model_channels(variant: str) -> dict[str, int]:
+    """Resolved channel counts for a variant."""
+    d, w, maxc = SCALES[variant]
+    ch = {c: make_divisible(min(c, maxc) * w, 8) for c in (64, 128, 256, 512, 1024)}
+    return {
+        "p3": ch[256],
+        "p4": ch[512],
+        "p5": ch[1024],
+        "npr": make_divisible(256 * w, 8),
+        "depth3": max(round(3 * d), 1),
+        "depth6": max(round(6 * d), 1),
+        **{f"c{c}": ch[c] for c in (64, 128, 256, 512, 1024)},
+    }
+
+
+@dataclass
+class RawPredictions:
+    """Per-level raw head outputs, NHWC.
+
+    box:   3 x (B, Hl, Wl, 4*REG_MAX)  DFL distribution logits
+    cls:   3 x (B, Hl, Wl, nc)         class logits
+    mcoef: 3 x (B, Hl, Wl, nm)         mask coefficients
+    protos:    (B, H/ms, W/ms, nm)     mask prototypes (ms = mask stride)
+    """
+
+    box: tuple[torch.Tensor, ...]
+    cls: tuple[torch.Tensor, ...]
+    mcoef: tuple[torch.Tensor, ...]
+    protos: torch.Tensor
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class Segment(nn.Module):
+    """Decoupled Detect + mask-coefficient branches + shared Proto (m22)."""
+
+    def __init__(self, nc: int = 2, nm: int = 32, npr: int = 64,
+                 ch: tuple[int, int, int] = (64, 128, 256), mask_stride: int = 4,
+                 proto_head: str = "deconv") -> None:
+        super().__init__()
+        c2 = max(16, ch[0] // 4, REG_MAX * 4)
+        c3 = max(ch[0], min(nc, 100))
+        c4 = max(ch[0] // 4, nm)
+        self.proto = Proto(ch[0], npr, nm, ups={4: 1, 2: 2}[mask_stride],
+                           subpixel=proto_head == "subpixel")
+        for level, c in enumerate(ch):
+            setattr(self, f"cv2_{level}_0", Conv(c, c2, 3))
+            setattr(self, f"cv2_{level}_1", Conv(c2, c2, 3))
+            setattr(self, f"cv2_{level}_2", nn.Conv2d(c2, 4 * REG_MAX, 1))
+            setattr(self, f"cv3_{level}_0", Conv(c, c3, 3))
+            setattr(self, f"cv3_{level}_1", Conv(c3, c3, 3))
+            setattr(self, f"cv3_{level}_2", nn.Conv2d(c3, nc, 1))
+            setattr(self, f"cv4_{level}_0", Conv(c, c4, 3))
+            setattr(self, f"cv4_{level}_1", Conv(c4, c4, 3))
+            setattr(self, f"cv4_{level}_2", nn.Conv2d(c4, nm, 1))
+
+    def _branch(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
+        for j in range(3):
+            x = getattr(self, f"{name}_{level}_{j}")(x)
+        return _nhwc(x)
+
+    def forward(self, feats: tuple[torch.Tensor, ...]) -> RawPredictions:
+        box, cls, coef = [], [], []
+        for level, x in enumerate(feats):
+            box.append(self._branch("cv2", level, x))
+            cls.append(self._branch("cv3", level, x))
+            coef.append(self._branch("cv4", level, x))
+        return RawPredictions(box=tuple(box), cls=tuple(cls), mcoef=tuple(coef),
+                              protos=_nhwc(self.proto(feats[0])))
+
+
+def space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (B, H, W, C) -> (B, H/2, W/2, 4C), channel order (a, b, c) for
+    spatial phase (a, b)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+class YOLOv8Seg(nn.Module):
+    """Backbone + PAN neck + Segment head with the space-to-depth stem.
+
+    ``s2d_input``: the input is already (B, H/2, W/2, 12) blocked (the
+    two-pass warp emits it that way); otherwise the model blocks it.
+    """
+
+    def __init__(self, variant: str = "n", nc: int = 2, nm: int = 32,
+                 mask_stride: int = 4, proto_head: str = "deconv",
+                 s2d_input: bool = True) -> None:
+        super().__init__()
+        cc = model_channels(variant)
+        n3, n6 = cc["depth3"], cc["depth6"]
+        self.s2d_input = s2d_input
+        self.m0s2d = Conv(12, cc["c64"], 2, 1, pad=0)
+        self.m1 = Conv(cc["c64"], cc["c128"], 3, 2)
+        self.m2 = C2f(cc["c128"], cc["c128"], n3, True)
+        self.m3 = Conv(cc["c128"], cc["c256"], 3, 2)
+        self.m4 = C2f(cc["c256"], cc["c256"], n6, True)
+        self.m5 = Conv(cc["c256"], cc["c512"], 3, 2)
+        self.m6 = C2f(cc["c512"], cc["c512"], n6, True)
+        self.m7 = Conv(cc["c512"], cc["c1024"], 3, 2)
+        self.m8 = C2f(cc["c1024"], cc["c1024"], n3, True)
+        self.m9 = SPPF(cc["c1024"], cc["c1024"], 5)
+        self.m12 = C2f(cc["c1024"] + cc["c512"], cc["c512"], n3, False)
+        self.m15 = C2f(cc["c512"] + cc["c256"], cc["c256"], n3, False)
+        self.m16 = Conv(cc["c256"], cc["c256"], 3, 2)
+        self.m18 = C2f(cc["c256"] + cc["c512"], cc["c512"], n3, False)
+        self.m19 = Conv(cc["c512"], cc["c512"], 3, 2)
+        self.m21 = C2f(cc["c512"] + cc["c1024"], cc["c1024"], n3, False)
+        self.m22 = Segment(nc, nm, cc["npr"], (cc["p3"], cc["p4"], cc["p5"]),
+                           mask_stride, proto_head)
+
+    def forward(self, x: torch.Tensor) -> RawPredictions:
+        z = x if self.s2d_input else space_to_depth2(x)
+        dtype = next(self.parameters()).dtype
+        z = z.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x0 = self.m0s2d(F.pad(z, (1, 0, 1, 0)))
+        x2 = self.m2(self.m1(x0))
+        x4 = self.m4(self.m3(x2))  # P3
+        x6 = self.m6(self.m5(x4))  # P4
+        x9 = self.m9(self.m8(self.m7(x6)))  # P5
+        up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")
+        x12 = self.m12(torch.cat([up(x9), x6], dim=1))
+        x15 = self.m15(torch.cat([up(x12), x4], dim=1))
+        x18 = self.m18(torch.cat([self.m16(x15), x12], dim=1))
+        x21 = self.m21(torch.cat([self.m19(x18), x9], dim=1))
+        return self.m22((x15, x18, x21))
+
+
+def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int = 4,
+                 proto_head: str = "deconv", s2d_input: bool = True) -> YOLOv8Seg:
+    if variant not in SCALES:
+        raise ValueError(f"unknown variant {variant!r}; choose from {sorted(SCALES)}")
+    if mask_stride not in (2, 4):
+        raise ValueError(f"mask_stride must be 2 or 4, got {mask_stride}")
+    if proto_head not in ("deconv", "subpixel"):
+        raise ValueError(f"proto_head must be 'deconv' or 'subpixel', got {proto_head!r}")
+    return YOLOv8Seg(variant, nc, nm, mask_stride, proto_head, s2d_input)

@@ -1,0 +1,115 @@
+"""The undistort remap as two separable dense matmuls (port of
+``tti.preprocess.warp2pass.TwoPassWarp``, dense mode).
+
+  pass 1 (horizontal): I1[y, xo]  = sum_w  src[y, w] * W1[y, w, xo]
+  pass 2 (vertical):   out[v, xo] = sum_y  I1[y, xo] * W2[xo, v, y]
+
+The weights are built by the reference's numpy code. Both passes are plain
+large products left to cuBLAS, as the reference left them to XLA. The input
+is shifted by the pad value so zero-weight rows resolve to the border color.
+``s2d_out`` emits the frame space-to-depth blocked (B, H/2, W/2, 4C) with the
+letterbox row padding folded into zero weight rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tti_torch.preprocess.letterbox import PAD_VALUE
+
+_SENTINEL = -1e5
+
+
+class TwoPassWarp:
+    """Precompiled two-pass warp for one calibration + letterbox geometry.
+
+    Raises ValueError when the vertical map is not strictly monotonic per
+    column (the gather fallback is not ported)."""
+
+    def __init__(self, map_xy: np.ndarray, src_hw: tuple[int, int],
+                 pad_value: float = PAD_VALUE / 255.0, s2d_out: bool = False,
+                 device: str | torch.device = "cuda") -> None:
+        device = torch.device(device)
+        # bf16 weights on the card (8 mantissa bits, as the reference's TPU
+        # path); f32 on the CPU, as the reference's CPU path.
+        weight_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        self.src_hw = src_hw
+        self.pad_value = float(pad_value)
+        hs, ws = src_hw
+        dst_h, dst_w = map_xy.shape[:2]
+        self.dst_hw = (dst_h, dst_w)
+
+        mx = np.asarray(map_xy[..., 0], np.float64)
+        my = np.asarray(map_xy[..., 1], np.float64)
+        live_row = ~np.all((mx < _SENTINEL) | (my < _SENTINEL), axis=1)
+        live = np.nonzero(live_row)[0]
+        self.row_start = int(live.min()) if live.size else 0
+        self.row_stop = int(live.max()) + 1 if live.size else 0
+        mx = mx[self.row_start:self.row_stop]
+        my = my[self.row_start:self.row_stop]
+        ho, wo = mx.shape
+
+        col_live = ~np.all((mx < _SENTINEL) | (my < _SENTINEL), axis=0)
+        sent = (mx < _SENTINEL) | (my < _SENTINEL)
+        if np.any(np.diff(my, axis=0)[:, col_live] <= 0):
+            raise ValueError("vertical map not strictly monotonic per column")
+
+        # sx*(xo, y): horizontal source position for intermediate row y of
+        # column xo (the per-column inverse of the vertical map).
+        ys = np.arange(hs, dtype=np.float64)
+        yo_grid = np.arange(ho, dtype=np.float64)
+        sxstar = np.zeros((hs, wo), np.float64)
+        for xo in range(wo):
+            if col_live[xo]:
+                yo_hat = np.interp(ys, my[:, xo], yo_grid)
+                sxstar[:, xo] = np.interp(yo_hat, yo_grid, mx[:, xo])
+
+        w1 = np.zeros((hs, ws, wo), np.float32)
+        x0 = np.floor(sxstar).astype(np.int64)
+        fx = (sxstar - x0).astype(np.float32)
+        rows = np.broadcast_to(ys.astype(np.int64)[:, None], (hs, wo))
+        cols = np.broadcast_to(np.arange(wo)[None, :], (hs, wo))
+        for tap, wgt in ((x0, 1.0 - fx), (x0 + 1, fx)):
+            ok = (tap >= 0) & (tap < ws) & col_live[None, :]
+            np.add.at(w1, (rows[ok], tap[ok], cols[ok]), wgt[ok])
+
+        w2 = np.zeros((wo, ho, hs), np.float32)
+        y0 = np.floor(my).astype(np.int64)
+        fy = (my - y0).astype(np.float32)
+        vrows = np.broadcast_to(yo_grid.astype(np.int64)[:, None], (ho, wo))
+        vcols = np.broadcast_to(np.arange(wo)[None, :], (ho, wo))
+        for tap, wgt in ((y0, 1.0 - fy), (y0 + 1, fy)):
+            ok = (tap >= 0) & (tap < hs) & ~sent
+            np.add.at(w2, (vcols[ok], vrows[ok], tap[ok]), wgt[ok])
+
+        self.s2d_out = s2d_out
+        if s2d_out:
+            if dst_h % 2 or wo % 2:
+                raise ValueError("s2d_out requires even dst dims")
+            w2_full = np.zeros((wo, dst_h, hs), np.float32)
+            w2_full[:, self.row_start:self.row_stop] = w2
+            w2 = w2_full.reshape(wo // 2, 2, dst_h // 2, 2, hs)  # (o2, do, v2, dv, y)
+        self.w1 = torch.from_numpy(w1).to(device=device, dtype=weight_dtype)
+        self.w2 = torch.from_numpy(w2).to(device=device, dtype=weight_dtype)
+
+    def apply(self, content: torch.Tensor) -> torch.Tensor:
+        """(B, hs, ws, C) content -> (B, dst_h, dst_w, C) warped + padded, or
+        (B, dst_h/2, dst_w/2, 4C) blocked in ``s2d_out`` mode."""
+        dtype = content.dtype
+        wdt = self.w1.dtype
+        pad = torch.tensor(self.pad_value, dtype=wdt)
+        x = content.to(wdt) - pad
+        i1 = torch.einsum("bywc,ywo->byoc", x, self.w1)
+        if self.s2d_out:
+            i1 = i1.reshape(i1.shape[0], i1.shape[1], -1, 2, i1.shape[3])
+            out = torch.einsum("byodc,odvey->bvoedc", i1, self.w2)
+            b, v2, o2, dv, do, c = out.shape
+            # channel (dv*2 + do)*C + c: space_to_depth2's order.
+            return (out + pad).to(dtype).reshape(b, v2, o2, dv * do * c)
+        out = (torch.einsum("byoc,ovy->bvoc", i1, self.w2) + pad).to(dtype)
+        dst_h = self.dst_hw[0]
+        return torch.nn.functional.pad(
+            out, (0, 0, 0, 0, self.row_start, dst_h - self.row_stop), value=self.pad_value)
+
+    __call__ = apply
