@@ -7,22 +7,33 @@ Phases, one printed line or block each; any failure raises and the script
 exits non-zero without printing the final result line:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA mask-stats kernels from ``tti_torch/kernels/csrc`` into
-   ``build/`` (nvcc), with the build time and ptxas' register report;
+2. build the CUDA kernels from ``tti_torch/kernels/csrc`` (mask statistics,
+   warp pass 1) into ``build/``, one nvcc process each, started together,
+   and the C++ frame ring (g++), with the build time and ptxas' register
+   report;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, plus edge cases (all rows invalid, a box reaching
-   y2 == Hm, a bottom on the last row) and a small-logit case where the
-   soft path's bf16 rounding shows (the plain version with float32 logits
-   must fail that comparison);
+   main path's shapes, plus edge cases. Mask statistics: all rows invalid, a
+   box reaching y2 == Hm, a bottom on the last row, and a small-logit case
+   where the soft path's bf16 rounding shows (the plain version with float32
+   logits must fail that comparison). Warp pass 1: the headline shape at
+   batch 128 and 1 with the headline warp's own weights, a k = 5 geometry,
+   dense weights j/64, a frame holding every byte value on which the plain
+   version that divides by 255 must fail, and the stride-k select alone
+   (identity weights, bytes 0 or 255) at k = 3 and k = 5;
 4. deploy step: 960x1280 frames, imgsz 960, the stride-2 soft checkpoint,
    through ``InspectionPipeline.process_batch``; it must launch kernel A and
    agree with the same step run with the plain versions bound in the
    kernels' place;
 5. headline step: 1080x1920 frames, imgsz 640, the stride-4 binary
-   checkpoint, through kernel B, with the same checks;
-6. timings: frames/s at batch 128 and the batch-1 p50 of both steps, and
-   each kernel's time beside its plain version's and its bound, on the
-   inputs the batch-128 step gives it and on a whole-grid synthetic input;
+   checkpoint, through kernel B, with the same checks; then the same step
+   with ``warp_pass1="kernel"`` at batch 128 (kernels C and B, once per step
+   each), against the plain versions and against the "einsum" step; the
+   packed-remap step against the two-pass step; the dual step (two
+   checkpoints, one preprocess) against each model's own pipeline; four
+   1080p streams through ``MultiStreamRunner`` (blocking and pipelined);
+6. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
+   stages, and each kernel's time beside its plain version's and its bound,
+   on the inputs the batch-128 step gives it;
 7. the ``kernels`` JSON line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -55,6 +66,7 @@ TVEC = np.array([0.005016396186926285, 0.03590342712705542, 0.09382141278570659]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense bf16 tensor core; f32 FMA
 BATCH = 128  # the production batch of both steps
+BF16_STEP = 2.0 ** -8  # one bfloat16 step, relative
 
 
 def log(msg: str) -> None:
@@ -185,6 +197,111 @@ def check_kernels(torch, ms) -> dict:
     return {k: {"max_abs_err": v[0], "max_rel_err": v[1]} for k, v in errs.items()}
 
 
+def p1_errors(got, ref) -> tuple[float, float, int]:
+    """Max abs error, max error relative to max(|ref|, 1/16), and how many
+    elements differ at all."""
+    d = (got.float() - ref.float()).abs()
+    rel = d / ref.float().abs().clamp(min=2.0 ** -4)
+    return float(d.max()), float(rel.max()), int((d > 0).sum())
+
+
+def p1_plain_dividing(torch, frames, w1, k, off, hs, ws, pad_value):
+    """The plain version with the unfused chain's normalisation: it divides
+    by 255 where the kernel multiplies by 1/255. Only to show that the
+    comparison tells the two apart."""
+    wdt = w1.dtype
+    small = frames[:, off::k, off::k, :][:, :hs, :ws, :].flip(-1)
+    x = small.to(wdt) / torch.tensor(255.0, dtype=wdt) - torch.tensor(pad_value, dtype=wdt)
+    return torch.einsum("bywc,ywo->ycbo", x.float(), w1.float()).to(wdt)
+
+
+def k5_warp(torch):
+    """A 480x480 frame at imgsz 96: an exact decimation by 5."""
+    from tti_torch.preprocess.letterbox import decimation_stride, letterbox_spec
+    from tti_torch.preprocess.remap import build_small_undistort_map
+    from tti_torch.preprocess.warp2pass import TwoPassWarp
+
+    spec = letterbox_spec(480, 480, 96)
+    check(decimation_stride(spec) == 5, "480 px at imgsz 96 must decimate by 5")
+    K = K_960.copy()
+    K[0] *= 480 / 1280.0
+    K[1] *= 480 / 960.0
+    small_map = build_small_undistort_map(K, DIST, spec, unpadded_src=True)
+    return spec, TwoPassWarp(small_map, (spec.new_h, spec.new_w), device="cuda")
+
+
+def check_warp_p1(torch, wp, warp, spec) -> dict:
+    """Kernel C against its plain version in bf16 on the card. ``warp`` and
+    ``spec`` are the headline pipeline's. The limit is one bf16 step (2^-8)
+    relative to max(|ref|, 1/16): the sum rounds once to bf16, and a float32
+    sum taken in another order can fall on the other side of a rounding
+    boundary. With the warp's own weights an output is a sum of at most two
+    non-zero products, whose order cannot matter: equality is expected, and
+    the count of differing elements is printed."""
+    worst = [0.0, 0.0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rand = lambda *shape: torch.randint(0, 256, (*shape, 3), dtype=torch.uint8, device="cuda",
+                                        generator=gen)
+
+    def run(label, frames, w1, kw):
+        got = wp.warp_pass1_decimated(frames, w1, **kw)
+        ref = wp.warp_pass1_decimated_plain(frames, w1, **kw)
+        torch.cuda.synchronize()
+        want_shape = (kw["hs"], 3, frames.shape[0], w1.shape[2])
+        check(tuple(got.shape) == want_shape and got.dtype == w1.dtype,
+              f"warp_pass1_decimated {label}: {tuple(got.shape)} {got.dtype}, expected {want_shape}")
+        a, r, ndiff = p1_errors(got, ref)
+        check(r <= BF16_STEP, f"warp_pass1_decimated {label}: max rel err {r} > {BF16_STEP}")
+        worst[0], worst[1] = max(worst[0], a), max(worst[1], r)
+        log(f"  warp_pass1_decimated {label}: max abs err {a:.3g}, max rel err {r:.3g}, "
+            f"{ndiff} of {got.numel()} elements differ")
+        return got
+
+    head = dict(k=3, off=1, hs=spec.new_h, ws=spec.new_w, pad_value=warp.pad_value)
+    check((head["hs"], head["ws"], warp.w1.shape[2]) == (360, 640, 640),
+          f"headline pass-1 shape {tuple(warp.w1.shape)}")
+    run("headline B=128, the warp's own W1", rand(BATCH, 1080, 1920), warp.w1, head)
+    run("headline B=1, the warp's own W1", rand(1, 1080, 1920), warp.w1, head)
+    spec5, warp5 = k5_warp(torch)
+    kw5 = dict(k=5, off=2, hs=spec5.new_h, ws=spec5.new_w, pad_value=warp5.pad_value)
+    run("k=5 (480x480, imgsz 96) B=5", rand(5, 480, 480), warp5.w1, kw5)
+    dense = (torch.randint(-64, 65, tuple(warp.w1.shape), device="cuda", generator=gen).float()
+             / 64).to(torch.bfloat16)
+    run("headline B=128, dense W1 of values j/64", rand(BATCH, 1080, 1920), dense, head)
+    del dense
+
+    # The rounding rule: on a frame that holds every byte value the plain
+    # version that divides by 255 must fail the comparison the kernel passes.
+    ar = lambda n, shape: torch.arange(n, device="cuda").view(shape)
+    every = ((ar(1920, (1, 1, -1, 1)) + 7 * ar(1080, (1, -1, 1, 1)) + 31 * ar(3, (1, 1, 1, -1))
+              + 13 * ar(4, (-1, 1, 1, 1))) % 256).to(torch.uint8)
+    got = run("headline B=4, every byte value", every, warp.w1, head)
+    _, div_err, div_n = p1_errors(got, p1_plain_dividing(torch, every, warp.w1, **head))
+    check(div_err > BF16_STEP, f"dividing by 255 passes the kernel's comparison ({div_err})")
+    log(f"  warp_pass1_decimated against the plain version that divides by 255: max rel err "
+        f"{div_err:.3g} > {BF16_STEP:.3g}, {div_n} elements differ (the check separates the two)")
+
+    # The stride-k select by itself (the operation the TPU probes could not
+    # lower): identity weights, pad 0, bytes 0 or 255. The output is then 0
+    # or the one constant bf16(255) * bf16(1/255), at exactly the selected
+    # positions and channels.
+    one = torch.tensor(255.0, dtype=torch.bfloat16) * torch.tensor(1 / 255, dtype=torch.bfloat16)
+    for k, b, h, w, hs, ws in ((3, 4, 1080, 1920, 360, 640), (5, 3, 480, 480, 96, 96)):
+        off = (k - 1) // 2
+        frames = rand(b, h, w) // 128 * 255
+        eye = torch.eye(ws, dtype=torch.bfloat16, device="cuda").expand(hs, ws, ws).contiguous()
+        got = wp.warp_pass1_decimated(frames, eye, k=k, off=off, hs=hs, ws=ws, pad_value=0.0)
+        sel = frames[:, off::k, off::k, :][:, :hs, :ws, :].flip(-1).permute(1, 3, 0, 2)
+        want = torch.where(sel == 255, one.to("cuda"), torch.zeros((), dtype=torch.bfloat16,
+                                                                   device="cuda"))
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"stride-{k} select: kernel differs from frames[:, off::k, off::k, ::-1]")
+        log(f"  stride-{k} select alone ({b}x{h}x{w} -> {hs}x{ws}, identity W1): equal to "
+            f"frames[:, {off}::{k}, {off}::{k}, ::-1]; {int((got != 0).sum())} of {got.numel()} "
+            f"outputs are the constant {float(one):g}")
+    return {"max_abs_err": worst[0], "max_rel_err": worst[1], "dividing_rel_err": div_err}
+
+
 def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     """Mean device ms per call with CUDA events, after a warm-up call.
     ``flush`` (outside the timed window) evicts L2 before each call. A spin
@@ -206,27 +323,49 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     return total / iters
 
 
-def kernel_bound_ms(torch, soft: bool, protos, coefs, boxes, valid) -> tuple[float, str, dict]:
-    """Least time for this input: bytes (the protos cells that some valid box
-    covers, read once, plus the other inputs and the outputs written once)
-    over 3.35 TB/s, against the dot products' operations (2*nm per covered
-    cell per detection) over the peak for their type (bf16 logits: tensor
-    cores; f32 logits: f32 FMA)."""
-    b, hm, wm, nm = protos.shape
-    ys = torch.arange(hm, device="cuda").view(1, 1, hm, 1).float()
-    xs = torch.arange(wm, device="cuda").view(1, 1, 1, wm).float()
-    bx = lambda i: boxes[..., i, None, None]
-    inside = ((xs >= bx(0)) & (xs < bx(2)) & (ys >= bx(1)) & (ys < bx(3))
-              & valid[..., None, None])
-    covered = int(inside.any(1).sum())
-    cell_dets = int(inside.sum())
-    d = coefs.shape[1]
-    out_bytes = b * d * 4 * ((6 + 4 * wm) if soft else (3 + 2 * wm))
-    in_bytes = covered * nm * protos.element_size() + coefs.numel() * 4 + boxes.numel() * 4 + valid.numel()
-    nbytes = in_bytes + out_bytes
-    ops = 2.0 * nm * cell_dets
+def kernel_bound_ms(torch, name: str, *args) -> tuple[float, str, dict]:
+    """Least time for this input: the bytes the function must move (each
+    input read once, each output written once) over 3.35 TB/s, against its
+    operations over the peak for their type.
+
+    Mask statistics (protos, coefs, boxes, valid): the protos cells that some
+    valid box covers plus the other inputs and the outputs; 2*nm operations
+    per covered cell per detection (bf16 logits: tensor cores; f32 logits:
+    f32 FMA). Warp pass 1 (frames, w1, kw): of every kept source row the
+    32-byte sectors that hold a sampled byte (at k = 3 and 5 that is the
+    whole row; the skipped rows are not read), the weights and the output;
+    2 * 3B * ws * wo * hs operations on the bf16 tensor cores."""
+    if name == "warp_pass1_decimated":
+        frames, w1, kw = args
+        b, _, w, _ = frames.shape
+        k, off, hs, ws = kw["k"], kw["off"], kw["hs"], kw["ws"]
+        wo = w1.shape[2]
+        first = 3 * (off + k * np.arange(ws))
+        sectors = np.unique(np.concatenate([first // 32, (first + 2) // 32])).size
+        frame_bytes = b * hs * min(32 * sectors, 3 * w)
+        nbytes = frame_bytes + (w1.numel() + hs * 3 * b * wo) * w1.element_size()
+        ops = 2.0 * 3 * b * ws * wo * hs
+        peak = PEAK_OPS["bf16"]
+    else:
+        soft = name == "mask_stats_soft"
+        protos, coefs, boxes, valid = args
+        b, hm, wm, nm = protos.shape
+        ys = torch.arange(hm, device="cuda").view(1, 1, hm, 1).float()
+        xs = torch.arange(wm, device="cuda").view(1, 1, 1, wm).float()
+        bx = lambda i: boxes[..., i, None, None]
+        inside = ((xs >= bx(0)) & (xs < bx(2)) & (ys >= bx(1)) & (ys < bx(3))
+                  & valid[..., None, None])
+        covered = int(inside.any(1).sum())
+        cell_dets = int(inside.sum())
+        d = coefs.shape[1]
+        out_bytes = b * d * 4 * ((6 + 4 * wm) if soft else (3 + 2 * wm))
+        in_bytes = (covered * nm * protos.element_size() + coefs.numel() * 4
+                    + boxes.numel() * 4 + valid.numel())
+        nbytes = in_bytes + out_bytes
+        ops = 2.0 * nm * cell_dets
+        peak = PEAK_OPS["bf16" if soft else "f32"]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS["bf16" if soft else "f32"] * 1e3
+    t_ops = ops / peak * 1e3
     info = {"bytes": nbytes, "ops": ops}
     return (t_bytes, "bytes", info) if t_bytes >= t_ops else (t_ops, "operations", info)
 
@@ -242,7 +381,7 @@ def time_kernel(torch, ms, name, args, flush) -> dict:
         t_k = time_ms(torch, lambda: kern(*args), flush=flush)
         t_p = time_ms(torch, lambda: plain(*args), flush=flush)
         t_e = time_ms(torch, lambda: ms._logits(args[0], args[1], logits_dtype), flush=flush)
-        bound, bound_by, info = kernel_bound_ms(torch, soft, *args)
+        bound, bound_by, info = kernel_bound_ms(torch, name, *args)
     return {"ms": t_k, "plain_ms": t_p, "einsum_ms": t_e, "bound_ms": bound,
             "bound_by": bound_by, "shape": list(args[0].shape), "d": args[1].shape[1], **info}
 
@@ -268,6 +407,29 @@ def stats_route(soft_fn, binary_fn):
         mp.mask_stats_soft, mp.mask_stats_binary = saved
 
 
+@contextlib.contextmanager
+def plain_routes(ms, wp):
+    """Bind every kernel's plain version in the kernel's place."""
+    import tti_torch.parallel.runtime as rt
+
+    saved = rt.warp_pass1_decimated
+    rt.warp_pass1_decimated = wp.warp_pass1_decimated_plain
+    try:
+        with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
+            yield
+    finally:
+        rt.warp_pass1_decimated = saved
+
+
+def reset_launch_counts(ms, wp) -> None:
+    ms.reset_launch_counts()
+    wp.reset_launch_counts()
+
+
+def launch_counts(ms, wp) -> dict:
+    return {**ms.LAUNCHES, **wp.LAUNCHES}
+
+
 def capture_stats_inputs(ms, pipe, frames) -> tuple:
     """The (protos, coefs, boxes_grid, valid) one step hands its kernel."""
     seen = []
@@ -289,7 +451,20 @@ def capture_stats_inputs(ms, pipe, frames) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def build_pipeline(torch, frame_hw, imgsz, ckpt):
+_FRAMES: dict = {}
+
+
+def textile(frame_hw, n=8):
+    """``n`` seeded synthetic textile frames (host, uint8), made once per size."""
+    from torch_synth import textile_frames
+
+    if frame_hw not in _FRAMES:
+        _FRAMES[frame_hw] = textile_frames(8, *frame_hw, seed=5)
+    base = _FRAMES[frame_hw]
+    return np.ascontiguousarray(np.tile(base, ((n + 7) // 8, 1, 1, 1))[:n])
+
+
+def build_pipeline(torch, frame_hw, imgsz, ckpt, **kw):
     from tti_torch.calib.io import CalibrationData
     from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
@@ -311,70 +486,93 @@ def build_pipeline(torch, frame_hw, imgsz, ckpt):
         measure_cfg=MeasureConfig().with_subcell_from(meta),
         roi=RoiConfig(enabled=True, x_min=10, x_max=w - 10, y_min=min(300, h // 3),
                       y_max=h - min(200, h // 5)),
-        device="cuda")
+        device="cuda", **kw)
 
 
-def check_step(torch, ms, label, frame_hw, imgsz, ckpt, kernel):
-    from torch_synth import textile_frames
+MM_KEYS = ("raw_edge_mm", "raw_width_mm")
 
+
+def mm_differences(a, b) -> np.ndarray:
+    """|a - b| of the two mm readings on the frames where both measured."""
+    out = []
+    for key in MM_KEYS:
+        x = getattr(a.measurements, key).astype(float)
+        y = getattr(b.measurements, key).astype(float)
+        both = np.isfinite(x) & np.isfinite(y)
+        out.append(np.abs(x[both] - y[both]))
+    return np.concatenate(out)
+
+
+def mm_difference(a, b) -> tuple[float, int]:
+    """The largest of :func:`mm_differences`, and how many readings there are."""
+    d = mm_differences(a, b)
+    return (float(d.max()) if d.size else 0.0), int(d.size)
+
+
+def check_outputs(got, label, batch, max_det) -> None:
+    """Shapes and finiteness: detections always finite; a measurement is
+    either finite or NaN (absent), never infinite."""
+    check(got.boxes_frame.shape == (batch, max_det, 4), f"{label}: boxes shape")
+    check(np.isfinite(got.boxes_frame).all() and np.isfinite(got.scores).all(),
+          f"{label}: boxes and scores must be finite")
+    for key in MM_KEYS:
+        check(not np.isinf(getattr(got.measurements, key)).any(), f"{label}: {key} is infinite")
+    sv = got.stitches.valid
+    for key in ("cx", "cy", "left", "right"):
+        check(np.isfinite(getattr(got.stitches, key)[sv]).all(), f"{label}: stitch {key} not finite")
+    check(got.valid.any(), f"{label}: no detections on the synthetic frames")
+
+
+def check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt, kernels, batch=4, **pipe_kw):
+    """One configuration through ``process_batch``: every kernel in
+    ``kernels`` must launch once in that step, and the step must agree with
+    the same step run with the plain versions bound in the kernels' place."""
     t0 = time.perf_counter()
-    pipe = build_pipeline(torch, frame_hw, imgsz, ckpt)
+    pipe = build_pipeline(torch, frame_hw, imgsz, ckpt, **pipe_kw)
     setup_s = time.perf_counter() - t0
-    frames = textile_frames(4, *frame_hw, seed=5)
-    ms.reset_launch_counts()
+    frames = textile(frame_hw, batch)
+    reset_launch_counts(ms, wp)
     got = pipe.process_batch(frames)
-    launches = dict(ms.LAUNCHES)
-    if launches[kernel] < 1:
-        raise AssertionError(f"{label}: the step never launched {kernel}: {launches}")
-    with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
+    launches = launch_counts(ms, wp)
+    for kernel in kernels:
+        check(launches[kernel] == 1, f"{label}: one launch of {kernel} per step expected: {launches}")
+    with plain_routes(ms, wp):
         ref = pipe.process_batch(frames)
+    check(launch_counts(ms, wp) == launches, f"{label}: the plain step launched a kernel")
 
-    # Same model run: detections are identical. Measurements within 0.01 mm
-    # (the statistics sum in another order), counts and NaN pattern equal.
+    # The same model run, on a model input that is equal (kernel C equals its
+    # plain version with the warp's weights) or absent from the comparison:
+    # detections are identical. Measurements within 0.01 mm (the statistics
+    # sum in another order), counts and NaN pattern equal.
     for key in ("boxes_frame", "scores", "classes", "valid"):
         np.testing.assert_array_equal(getattr(got, key), getattr(ref, key), err_msg=key)
-    m_err = 0.0
-    for key in ("raw_edge_mm", "raw_width_mm", "n_dist", "n_width", "n_stitches",
-                "fabric_detected"):
+    for key in (*MM_KEYS, "n_dist", "n_width", "n_stitches", "fabric_detected"):
         a, r = getattr(got.measurements, key), getattr(ref.measurements, key)
         np.testing.assert_array_equal(np.isnan(a.astype(float)), np.isnan(r.astype(float)),
                                       err_msg=key)
         np.testing.assert_allclose(a.astype(float), r.astype(float), atol=1e-2, err_msg=key)
-        both = ~np.isnan(a.astype(float))
-        if both.any():
-            m_err = max(m_err, float(np.abs(a[both].astype(float) - r[both].astype(float)).max()))
+    m_err, _ = mm_difference(got, ref)
     env_err = float(np.abs(got.envelope.astype(float) - ref.envelope.astype(float)).max())
-    if env_err > 1e-3:
-        raise AssertionError(f"{label}: envelope differs from the plain step by {env_err}")
-    # Shapes and finiteness: detections always finite; a measurement is
-    # either finite or NaN (absent), never infinite.
-    b = frames.shape[0]
-    check(got.boxes_frame.shape == (b, pipe.model_cfg.max_detections, 4), "boxes shape")
-    check(np.isfinite(got.boxes_frame).all() and np.isfinite(got.scores).all(),
-          "boxes and scores must be finite")
-    for key in ("raw_edge_mm", "raw_width_mm"):
-        check(not np.isinf(getattr(got.measurements, key)).any(), f"{key} is infinite")
-    sv = got.stitches.valid
-    for key in ("cx", "cy", "left", "right"):
-        check(np.isfinite(getattr(got.stitches, key)[sv]).all(), f"stitch {key} not finite")
-    if not got.valid.any():
-        raise AssertionError(f"{label}: no detections on the synthetic frames")
-    log(f"{label}: pipeline set-up {setup_s:.1f} s; {launches[kernel]} launch(es) of {kernel} "
-        f"per step; detections/frame {got.valid.sum(1).tolist()}; stitches/frame "
-        f"{got.measurements.n_stitches.tolist()}; edge mm {np.round(got.measurements.raw_edge_mm, 4).tolist()}; "
-        f"width mm {np.round(got.measurements.raw_width_mm, 4).tolist()}; "
+    check(env_err <= 1e-3, f"{label}: envelope differs from the plain step by {env_err}")
+    check_outputs(got, label, batch, pipe.model_cfg.max_detections)
+    shown = slice(0, 4)
+    log(f"{label}: pipeline set-up {setup_s:.1f} s; batch {batch}; launches per step "
+        f"{ {k: launches[k] for k in kernels} }; detections/frame {got.valid.sum(1)[shown].tolist()}; "
+        f"stitches/frame {got.measurements.n_stitches[shown].tolist()}; edge mm "
+        f"{np.round(got.measurements.raw_edge_mm[shown], 4).tolist()}; width mm "
+        f"{np.round(got.measurements.raw_width_mm[shown], 4).tolist()}; "
         f"max |kernel - plain| over mm {m_err:.3g}, envelope {env_err:.3g}")
-    return pipe, launches[kernel]
+    return pipe, launches, got
 
 
 STAGES = ("preprocess", "forward", "detect", "measure")
 
 
-def breakdown(torch, pipe, label, frames, step_ms):
+def breakdown(torch, pipe, label, frames, step_ms, profile=True):
     """Where one batch's step goes: stream time per stage (CUDA events
     between the stages, so device idle while the host enqueues counts to the
-    stage that waits), then the profiler's device time by kernel name and the
-    device's idle share of the unprofiled step time."""
+    stage that waits), then (``profile``) the profiler's device time by
+    kernel name and the device's idle share of the unprofiled step time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -398,6 +596,8 @@ def breakdown(torch, pipe, label, frames, step_ms):
     staged = sum(totals.values())
     log(f"{label} stages at batch {frames.shape[0]} (ms per step, share): " + ", ".join(
         f"{s} {t:.3f} ({t / staged:.1%})" for s, t in totals.items()))
+    if not profile:
+        return {"stages_ms": totals}
 
     steps = 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -432,17 +632,13 @@ def breakdown(torch, pipe, label, frames, step_ms):
             "mask_stats_ms": soft_or_binary}
 
 
-def time_step(torch, ms, pipe, label, frame_hw):
+def time_step(torch, ms, pipe, label, frame_hw, profile=True, iters=20, p50_iters=50):
     """Step timings and breakdowns; also returns the mask-stats inputs of
     one batch-128 step."""
-    from torch_synth import textile_frames
-
     batch = BATCH
-    base = torch.from_numpy(textile_frames(8, *frame_hw, seed=9)).cuda()
-    frames = base.repeat((batch + 7) // 8, 1, 1, 1)[:batch].contiguous()
+    frames = torch.from_numpy(textile(frame_hw, batch)).cuda()
     pipe.step(frames)
     torch.cuda.synchronize()
-    iters = 20
     t0 = time.perf_counter()
     for _ in range(iters):
         pipe.step(frames)
@@ -452,7 +648,7 @@ def time_step(torch, ms, pipe, label, frame_hw):
     pipe.step(one)
     torch.cuda.synchronize()
     lats = []
-    for _ in range(50):
+    for _ in range(p50_iters):
         t = time.perf_counter()
         pipe.step(one)
         torch.cuda.synchronize()
@@ -461,11 +657,288 @@ def time_step(torch, ms, pipe, label, frame_hw):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"{label}: {fps:.1f} frames/s at batch {batch} ({iters} steps, device-resident "
         f"frames); batch-1 p50 {p50:.3f} ms; peak device memory {peak_gb:.1f} GB")
-    parts = breakdown(torch, pipe, label, frames, 1e3 * batch / fps)
-    one_parts = breakdown(torch, pipe, f"{label} batch-1", one, p50)
+    parts = breakdown(torch, pipe, label, frames, 1e3 * batch / fps, profile)
+    one_parts = breakdown(torch, pipe, f"{label} batch-1", one, p50, profile)
     stats_args = capture_stats_inputs(ms, pipe, frames)
     return {"frames_per_s": fps, "batch": batch, "p50_ms": p50, "at_batch": parts,
             "at_batch_1": one_parts}, stats_args
+
+
+def warp_in_f32(torch, warp, content):
+    """The two-pass warp evaluated in float32 from the same (bf16) weights:
+    both products and the pad shift in float32, no intermediate rounding."""
+    pad = warp.pad_value
+    i1 = torch.einsum("bywc,ywo->byoc", content.float() - pad, warp.w1.float())
+    i1 = i1.reshape(i1.shape[0], i1.shape[1], -1, 2, i1.shape[3])
+    out = torch.einsum("byodc,odvey->bvoedc", i1, warp.w2.float()) + pad
+    b, v2, o2, dv, do, c = out.shape
+    return out.reshape(b, v2, o2, dv * do * c)
+
+
+def check_kernel_route(torch, head, head_k, got_e, got_k, frame_hw) -> dict:
+    """The headline step with warp_pass1="kernel" against the "einsum" step
+    on the same batch-128 frames."""
+    from tti_torch.preprocess.letterbox import letterbox_content
+
+    frames = torch.from_numpy(textile(frame_hw, BATCH)).cuda()
+    with torch.inference_mode():
+        x_e, x_k = head.preprocess(frames), head_k.preprocess(frames)
+        diff = (x_e.float() - x_k.float()).abs()
+        x_max, x_mean = float(diff.max()), float(diff.mean())
+        # The card's bf16 warp against the same warp in float32 (4 frames):
+        # the port rounds pass 2 to bf16 and then adds the pad in bf16, where
+        # the reference adds the pad to the float32 sum and rounds once.
+        content = letterbox_content(frames[:4], head.spec, torch.float32, decimate=True)
+        f32_diff = float((x_e[:4].float() - warp_in_f32(torch, head.warp, content)).abs().max())
+    # 2^-7: the kernel multiplies by bf16(1/255) where the chain divides by
+    # 255, one bf16 step of the content (2^-8 below 1.0), and the rounding
+    # after pass 1 and after pass 2 can each move that by another step.
+    limit = 2.0 ** -7
+    check(x_max <= limit, f"kernel route: model input differs from the einsum route by {x_max}")
+    # The binary readout is quantised: a model input that moves by a bf16
+    # step can flip one mask cell at the 0 threshold, and one stride-4 cell
+    # is 12 frame px, about 0.95 mm here; a reading is a mean over its 4-8
+    # stitches, so one flipped cell moves it by 0.12-0.24 mm. Limit: 0.25 mm
+    # on every reading, and the median reading within 0.05 mm.
+    d = mm_differences(got_k, got_e)
+    check(d.size > 0, "kernel route: no frame measured on both routes")
+    mm, mm_med, over = float(d.max()), float(np.median(d)), int((d > 0.05).sum())
+    check(mm <= 0.25 and mm_med <= 0.05,
+          f"kernel route: mm differ from the einsum route by max {mm}, median {mm_med}")
+    det_same = float((got_k.valid == got_e.valid).mean())
+    log(f"headline kernel route against the einsum route at batch {BATCH}: model input max abs "
+        f"diff {x_max:.4g} (limit {limit:.4g}), mean {x_mean:.3g}; mm diff over {d.size} readings: "
+        f"max {mm:.4g} (limit 0.25), median {mm_med:.4g} (limit 0.05), {over} above 0.05; "
+        f"detection slots that agree {det_same:.4%}")
+    log(f"headline warp in bf16 against the same warp in float32 (4 frames): max abs diff "
+        f"{f32_diff:.4g}")
+    return {"input_max_abs_diff": x_max, "input_mean_abs_diff": x_mean, "mm_max_diff": mm,
+            "mm_median_diff": mm_med, "bf16_vs_f32_warp_max_abs_diff": f32_diff}
+
+
+def stage_ms(torch, fn, iters=10) -> float:
+    """Stream ms per call of ``fn`` (CUDA events around ``iters`` calls)."""
+    with torch.inference_mode():
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_packed(torch, ms, wp, head, frame_hw, imgsz, ckpt) -> dict:
+    """The headline geometry with remap="packed" at batch 128, against the
+    two-pass step."""
+    label = "packed-remap step (1080x1920, imgsz 640, gather remap)"
+    pipe, _, got = check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt,
+                              ("mask_stats_binary",), batch=BATCH, remap="packed")
+    from tti_torch.preprocess.remap import PackedRemap
+
+    check(isinstance(pipe.warp, PackedRemap), "remap='packed' must build the gather")
+    frames = torch.from_numpy(textile(frame_hw, BATCH)).cuda()
+    with torch.inference_mode():
+        diff = (pipe.preprocess(frames).float() - head.preprocess(frames).float()).abs()
+        mean, p99, worst = float(diff.mean()), float(diff.flatten()[::97].quantile(0.99)), float(diff.max())
+    # The two routes differ by the interpolation kernel only (p99 positional
+    # error under 0.01 px, larger only on the outermost columns), by the
+    # gather's 8-bit packing and weights (1/255 = 0.0039) and by bf16
+    # rounding of the outputs (2^-8 below 1.0): a mean absolute difference
+    # under 0.01 on textile frames. The maximum sits on the edge columns and
+    # is printed, not bounded.
+    check(mean <= 0.01, f"packed route: mean abs model-input difference {mean} > 0.01")
+    pre = stage_ms(torch, lambda: pipe.preprocess(frames))
+    pre_two = stage_ms(torch, lambda: head.preprocess(frames))
+    fps = BATCH * 1e3 / stage_ms(torch, lambda: pipe.step(frames), iters=5)
+    log(f"packed-remap model input against the two-pass step's at batch {BATCH}: mean abs diff "
+        f"{mean:.4g} (limit 0.01), p99 {p99:.4g}, max {worst:.4g}; preprocess stage {pre:.3f} ms "
+        f"(two-pass {pre_two:.3f} ms); step {fps:.1f} frames/s")
+    return {"input_mean_abs_diff": mean, "input_max_abs_diff": worst, "preprocess_ms": pre,
+            "twopass_preprocess_ms": pre_two, "frames_per_s": fps}
+
+
+def check_dual(torch, ms, wp, head, got_head, frame_hw, imgsz, ckpt_b) -> dict:
+    """Two checkpoints on one preprocessed batch: each model's outputs equal
+    its own single-pipeline outputs on the same frames."""
+    from tti_torch.parallel.runtime import DualPipeline
+
+    second = build_pipeline(torch, frame_hw, imgsz, ckpt_b)
+    frames = textile(frame_hw, BATCH)
+    solo_b = second.process_batch(frames)
+    free_before = torch.cuda.memory_allocated()
+    dual = DualPipeline(head, second)
+    check(second.warp is head.warp, "the secondary must share the primary's warp weights")
+    freed = (free_before - torch.cuda.memory_allocated()) / 1e6
+    reset_launch_counts(ms, wp)
+    out_a, out_b = dual.process_batch(frames)
+    launches = launch_counts(ms, wp)
+    check(launches["mask_stats_binary"] == 2, f"dual step: one kernel-B launch per model: {launches}")
+    worst = {}
+    for name, got, solo in (("primary", out_a, got_head), ("secondary", out_b, solo_b)):
+        # The same model on the same preprocessed buffer: boxes within 1e-3
+        # px, mm within 0.01 (atomics-free kernels: in fact equal).
+        np.testing.assert_array_equal(got.valid, solo.valid, err_msg=name)
+        np.testing.assert_allclose(got.boxes_frame, solo.boxes_frame, atol=1e-3, err_msg=name)
+        for key in MM_KEYS:
+            np.testing.assert_allclose(getattr(got.measurements, key),
+                                       getattr(solo.measurements, key), atol=1e-2,
+                                       equal_nan=True, err_msg=f"{name} {key}")
+        check_outputs(got, f"dual {name}", BATCH, dual.primary.model_cfg.max_detections)
+        worst[name] = (float(np.abs(got.boxes_frame - solo.boxes_frame).max()),
+                       mm_difference(got, solo)[0])
+    check(not np.array_equal(out_a.scores, out_b.scores), "the two checkpoints give equal scores")
+    dev = torch.from_numpy(frames).cuda()
+    fps = BATCH * 1e3 / stage_ms(torch, lambda: dual.step(dev), iters=10)
+    log(f"dual step (1080x1920, imgsz 640, {ckpt_b} beside the headline checkpoint) at batch "
+        f"{BATCH}: secondary shares the primary's warp ({freed:.0f} MB of device memory freed); "
+        f"max |dual - single| boxes/mm: primary {worst['primary']}, secondary "
+        f"{worst['secondary']}; {fps:.1f} frames/s (both models' full chains per frame)")
+    return {"frames_per_s": fps, "warp_freed_mb": freed}
+
+
+class FixedSource:
+    """A 60 frames/s camera that shows one frame for ever."""
+
+    def __init__(self, frame):
+        self.frame = frame
+
+    def read(self):
+        time.sleep(1 / 60)
+        return True, self.frame
+
+    def reconnect(self): ...
+
+    def release(self): ...
+
+
+def time_runner(runner, n_steps=25) -> tuple[float, float]:
+    """Seconds for ``n_steps`` blocking steps, then for ``n_steps + 1``
+    pipelined steps and a flush (the first pipelined call only dispatches;
+    its device work falls inside the window)."""
+    runner.step()  # warm the batch's shapes
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        runner.step()
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner.step_pipelined()
+    for _ in range(n_steps):
+        runner.step_pipelined()
+    runner.flush()
+    return sync_s, time.perf_counter() - t0
+
+
+def check_streams(torch, pipe, frame_hw) -> dict:
+    """Four 1080p cameras through ``MultiStreamRunner`` with the C++ rings:
+    first on fixed frames, where the pipelined results must equal the
+    blocking ones; then on generated frames, 25 blocking steps, then 26
+    pipelined steps and a flush."""
+    from tti_torch.app.sources import SyntheticSource
+    from tti_torch.parallel.streams import MultiStreamRunner
+
+    n_steps = 25
+    fixed = textile(frame_hw, 4)
+    want = pipe.process_batch(fixed)
+    runner = MultiStreamRunner(pipe, [FixedSource(f) for f in fixed], frame_hw, native=True)
+    runner.start()
+    try:
+        check(runner.wait_for_frames(), "streams: no frames from the fixed sources")
+        blocking, smoothed = runner.step()
+        check(runner.step_pipelined() is None, "streams: the first pipelined call returns None")
+        piped, _ = runner.step_pipelined()
+        last, _ = runner.flush()
+        check(runner.flush() is None, "streams: nothing left in flight after flush")
+        # The same program on camera-paced sources that cost the host nothing.
+        fixed_sync_s, fixed_pipe_s = time_runner(runner, n_steps)
+    finally:
+        runner.stop()
+    for name, outs in (("blocking", blocking), ("pipelined", piped), ("flushed", last)):
+        for key in ("boxes_frame", "scores", "valid"):
+            np.testing.assert_array_equal(getattr(outs, key), getattr(want, key),
+                                          err_msg=f"{name} {key}")
+        for key in MM_KEYS:
+            np.testing.assert_array_equal(getattr(outs.measurements, key),
+                                          getattr(want.measurements, key), err_msg=f"{name} {key}")
+    check(len(smoothed) == 4 and all(r.stitch_width_mm.is_cuda for r in smoothed),
+          "streams: one smoothed measurement per stream, on the card")
+    check_outputs(blocking, "streams", 4, pipe.model_cfg.max_detections)
+
+    h, w = frame_hw
+    runner = MultiStreamRunner(pipe, [SyntheticSource(h, w, seed=i) for i in range(4)], frame_hw,
+                               native=True)
+    check(all(wk.ring.native for wk in runner.workers), "streams: the C++ ring must be in use")
+    runner.start()
+    try:
+        check(runner.wait_for_frames(10.0), "streams: no frames from the synthetic sources")
+        sync_s, pipe_s = time_runner(runner, n_steps)
+        outs, _ = runner.step()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            batch = runner.assemble_batch()
+        gather_ms = (time.perf_counter() - t0) / 10 * 1e3
+        captured = [wk.stats.captured for wk in runner.workers]
+    finally:
+        runner.stop()
+    check(outs.boxes_frame.shape == (4, pipe.model_cfg.max_detections, 4), "streams: boxes shape")
+    check(runner.batches == 2 * n_steps + 3, f"streams: {runner.batches} batches read")
+    sync_fps, pipe_fps = 4 * n_steps / sync_s, 4 * (n_steps + 1) / pipe_s
+    fixed_sync_fps, fixed_pipe_fps = 4 * n_steps / fixed_sync_s, 4 * (n_steps + 1) / fixed_pipe_s
+    log(f"streams (4 x {h}x{w} generated frames, C++ rings, batch 4): blocking {sync_fps:.1f} "
+        f"frames/s ({1e3 * sync_s / n_steps:.3f} ms/step), pipelined {pipe_fps:.1f} frames/s "
+        f"({1e3 * pipe_s / (n_steps + 1):.3f} ms/step); host-to-device {batch.nbytes / 1e6:.1f} MB "
+        f"per step; ring snapshot into the pinned buffer {gather_ms:.3f} ms; frames captured per "
+        f"stream {captured}")
+    log(f"streams on fixed frames (60 frames/s sources that cost the host nothing): blocking "
+        f"{fixed_sync_fps:.1f} frames/s ({1e3 * fixed_sync_s / n_steps:.3f} ms/step), pipelined "
+        f"{fixed_pipe_fps:.1f} frames/s ({1e3 * fixed_pipe_s / (n_steps + 1):.3f} ms/step)")
+    return {"blocking_frames_per_s": sync_fps, "pipelined_frames_per_s": pipe_fps,
+            "fixed_blocking_frames_per_s": fixed_sync_fps,
+            "fixed_pipelined_frames_per_s": fixed_pipe_fps,
+            "h2d_bytes_per_step": int(batch.nbytes), "gather_ms": gather_ms}
+
+
+def time_warp_p1(torch, wp, pipe, frame_hw, flush) -> dict:
+    """Kernel C at the headline step's shapes (batch 128 and 1): the kernel,
+    its plain version, the unfused chain it replaces (letterbox_content ->
+    subtract pad -> pass-1 einsum), its bound, and pass 2 from either
+    layout."""
+    from tti_torch.preprocess.letterbox import letterbox_content
+
+    warp, spec = pipe.warp, pipe.spec
+    kw = dict(k=3, off=1, hs=spec.new_h, ws=spec.new_w, pad_value=warp.pad_value)
+    pad = torch.tensor(warp.pad_value, dtype=warp.w1.dtype)
+
+    def unfused(f):
+        content = letterbox_content(f, spec, torch.bfloat16, decimate=True)
+        return torch.einsum("bywc,ywo->byoc", content.to(warp.w1.dtype) - pad, warp.w1)
+
+    out = {}
+    with torch.inference_mode():
+        for batch in (BATCH, 1):
+            frames = torch.from_numpy(textile(frame_hw, batch)).cuda()
+            t = {"ms": time_ms(torch, lambda: wp.warp_pass1_decimated(frames, warp.w1, **kw),
+                               flush=flush),
+                 "plain_ms": time_ms(torch, lambda: wp.warp_pass1_decimated_plain(
+                     frames, warp.w1, **kw), iters=5, flush=flush),
+                 "unfused_ms": time_ms(torch, lambda: unfused(frames), flush=flush)}
+            i1_k = wp.warp_pass1_decimated(frames, warp.w1, **kw)
+            i1_e = unfused(frames)
+            t["pass2_from_ycbo_ms"] = time_ms(
+                torch, lambda: warp.apply_pass2_ycbo(i1_k, torch.bfloat16), flush=flush)
+            t["pass2_from_byoc_ms"] = time_ms(torch, lambda: warp.apply_pass2(i1_e, torch.bfloat16), flush=flush)
+            t["bound_ms"], t["bound_by"], info = kernel_bound_ms(
+                torch, "warp_pass1_decimated", frames, warp.w1, kw)
+            t.update(info, shape=list(frames.shape))
+            out[batch] = t
+            log(f"  warp_pass1_decimated on the headline step's frames {tuple(frames.shape)}, W1 "
+                f"{tuple(warp.w1.shape)}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"unfused chain {t['unfused_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}; {t['bytes'] / 1e6:.2f} MB, {t['ops'] / 1e9:.3f} GFLOP); pass 2 "
+                f"from (y,c,b,o) {t['pass2_from_ycbo_ms']:.4f} ms, from (b,y,o,c) "
+                f"{t['pass2_from_byoc_ms']:.4f} ms")
+    return out
 
 
 def main() -> int:
@@ -476,51 +949,77 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     sys.path.append(os.path.join(HERE, "tests"))
+    from tti_torch import native
+    from tti_torch.kernels import build as kbuild
     from tti_torch.kernels import maskstats as ms
+    from tti_torch.kernels import warp_p1 as wp
 
     # Phase 1: the card.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # Phase 2: build.
+    # Phase 2: build, one nvcc per source, started together.
     t0 = time.perf_counter()
+    kbuild.compile_all(("maskstats", "warp_p1"))
     ms.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    for line in ms.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    wp.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, maskstats.cu and warp_p1.cu)")
+    for name, text in sorted(kbuild.build_logs.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    check(native._load_library() is not None, "the C++ frame ring did not build")
+    log(f"build: {time.perf_counter() - t0:.1f} s (g++, framering.cpp)")
 
-    # Phase 3: kernels against their plain versions.
+    # Phase 3: the mask-stats kernels against their plain versions.
     log("kernel checks against the plain versions:")
     errs = check_kernels(torch, ms)
 
-    # Phases 4-5: the two configurations through process_batch; each step's
-    # own kernel inputs at batch 128 are kept for phase 6.
-    dep, dep_launches = check_step(torch, ms, "deploy step (960x1280, imgsz 960, stride-2 soft)",
-                                   (960, 1280), 960, "yolov8n_textile_cam.msgpack",
-                                   "mask_stats_soft")
-    dep_time, dep_args = time_step(torch, ms, dep, "deploy", (960, 1280))
+    # Phases 4-5: the configurations through process_batch; each step's own
+    # kernel inputs at batch 128 are kept for phase 6.
+    head_hw, head_ckpt = (1080, 1920), "yolov8n_textile.msgpack"
+    dep, dep_launches, _ = check_step(
+        torch, ms, wp, "deploy step (960x1280, imgsz 960, stride-2 soft)", (960, 1280), 960,
+        "yolov8n_textile_cam.msgpack", ("mask_stats_soft",))
+    dep_time, dep_args = time_step(torch, ms, dep, "deploy", (960, 1280), iters=10, p50_iters=30)
     del dep
     torch.cuda.empty_cache()
-    head, head_launches = check_step(torch, ms,
-                                     "headline step (1080x1920, imgsz 640, stride-4 binary)",
-                                     (1080, 1920), 640, "yolov8n_textile.msgpack",
-                                     "mask_stats_binary")
-    head_time, head_args = time_step(torch, ms, head, "headline", (1080, 1920))
-    del head
+    head, head_launches, got_e = check_step(
+        torch, ms, wp, "headline step (1080x1920, imgsz 640, stride-4 binary)", head_hw, 640,
+        head_ckpt, ("mask_stats_binary",), batch=BATCH)
+    # Phase 3 again, for kernel C, with the headline warp's own weights.
+    errs["warp_pass1_decimated"] = check_warp_p1(torch, wp, head.warp, head.spec)
+    torch.cuda.empty_cache()
+    head_time, head_args = time_step(torch, ms, head, "headline", head_hw)
+
+    head_k, k_launches, got_k = check_step(
+        torch, ms, wp, "headline step with warp_pass1='kernel'", head_hw, 640, head_ckpt,
+        ("warp_pass1_decimated", "mask_stats_binary"), batch=BATCH, warp_pass1="kernel")
+    route = check_kernel_route(torch, head, head_k, got_e, got_k, head_hw)
+    head_k_time, _ = time_step(torch, ms, head_k, "headline, kernel route", head_hw, profile=False)
     torch.cuda.empty_cache()
 
+    packed = check_packed(torch, ms, wp, head, head_hw, 640, head_ckpt)
+    torch.cuda.empty_cache()
+    dual = check_dual(torch, ms, wp, head, got_e, head_hw, 640, "yolov8n_textile_960.msgpack")
+    torch.cuda.empty_cache()
+    streams = check_streams(torch, head, head_hw)
+
     # Phase 6: kernel timings, on each step's own inputs (the kernels line)
-    # and on a synthetic input whose first box covers the whole grid.
+    # and, for the mask statistics, on a synthetic input whose first box
+    # covers the whole grid.
     log("kernel timings (CUDA events, L2 flushed before each call):")
     flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    launches = {"mask_stats_soft": dep_launches, "mask_stats_binary": head_launches}
+    launches = {"mask_stats_soft": dep_launches["mask_stats_soft"],
+                "mask_stats_binary": head_launches["mask_stats_binary"]}
     replaces = {"mask_stats_soft": "tti/kernels/maskstats.py:454",
                 "mask_stats_binary": "tti/kernels/maskstats.py:261"}
     step_inputs = {"mask_stats_soft": ("the deploy step's inputs", dep_args),
@@ -543,7 +1042,27 @@ def main() -> int:
             "whole_grid": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         })
     del dep_args, head_args
-    log(json.dumps({"steps": {"deploy": dep_time, "headline": head_time}}))
+    torch.cuda.empty_cache()
+    c = time_warp_p1(torch, wp, head_k, head_hw, flush)
+    kernels.append({
+        "name": "warp_pass1_decimated", "route": "cuda",
+        "source": "tti_torch/kernels/csrc/warp_p1.cu", "replaces": "tti/kernels/warp_p1.py:64",
+        "launches": k_launches["warp_pass1_decimated"],
+        "max_abs_err": errs["warp_pass1_decimated"]["max_abs_err"],
+        "max_rel_err": errs["warp_pass1_decimated"]["max_rel_err"],
+        "ms": c[BATCH]["ms"], "plain_ms": c[BATCH]["plain_ms"], "bound_ms": c[BATCH]["bound_ms"],
+        "bound_by": c[BATCH]["bound_by"], "library_ms": None,
+        "unfused_ms": c[BATCH]["unfused_ms"], "timed_on": "the headline step's frames",
+        "timed_shape": c[BATCH]["shape"],
+        "pass2_from_ycbo_ms": c[BATCH]["pass2_from_ycbo_ms"],
+        "pass2_from_byoc_ms": c[BATCH]["pass2_from_byoc_ms"],
+        "batch_1": {k: c[1][k] for k in ("ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by",
+                                         "pass2_from_ycbo_ms", "pass2_from_byoc_ms")},
+    })
+    log(json.dumps({"card": card, "steps": {
+        "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
+        "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams}}))
+    log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,9 @@ import tti_torch
 names = [m.name for m in pkgutil.walk_packages(tti_torch.__path__, "tti_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
+             "tti_torch.kernels.warp_p1", "tti_torch.core.logging"):
+    assert name in names and name in sys.modules, name
 
 import numpy as np
 from tti_torch.calib.io import CalibrationData
@@ -56,8 +59,10 @@ def test_port_imports_nothing_of_jax_or_tti():
 
 def test_port_sources_name_no_forbidden_module():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti)\b", re.M)
-    sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(sources) > 10
+    sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
+    sources.append(REPO / "chip_smoke.py")
+    names = {p.name for p in sources}
+    assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "framering.cpp"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

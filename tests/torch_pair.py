@@ -1,0 +1,91 @@
+"""Builds the same inspection pipeline twice, in tti (JAX) and in tti_torch,
+for the tests that hold one against the other: same checkpoint, calibration,
+ROI and synthetic textile frames, float32 on the CPU. conf_thresh 0.05 and
+min_stitches 1 so that the small inputs give detections and millimetre
+values to compare.
+
+- deploy: (240, 320) frames at imgsz 240 (rect letterbox: a 0.8 bilinear
+  resize to 192x256), the stride-2 subpixel soft checkpoint;
+- headline: (216, 384) frames at imgsz 128 (an exact x3 decimation to 72x128
+  content), the stride-4 binary checkpoint; headline_b is the same geometry
+  with the other stride-4 checkpoint of the repository.
+"""
+
+import numpy as np
+from flax import serialization
+
+import tti.calib.io as jio
+import tti.core.config as jcfg
+from tti.parallel.runtime import InspectionPipeline as JaxPipeline
+import tti_torch.calib.io as tio
+import tti_torch.core.config as tcfg
+from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
+from tti_torch.parallel.runtime import InspectionPipeline
+from tests.torch_synth import textile_frames
+
+RVEC = np.array([-0.8631369244225452, -0.3919482615538663, -1.3591256137314185])
+TVEC = np.array([0.005016396186926285, 0.03590342712705542, 0.09382141278570659])
+
+GEOMETRIES = {
+    "deploy": ("yolov8n_textile_cam", (240, 320), 240),
+    "headline": ("yolov8n_textile", (216, 384), 128),
+    "headline_b": ("yolov8n_textile_960", (216, 384), 128),
+}
+
+
+def pipelines(name, ref_intrinsics, calibrated=True, dist=None, port_kw=None, ref_kw=None,
+              n_frames=2):
+    """(port pipeline, tti pipeline, frames). ``port_kw`` / ``ref_kw`` are
+    extra constructor arguments of either side; tti's environment switches
+    are the caller's to set (they are read at construction)."""
+    ckpt, hw, imgsz = GEOMETRIES[name]
+    path = f"checkpoints/{ckpt}.msgpack"
+    meta = checkpoint_metadata(path)
+    K, dist0 = ref_intrinsics
+    K = K.copy()
+    K[0] *= hw[1] / 1280.0
+    K[1] *= hw[0] / 960.0
+    model_kw = dict(variant="n", num_classes=2, image_size=imgsz, dtype="float32",
+                    conf_thresh=0.05, mask_stride=meta.get("mask_stride", 4),
+                    proto_head=meta.get("proto_head", "deconv"))
+    roi_kw = dict(enabled=True, x_min=10, x_max=hw[1] - 10, y_min=min(300, hw[0] // 3),
+                  y_max=hw[0] - min(200, hw[0] // 5))
+    calib = dict(K=K, dist=dist0 if dist is None else dist, rvec=RVEC, tvec=TVEC)
+    with open(path, "rb") as f:
+        variables = serialization.msgpack_restore(f.read())
+    ref = JaxPipeline(jcfg.ModelConfig(**model_kw), variables, hw,
+                      jio.CalibrationData(**calib) if calibrated else None,
+                      jcfg.MeasureConfig(min_stitches=1).with_subcell_from(meta),
+                      jcfg.RoiConfig(**roi_kw), **(ref_kw or {}))
+    got = InspectionPipeline(tcfg.ModelConfig(**model_kw), load_flax_msgpack(path), hw,
+                             tio.CalibrationData(**calib) if calibrated else None,
+                             tcfg.MeasureConfig(min_stitches=1).with_subcell_from(meta),
+                             tcfg.RoiConfig(**roi_kw), device="cpu", **(port_kw or {}))
+    return got, ref, textile_frames(n_frames, *hw, seed=5)
+
+
+def assert_outputs_match(got, ref, box_atol=1e-3, mm_atol=1e-3):
+    """Port outputs against tti's: 1e-3 px on boxes (float32 through the
+    network), 1e-3 mm on measurements, counts and flags equal."""
+    np.testing.assert_array_equal(got.valid, ref.valid)
+    np.testing.assert_array_equal(got.classes, ref.classes)
+    np.testing.assert_allclose(got.scores, ref.scores, atol=1e-5)
+    np.testing.assert_allclose(got.boxes_frame, ref.boxes_frame, atol=box_atol)
+    for key in ref.telemetry:
+        np.testing.assert_array_equal(got.telemetry[key], np.asarray(ref.telemetry[key]),
+                                      err_msg=key)
+    if ref.measurements is None:
+        assert got.measurements is None
+        return
+    for field in ("raw_edge_mm", "raw_width_mm", "edge_distance_mm", "stitch_width_mm"):
+        np.testing.assert_allclose(getattr(got.measurements, field),
+                                   np.asarray(getattr(ref.measurements, field)), atol=mm_atol,
+                                   err_msg=field)
+    for field in ("n_dist", "n_width", "n_stitches", "fabric_detected"):
+        np.testing.assert_array_equal(getattr(got.measurements, field),
+                                      np.asarray(getattr(ref.measurements, field)), err_msg=field)
+    np.testing.assert_allclose(got.envelope, np.asarray(ref.envelope), atol=1e-3)
+    for field in ("cx", "cy", "left", "right"):
+        sv = got.stitches.valid
+        np.testing.assert_allclose(getattr(got.stitches, field)[sv],
+                                   np.asarray(getattr(ref.stitches, field))[sv], atol=1e-3)

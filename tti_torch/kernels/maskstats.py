@@ -19,32 +19,24 @@ f32 logits; the soft path rounds coefs to bf16 and the f32-accumulated
 logits to bf16 before the sigmoid. ``logits_dtype`` selects either.
 
 The shared library is built with nvcc at first use into ``build/`` at the
-repository root, from ``csrc/maskstats.cu`` alone, and bound with ctypes.
+repository root, from ``csrc/maskstats.cu`` alone, and bound with ctypes
+(:mod:`tti_torch.kernels.build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-Tensor = torch.Tensor
+from tti_torch.kernels.build import load_library
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "maskstats.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+Tensor = torch.Tensor
 
 # Kernel launches per wrapper (plain-version calls are not counted).
 LAUNCHES = {"mask_stats_soft": 0, "mask_stats_binary": 0}
 
 _lib: ctypes.CDLL | None = None
-build_log = ""  # ptxas' register/spill report of the last build
 
 
 def reset_launch_counts() -> None:
@@ -52,42 +44,19 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the mask-stats kernels need the CUDA toolkit")
-    return found
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtti_maskstats_{tag}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{build_log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    common = [p, i, p, p, p, i, i, i, i, i, i, i]
-    lib.tti_mask_stats_soft.argtypes = common + [p, p, p, p, p, p]
-    lib.tti_mask_stats_binary.argtypes = common + [p, p, p, p]
-    lib.tti_mask_stats_soft.restype = i
-    lib.tti_mask_stats_binary.restype = i
-    _lib = lib
-    return lib
+    global _lib
+    if _lib is None:
+        lib = load_library("maskstats")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        common = [p, i, p, p, p, i, i, i, i, i, i, i]
+        lib.tti_mask_stats_soft.argtypes = common + [p, p, p, p, p, p]
+        lib.tti_mask_stats_binary.argtypes = common + [p, p, p, p]
+        lib.tti_mask_stats_soft.restype = i
+        lib.tti_mask_stats_binary.restype = i
+        _lib = lib
+    return _lib
 
 
 # ---------------------------------------------------------------------------

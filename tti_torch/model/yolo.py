@@ -113,6 +113,14 @@ def space_to_depth2(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 2, w // 2, 4 * c)
 
 
+def depth_to_space2(x: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`space_to_depth2`: (B, H/2, W/2, 4C) ->
+    (B, H, W, C), a pure permutation."""
+    b, h2, w2, c4 = x.shape
+    x = x.reshape(b, h2, w2, 2, 2, c4 // 4).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h2 * 2, w2 * 2, c4 // 4)
+
+
 class YOLOv8Seg(nn.Module):
     """Backbone + PAN neck + Segment head with the space-to-depth stem.
 

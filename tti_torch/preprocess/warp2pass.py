@@ -25,7 +25,7 @@ class TwoPassWarp:
     """Precompiled two-pass warp for one calibration + letterbox geometry.
 
     Raises ValueError when the vertical map is not strictly monotonic per
-    column (the gather fallback is not ported)."""
+    column; the runtime then falls back to the gather (``PackedRemap``)."""
 
     def __init__(self, map_xy: np.ndarray, src_hw: tuple[int, int],
                  pad_value: float = PAD_VALUE / 255.0, s2d_out: bool = False,
@@ -96,18 +96,41 @@ class TwoPassWarp:
     def apply(self, content: torch.Tensor) -> torch.Tensor:
         """(B, hs, ws, C) content -> (B, dst_h, dst_w, C) warped + padded, or
         (B, dst_h/2, dst_w/2, 4C) blocked in ``s2d_out`` mode."""
-        dtype = content.dtype
         wdt = self.w1.dtype
-        pad = torch.tensor(self.pad_value, dtype=wdt)
-        x = content.to(wdt) - pad
-        i1 = torch.einsum("bywc,ywo->byoc", x, self.w1)
+        x = content.to(wdt) - torch.tensor(self.pad_value, dtype=wdt)
+        return self.apply_pass2(torch.einsum("bywc,ywo->byoc", x, self.w1), content.dtype)
+
+    def apply_pass2(self, i1: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        """Pass 2 over the pass-1 intermediate in (b, y, o, c) layout."""
         if self.s2d_out:
             i1 = i1.reshape(i1.shape[0], i1.shape[1], -1, 2, i1.shape[3])
             out = torch.einsum("byodc,odvey->bvoedc", i1, self.w2)
+        else:
+            out = torch.einsum("byoc,ovy->bvoc", i1, self.w2)
+        return self._finish(out, out_dtype)
+
+    def apply_pass2_ycbo(self, i1: torch.Tensor, out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
+        """Pass 2 over a pass-1 intermediate in (y, c, b, o) layout, which is
+        what :func:`tti_torch.kernels.warp_p1.warp_pass1_decimated` emits:
+        the same product as :meth:`apply_pass2` with the free dimensions
+        (c, b) in place of (b, c)."""
+        i1 = i1.to(self.w2.dtype)
+        if self.s2d_out:
+            y, c, b, o = i1.shape
+            out = torch.einsum("ycbod,odvey->bvoedc", i1.reshape(y, c, b, o // 2, 2), self.w2)
+        else:
+            out = torch.einsum("ycbo,ovy->bvoc", i1, self.w2)
+        return self._finish(out, out_dtype or i1.dtype)
+
+    def _finish(self, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Shift the pad back (in the weight type, after the product was
+        rounded to it) and give the result its final form."""
+        out = (out + torch.tensor(self.pad_value, dtype=out.dtype)).to(dtype)
+        if self.s2d_out:
             b, v2, o2, dv, do, c = out.shape
             # channel (dv*2 + do)*C + c: space_to_depth2's order.
-            return (out + pad).to(dtype).reshape(b, v2, o2, dv * do * c)
-        out = (torch.einsum("byoc,ovy->bvoc", i1, self.w2) + pad).to(dtype)
+            return out.reshape(b, v2, o2, dv * do * c)
         dst_h = self.dst_hw[0]
         return torch.nn.functional.pad(
             out, (0, 0, 0, 0, self.row_start, dst_h - self.row_stop), value=self.pad_value)
