@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``tti_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--first-design PATH] [--ablate]
+
+``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
+file as the commit that added the port's measurement path had it); it is
+built beside the current kernels and timed on the same inputs in phase 6,
+before and after them. Nothing else uses it. ``--ablate`` runs phases 1-2
+and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
+part of the design out or tune it otherwise, timed on synthetic inputs
+shaped like the steps' (what each part costs or buys).
 
 Phases, one printed line or block each; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -13,9 +21,13 @@ exits non-zero without printing the final result line:
    report;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, plus edge cases. Mask statistics: all rows invalid, a
-   box reaching y2 == Hm, a bottom on the last row, and a small-logit case
+   box reaching y2 == Hm, a bottom on the last row, a small-logit case
    where the soft path's bf16 rounding shows (the plain version with float32
-   logits must fail that comparison). Warp pass 1: the headline shape at
+   logits must fail that comparison), the carries at the kernel's own chunk
+   height (a bottom on a chunk's last and first row, on the box's last row,
+   one-row boxes, a box over every chunk), boxes over the whole grid at both
+   main-path shapes with 8 of 200 detections valid, and every comparison
+   launched twice with bit-equal outputs. Warp pass 1: the headline shape at
    batch 128 and 1 with the headline warp's own weights, a k = 5 geometry,
    dense weights j/64, a frame holding every byte value on which the plain
    version that divides by 255 must fail, and the stride-k select alone
@@ -141,6 +153,46 @@ BINARY_KEYS = ("m00", "m10", "m01", "col_any", "bottom")
 SOFT_TOL = 1e-4
 
 
+def carry_problem(torch, hm, wm, chunk, seed=21):
+    """Four frames whose occupancy is set by the row: channel 0 of the protos
+    is +1 down to row r and -0.5 under it, channel 1 a small per-cell term,
+    and detections 0-6 read just those two, so their bottom is r wherever
+    their box reaches it. r is a chunk's last row, a chunk's first row, the
+    grid's last row, and a chunk's last row again. Boxes: 0 over the whole
+    grid (every chunk), 1 ending on row r, 2 row r alone, 3 the first row
+    alone, 4 the last row alone and past the grid, 5 the chunk under r
+    (nothing occupied), 6 from the middle of a chunk; 7 is random. Returns
+    the inputs and the r of each frame. The logits are exact (1 + k/128)."""
+    rng = np.random.default_rng(seed)
+    rs = [3 * chunk - 1, 3 * chunk, hm - 1, 5 * chunk - 1]
+    b, d = len(rs), 8
+    protos = rng.integers(-255, 256, size=(b, hm, wm, 32)) / 128.0
+    protos[..., 1] = rng.integers(-8, 9, size=(b, hm, wm)) / 128.0
+    coefs = rng.integers(-128, 129, size=(b, d, 32)) / 64.0
+    coefs[:, :7] = 0.0
+    coefs[:, :7, :2] = 1.0
+    boxes = np.zeros((b, d, 4))
+    for i, r in enumerate(rs):
+        protos[i, :, :, 0] = np.where(np.arange(hm) <= r, 1.0, -0.5)[:, None]
+        rows = [(-1.0, hm + 2.0), (2.5, r + 1.0), (r, r + 1.0), (0.0, 1.0), (hm - 1.0, hm + 3.0),
+                (r + 1.0, r + 1.0 + chunk), (r - 1.5, r + 2.2), (hm * 0.2, hm * 0.7)]
+        boxes[i] = [[3.5, y1, wm - 2.5, y2] for y1, y2 in rows]
+    dev = "cuda"
+    return (torch.tensor(protos, dtype=torch.bfloat16, device=dev),
+            torch.tensor(coefs, dtype=torch.float32, device=dev),
+            torch.tensor(boxes, dtype=torch.float32, device=dev),
+            torch.ones((b, d), dtype=torch.bool, device=dev)), rs
+
+
+def whole_grid_problem(torch, b, hm, wm, seed):
+    """D = 200 with 8 valid detections per frame, each box over the whole grid."""
+    protos, coefs, boxes, valid = stats_problem(torch, b, hm, wm, 200, seed)
+    boxes[:] = torch.tensor([-2.0, -1.0, wm + 3.0, hm + 5.0], device="cuda")
+    valid[:] = False
+    valid[:, 3:11] = True
+    return protos, coefs, boxes, valid
+
+
 def check_kernels(torch, ms) -> dict:
     """Returns per-kernel {max_abs_err, max_rel_err} over every comparison."""
     errs = {"mask_stats_soft": [0.0, 0.0], "mask_stats_binary": [0.0, 0.0]}
@@ -156,7 +208,12 @@ def check_kernels(torch, ms) -> dict:
         a, r = compare(got, ref, BINARY_KEYS, SOFT_TOL)
         errs[name][0] = max(errs[name][0], a)
         errs[name][1] = max(errs[name][1], r)
-        log(f"  {name} {label}: max abs err {a:.3g}, max rel err {r:.3g}")
+        # No float atomics: a second launch gives the same bits.
+        again = (ms.mask_stats_soft if soft else ms.mask_stats_binary)(*args)
+        torch.cuda.synchronize()
+        for key in got:
+            check(torch.equal(got[key], again[key]), f"{name} {label}: {key} differs between two launches")
+        log(f"  {name} {label}: max abs err {a:.3g}, max rel err {r:.3g}; two launches bit-equal")
         return got
 
     run("mask_stats_soft", stats_problem(torch, 8, 368, 480, 64, 1), "(8,368,480,32) bf16 D=64")
@@ -194,6 +251,35 @@ def check_kernels(torch, ms) -> dict:
             # 1e-5: one float32 step at 39 is 3.8e-6.
             check(torch.allclose(out["bottom_sub"], 39 + (p - 0.5) / p, atol=1e-5),
                   "soft: last-row bottom_sub must read p_below = 0")
+
+    # The carries across chunks, at each kernel's own chunk height.
+    for name, (hm, wm) in (("mask_stats_soft", (368, 480)), ("mask_stats_binary", (96, 160))):
+        chunk = ms.CHUNK_ROWS[name]
+        args, rs = carry_problem(torch, hm, wm, chunk)
+        out = run(name, args, f"carries at chunk height {chunk}, grid {hm}x{wm}, bottoms at rows {rs}")
+        cols = slice(4, wm - 3)  # the columns of every box
+        for i, r in enumerate(rs):
+            for det in (0, 1, 2, 6):
+                check(bool((out["bottom"][i, det, cols] == r).all()),
+                      f"{name}: frame {i} detection {det}: bottom must be row {r}")
+            check(bool((out["bottom"][i, 5] == -1).all()),
+                  f"{name}: frame {i}: the chunk under row {r} must read empty")
+            check(bool((out["bottom"][i, 3, cols] == 0).all())
+                  and bool((out["bottom"][i, 4, cols] == (hm - 1 if r == hm - 1 else -1)).all()),
+                  f"{name}: frame {i}: one-row boxes on the first and the last row")
+            if name == "mask_stats_soft" and r < hm - 1:
+                # Box 0 reads the row under r (0 < frac < 1); box 1 ends on r (p_below = 0).
+                frac0 = out["bottom_sub"][i, 0, cols] - r
+                frac1 = out["bottom_sub"][i, 1, cols] - r
+                check(bool(((frac0 > 0.5) & (frac0 < 0.99)).all()) and bool((frac1 < frac0).all()),
+                      f"soft: frame {i}: p_below across the chunk boundary under row {r}")
+    run("mask_stats_soft", whole_grid_problem(torch, 4, 368, 480, 12),
+        "(4,368,480,32) D=200, 8 valid, every box over the whole grid")
+    run("mask_stats_binary", whole_grid_problem(torch, 4, 96, 160, 13),
+        "(4,96,160,32) D=200, 8 valid, every box over the whole grid")
+    protos, coefs, boxes, valid = stats_problem(torch, 4, 368, 480, 200, 14)
+    valid[:, 8:] = False
+    run("mask_stats_soft", (protos, coefs, boxes, valid), "(4,368,480,32) D=200, 8 valid")
     return {k: {"max_abs_err": v[0], "max_rel_err": v[1]} for k, v in errs.items()}
 
 
@@ -370,27 +456,184 @@ def kernel_bound_ms(torch, name: str, *args) -> tuple[float, str, dict]:
     return (t_bytes, "bytes", info) if t_bytes >= t_ops else (t_ops, "operations", info)
 
 
-def time_kernel(torch, ms, name, args, flush) -> dict:
+def load_first_design(torch, path):
+    """Build the first design of ``maskstats.cu`` from ``path`` and return
+    ``call(soft, protos, coefs, boxes, valid)``, which launches it with the
+    dtype policy's defaults (its C interface: the inputs, the shape, the two
+    flags, then m, col_any, bottom[, col_p, bottom_sub] and the stream)."""
+    import ctypes
+
+    from tti_torch.kernels import build as kbuild
+
+    out = kbuild.BUILD_DIR / "libtti_maskstats_first_design.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out), path], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tti_mask_stats_soft.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i] + [p] * 6
+    lib.tti_mask_stats_binary.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i] + [p] * 4
+
+    def call(soft, protos, coefs, boxes, valid):
+        b, hm, wm, nm = protos.shape
+        d = coefs.shape[1]
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device="cuda")
+        outs = [new(b, d, 6 if soft else 3)] + [new(b, d, wm) for _ in range(4 if soft else 2)]
+        fn = lib.tti_mask_stats_soft if soft else lib.tti_mask_stats_binary
+        err = fn(protos.data_ptr(), 1, coefs.data_ptr(), boxes.data_ptr(), valid.data_ptr(),
+                 b, d, hm, wm, nm, int(soft), 1, *(t.data_ptr() for t in outs),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"first design: cudaError {err}")
+        return outs
+
+    return call
+
+
+def time_kernel(torch, ms, name, args, flush, first=None) -> dict:
     """One kernel against its plain version and its logits einsum alone,
-    on ``args``, with the bound of this input."""
+    on ``args``, with the bound of this input; with ``first``, the first
+    design's time on the same input, taken before and after the kernel's."""
     soft = name == "mask_stats_soft"
     kern = ms.mask_stats_soft if soft else ms.mask_stats_binary
     plain = ms.mask_stats_soft_plain if soft else ms.mask_stats_binary_plain
     logits_dtype = torch.bfloat16 if soft else torch.float32
+    t = {}
     with torch.inference_mode():
-        t_k = time_ms(torch, lambda: kern(*args), flush=flush)
-        t_p = time_ms(torch, lambda: plain(*args), flush=flush)
-        t_e = time_ms(torch, lambda: ms._logits(args[0], args[1], logits_dtype), flush=flush)
+        if first is not None:
+            got, old = kern(*args), first(soft, *args)
+            check(torch.equal(got["bottom"], old[2]) and torch.equal(got["col_any"], old[1]),
+                  f"{name}: the first design disagrees on bottom or col_any")
+            t["first_design_ms"] = [time_ms(torch, lambda: first(soft, *args), flush=flush)]
+        t["ms"] = time_ms(torch, lambda: kern(*args), flush=flush)
+        if first is not None:
+            t["ms_again"] = time_ms(torch, lambda: kern(*args), flush=flush)
+            t["first_design_ms"].append(time_ms(torch, lambda: first(soft, *args), flush=flush))
+        t["plain_ms"] = time_ms(torch, lambda: plain(*args), flush=flush)
+        t["einsum_ms"] = time_ms(torch, lambda: ms._logits(args[0], args[1], logits_dtype),
+                                 flush=flush)
         bound, bound_by, info = kernel_bound_ms(torch, name, *args)
-    return {"ms": t_k, "plain_ms": t_p, "einsum_ms": t_e, "bound_ms": bound,
-            "bound_by": bound_by, "shape": list(args[0].shape), "d": args[1].shape[1], **info}
+    return {**t, "bound_ms": bound, "bound_by": bound_by, "shape": list(args[0].shape),
+            "d": args[1].shape[1], **info}
 
 
 def log_kernel_time(name, label, t) -> None:
-    log(f"  {name} on {label}, protos {tuple(t['shape'])}, D={t['d']}: kernel {t['ms']:.4f} ms, "
+    first = (f" and {t['ms_again']:.4f} ms again, first design "
+             f"{' and '.join(f'{v:.4f}' for v in t['first_design_ms'])} ms (before and after)"
+             if "first_design_ms" in t else "")
+    log(f"  {name} on {label}, protos {tuple(t['shape'])}, D={t['d']}: kernel {t['ms']:.4f} ms "
+        f"({t['ms'] / t['bound_ms']:.2f}x its bound){first}, "
         f"plain {t['plain_ms']:.4f} ms, logits einsum alone {t['einsum_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.2f} MB, "
         f"{t['ops'] / 1e9:.3f} GFLOP)")
+
+
+def step_like_problem(torch, b, hm, wm, d=64, seed=31):
+    """Inputs shaped like a step's, made on the card: of ``d`` detections the
+    first 8 are valid, one box over the full width and rows 0.27-0.81 of the
+    grid (the fabric), seven small ones inside it (stitches). Protos k/128,
+    coefs j/64 (exact logits)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    protos = torch.randint(-255, 256, (b, hm, wm, 32), device="cuda", generator=gen,
+                           dtype=torch.int16).to(torch.bfloat16) / 128
+    coefs = torch.randint(-128, 129, (b, d, 32), device="cuda", generator=gen).float() / 64
+    boxes = torch.zeros(b, d, 4, device="cuda")
+    boxes[:, 0] = torch.tensor([0.0, hm * 0.27, float(wm), hm * 0.81], device="cuda")
+    u = torch.rand(b, 7, 2, device="cuda", generator=gen)
+    x1, y1 = u[..., 0] * wm * 0.9, hm * (0.4 + 0.1 * u[..., 1])
+    boxes[:, 1:8] = torch.stack([x1, y1, x1 + wm * 0.025, y1 + hm * 0.06], -1)
+    valid = torch.zeros(b, d, dtype=torch.bool, device="cuda")
+    valid[:, :8] = True
+    return protos, coefs, boxes, valid
+
+
+def _tuning(soft_chunk, soft_blocks, binary_chunk, binary_blocks) -> list[str]:
+    return [f"-DTTI_MS_SOFT_CHUNK={soft_chunk}", f"-DTTI_MS_SOFT_BLOCKS={soft_blocks}",
+            f"-DTTI_MS_BINARY_CHUNK={binary_chunk}", f"-DTTI_MS_BINARY_BLOCKS={binary_blocks}"]
+
+
+ABLATIONS = {
+    "as shipped": [],
+    "without the fill": ["-DTTI_MS_WITHOUT_FILL"],
+    "without the strips": ["-DTTI_MS_WITHOUT_STRIPS"],
+    "without the moments launch": ["-DTTI_MS_WITHOUT_MOMENTS"],
+    "loads started where they are used": ["-DTTI_MS_WITHOUT_PREFETCH"],
+    "both kernels with 4-row chunks, 2 blocks per SM": _tuning(4, 2, 4, 2),
+    "both kernels with 2-row chunks, 4 blocks per SM": _tuning(2, 4, 2, 4),
+    "both kernels with 4-row chunks, 3 blocks per SM": _tuning(4, 3, 4, 3),
+}
+
+
+def ablate(torch, ms, kbuild, first) -> None:
+    """Time variants of ``maskstats.cu`` (``ABLATIONS``: compiler flags that
+    leave a part out, so their results are wrong on purpose, or change the
+    tuning) and the number of blocks per frame, on inputs shaped like the
+    steps', on one frame of each, and on the whole-grid inputs."""
+    import ctypes
+    import threading
+
+    shipped = ms.build()
+    libs, errors = {}, []
+
+    def compile_variant(name, flags):
+        out = kbuild.BUILD_DIR / f"libtti_maskstats_variant_{list(ABLATIONS).index(name)}.so"
+        proc = subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, *flags, "-o", str(out),
+                               str(kbuild.CSRC / "maskstats.cu")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            errors.append(f"{name}: {proc.stderr}")
+            return
+        lib = ctypes.CDLL(str(out))
+        for fn in ("tti_mask_stats_soft", "tti_mask_stats_binary"):
+            getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+
+    threads = [threading.Thread(target=compile_variant, args=kv) for kv in ABLATIONS.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, "\n".join(errors))
+
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: flush_buf.zero_()
+    inputs = (
+        ("mask_stats_soft", "step-like, 128 frames", lambda: step_like_problem(torch, 128, 368, 480)),
+        ("mask_stats_soft", "step-like, 1 frame", lambda: step_like_problem(torch, 1, 368, 480)),
+        ("mask_stats_soft", "whole-grid, 8 frames", lambda: stats_problem(torch, 8, 368, 480, 64, 11)),
+        ("mask_stats_binary", "step-like, 128 frames", lambda: step_like_problem(torch, 128, 96, 160)),
+        ("mask_stats_binary", "step-like, 1 frame", lambda: step_like_problem(torch, 1, 96, 160)),
+        ("mask_stats_binary", "whole-grid, 8 frames", lambda: stats_problem(torch, 8, 96, 160, 64, 11)),
+    )
+    default_blocks = ms.blocks_per_frame
+    try:
+        for name, label, make in inputs:
+            args = make()
+            soft = name == "mask_stats_soft"
+            kern = ms.mask_stats_soft if soft else ms.mask_stats_binary
+            bound, by, info = kernel_bound_ms(torch, name, *args)
+            b, _, wm, _ = args[0].shape
+            log(f"{name}, {label}, protos {tuple(args[0].shape)}, D={args[1].shape[1]}: bound "
+                f"{bound:.4f} ms ({by}, {info['bytes'] / 1e6:.2f} MB), {default_blocks(b, wm)} blocks "
+                f"per frame")
+            with torch.inference_mode():
+                if first is not None:
+                    log(f"  {'first design':50s} {time_ms(torch, lambda: first(soft, *args), flush=flush):.4f} ms")
+                for variant in ABLATIONS:
+                    ms._lib = libs[variant]
+                    t = time_ms(torch, lambda: kern(*args), flush=flush)
+                    log(f"  {variant:50s} {t:.4f} ms ({t / bound:.2f}x its bound)")
+                ms._lib = shipped
+                sweep = {}
+                for blocks in (8, 12, 16, 23, 32, 64, 128):
+                    ms.blocks_per_frame = lambda b, wm, n=blocks: n
+                    sweep[blocks] = time_ms(torch, lambda: kern(*args), flush=flush)
+                ms.blocks_per_frame = default_blocks
+                log("  as shipped, by blocks per frame: " + ", ".join(
+                    f"{k}: {v:.4f}" for k, v in sweep.items()))
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        ms._lib, ms.blocks_per_frame = shipped, default_blocks
 
 
 @contextlib.contextmanager
@@ -626,7 +869,8 @@ def breakdown(torch, pipe, label, frames, step_ms, profile=True):
         f"a {step_ms:.3f} ms step (idle share {idle:.1%}); top kernels:")
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:8.3f} ms {t / busy:6.1%}  {name[:110]}")
-    soft_or_binary = sum(t for n, t in per_name.items() if "mask_stats_kernel" in n)
+    soft_or_binary = sum(t for n, t in per_name.items()
+                         if "stats_strips" in n or "stats_moments" in n)
     log(f"{label} mask-stats kernel: {soft_or_binary:.3f} ms per step ({soft_or_binary / busy:.1%} of busy)")
     return {"stages_ms": totals, "busy_ms": busy, "idle_share": idle,
             "mask_stats_ms": soft_or_binary}
@@ -670,7 +914,8 @@ def warp_in_f32(torch, warp, content):
     pad = warp.pad_value
     i1 = torch.einsum("bywc,ywo->byoc", content.float() - pad, warp.w1.float())
     i1 = i1.reshape(i1.shape[0], i1.shape[1], -1, 2, i1.shape[3])
-    out = torch.einsum("byodc,odvey->bvoedc", i1, warp.w2.float()) + pad
+    w2 = warp.w2[..., :warp.src_hw[0]].float()  # without the rows that carry the pad
+    out = torch.einsum("byodc,odvey->bvoedc", i1, w2) + pad
     b, v2, o2, dv, do, c = out.shape
     return out.reshape(b, v2, o2, dv * do * c)
 
@@ -685,9 +930,9 @@ def check_kernel_route(torch, head, head_k, got_e, got_k, frame_hw) -> dict:
         x_e, x_k = head.preprocess(frames), head_k.preprocess(frames)
         diff = (x_e.float() - x_k.float()).abs()
         x_max, x_mean = float(diff.max()), float(diff.mean())
-        # The card's bf16 warp against the same warp in float32 (4 frames):
-        # the port rounds pass 2 to bf16 and then adds the pad in bf16, where
-        # the reference adds the pad to the float32 sum and rounds once.
+        # The card's bf16 warp against the same warp in float32 (4 frames).
+        # Pass 2 adds the pad in its float32 accumulator and rounds once, as
+        # the reference does.
         content = letterbox_content(frames[:4], head.spec, torch.float32, decimate=True)
         f32_diff = float((x_e[:4].float() - warp_in_f32(torch, head.warp, content)).abs().max())
     # 2^-7: the kernel multiplies by bf16(1/255) where the chain divides by
@@ -942,8 +1187,16 @@ def time_warp_p1(torch, wp, pipe, frame_hw, flush) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--first-design", metavar="PATH",
+                        help="a copy of the first design of maskstats.cu, timed beside the kernels")
+    parser.add_argument("--ablate", action="store_true",
+                        help="time variants of maskstats.cu on synthetic inputs, and nothing else")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -977,6 +1230,12 @@ def main() -> int:
     t0 = time.perf_counter()
     check(native._load_library() is not None, "the C++ frame ring did not build")
     log(f"build: {time.perf_counter() - t0:.1f} s (g++, framering.cpp)")
+
+    first = load_first_design(torch, opts.first_design) if opts.first_design else None
+    if opts.ablate:
+        ablate(torch, ms, kbuild, first)
+        log(card)
+        return 0
 
     # Phase 3: the mask-stats kernels against their plain versions.
     log("kernel checks against the plain versions:")
@@ -1025,12 +1284,14 @@ def main() -> int:
     step_inputs = {"mask_stats_soft": ("the deploy step's inputs", dep_args),
                    "mask_stats_binary": ("the headline step's inputs", head_args)}
     whole_grid = {"mask_stats_soft": (8, 368, 480, 64), "mask_stats_binary": (8, 96, 160, 64)}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape", "ms_again", "first_design_ms")
     kernels = []
     for name in ("mask_stats_soft", "mask_stats_binary"):
         label, args = step_inputs[name]
-        t = time_kernel(torch, ms, name, args, flush)
+        t = time_kernel(torch, ms, name, args, flush, first)
         log_kernel_time(name, label, t)
-        g = time_kernel(torch, ms, name, stats_problem(torch, *whole_grid[name], seed=11), flush)
+        g = time_kernel(torch, ms, name, stats_problem(torch, *whole_grid[name], seed=11), flush,
+                        first)
         log_kernel_time(name, "a whole-grid synthetic input", g)
         kernels.append({
             "name": name, "route": "cuda", "source": "tti_torch/kernels/csrc/maskstats.cu",
@@ -1039,7 +1300,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "einsum_ms": t["einsum_ms"],
             "timed_on": label, "timed_shape": t["shape"], "timed_d": t["d"],
-            "whole_grid": {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "whole_grid": {k: g[k] for k in timed if k in g},
+            **({k: t[k] for k in ("ms_again", "first_design_ms")} if first else {}),
         })
     del dep_args, head_args
     torch.cuda.empty_cache()

@@ -169,6 +169,101 @@ def test_subcell_col_extent_matches():
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-6)
 
 
+CHUNKS = [1, 2, 3, 4, 8, "Hm"]
+CARRY_HM, CARRY_WM = 48, 40
+CARRY_CASES = ("next_chunk", "box_last_row", "grid_last_row", "chunk_outside", "one_row",
+               "all_invalid", "nan_box")
+
+
+def _chunked(soft, args, chunk, **kw):
+    hm = args[0].shape[1]
+    return ms.mask_stats_chunked_plain(soft, *_torch(args), chunk=hm if chunk == "Hm" else chunk,
+                                       **kw)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("soft", [False, True], ids=["binary", "soft"])
+def test_chunked_matches_plain(soft, chunk):
+    """The kernels' decomposition (chunk partials, ordered combine, strip
+    moments) on random boxes, some over the whole grid or reaching y2 == Hm.
+    Quantized inputs: binary fields exact, soft sums within 1e-5."""
+    args = _problem(10, hm=26, wm=70, d=12)
+    plain = ms.mask_stats_soft_plain if soft else ms.mask_stats_binary_plain
+    got, ref = _chunked(soft, args, chunk, strip=32), plain(*_torch(args))
+    _compare(got, {k: v.numpy() for k, v in ref.items()}, ref.keys(), BINARY)
+
+
+def _carry_case(name):
+    """One frame, two detections on a 48x40 grid. Detection 0 reads channel
+    0, a row profile that is +1 down to row ``r`` and -0.5 under it, plus a
+    small per-cell term (channel 1) so that p differs from column to column;
+    its box makes the named case. Row 23 ends a chunk of 1, 2, 3, 4 and 8 rows.
+    Detection 1 is a random box with random coefficients."""
+    rng = np.random.default_rng(11)
+    hm, wm = CARRY_HM, CARRY_WM
+    r = {"grid_last_row": hm - 1, "chunk_outside": 28}.get(name, 23)
+    y12 = {"next_chunk": (-1.0, hm + 2.0), "box_last_row": (2.5, 24.0),
+           "grid_last_row": (5.0, hm + 2.0), "chunk_outside": (26.5, 30.2),
+           "one_row": (23.0, 24.0)}.get(name, (-1.0, hm + 2.0))
+    protos = rng.integers(-255, 256, (1, hm, wm, 32)) / 128.0
+    protos[0, :, :, 0] = np.where(np.arange(hm) <= r, 1.0, -0.5)[:, None]
+    protos[0, :, :, 1] = rng.integers(-8, 9, (hm, wm)) / 128.0
+    coefs = rng.integers(-128, 129, (1, 2, 32)) / 64.0
+    coefs[0, 0] = 0.0
+    coefs[0, 0, :2] = 1.0
+    boxes = np.array([[[3.5, y12[0], 36.0, y12[1]], [10.2, 7.7, 30.0, 41.5]]])
+    if name == "nan_box":
+        boxes[0, 0, 0] = np.nan
+    valid = np.full((1, 2), name != "all_invalid")
+    return (protos.astype(np.float32), coefs.astype(np.float32), boxes.astype(np.float32),
+            valid), r
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("case", CARRY_CASES)
+@pytest.mark.parametrize("soft", [False, True], ids=["binary", "soft"])
+def test_chunked_carries(soft, case, chunk):
+    """The carries across chunks: a bottom on a chunk's last row (p_below is
+    the next chunk's first row), on the last row of the box or of the grid
+    (p_below = 0), a box inside one chunk, a one-row box, invalid rows and a
+    NaN box (empty). Binary fields exact, soft within 1e-5."""
+    args, r = _carry_case(case)
+    plain = ms.mask_stats_soft_plain if soft else ms.mask_stats_binary_plain
+    got, ref = _chunked(soft, args, chunk), plain(*_torch(args))
+    _compare(got, {k: v.numpy() for k, v in ref.items()}, ref.keys(), BINARY)
+    inside = slice(4, 36)  # the columns of detection 0's box
+    bottom = got["bottom"][0, 0]
+    if case in ("all_invalid", "nan_box"):
+        assert bool((bottom == -1).all()) and float(got["m00"][0, 0]) == 0.0
+        return
+    assert bool((bottom[inside] == r).all()) and bool((bottom[:4] == -1).all())
+    if soft:
+        frac = got["bottom_sub"][0, 0, inside] - r
+        if case == "next_chunk":  # the row under the bottom is read: 0 < frac < 1
+            assert bool(((frac > 0.5) & (frac < 0.99)).all())
+        elif case != "chunk_outside":  # nothing under the bottom: frac = (p_b - 0.5) / p_b
+            p_b = torch.sigmoid(torch.from_numpy(args[0][0, r, inside, :2].sum(-1)).to(
+                torch.bfloat16).float())
+            np.testing.assert_allclose(frac.numpy(), ((p_b - 0.5) / p_b).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["binary", "soft"])
+def test_chunked_matches_xla(soft, monkeypatch):
+    """The decomposition at the kernels' own tiling against tti's contract."""
+    monkeypatch.delenv("TTI_MASKSTATS_LOGITS", raising=False)
+    args = _problem(12, hm=26, wm=70, d=12)
+    ref_fn = jms.instance_mask_stats_soft_xla if soft else jms.instance_mask_stats_xla
+    got = ms.mask_stats_chunked_plain(soft, *_torch(args))
+    _compare(got, _per_frame(ref_fn, args), SOFT if soft else BINARY, BINARY)
+
+
+def test_blocks_per_frame_and_tiling():
+    assert ms.STRIP_COLS == 32
+    assert ms.CHUNK_ROWS == {"mask_stats_soft": 4, "mask_stats_binary": 2}
+    assert ms.blocks_per_frame(128, 480) == 23 and ms.blocks_per_frame(128, 160) == 16
+    assert ms.blocks_per_frame(1, 160) == 128 and ms.blocks_per_frame(4096, 33) == 10
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -14,7 +14,7 @@ from tti_torch.calib import geometry as tgeo
 from tti_torch.model.yolo import space_to_depth2
 from tti_torch.preprocess import letterbox as tlb
 from tti_torch.preprocess import remap as tremap
-from tti_torch.preprocess.warp2pass import TwoPassWarp
+from tti_torch.preprocess.warp2pass import PAD_ROWS, TwoPassWarp, split_exactly
 
 # tti.preprocess re-exports functions under its module names.
 jlb = importlib.import_module("tti.preprocess.letterbox")
@@ -111,9 +111,8 @@ def test_small_undistort_map_matches(ref_intrinsics, frame_hw, imgsz):
     np.testing.assert_allclose(tremap.scaled_intrinsics(K, spec), jremap.scaled_intrinsics(K, jspec))
     got = tremap.build_small_undistort_map(K, dist, spec, unpadded_src=True)
     ref = jremap.build_small_undistort_map(K, dist, jspec, unpadded_src=True)
-    # The reference evaluates distort_points in jax float32; the port in
-    # float64. 5e-3 px covers float32 rounding of pixel coordinates.
-    np.testing.assert_allclose(got, ref, atol=5e-3)
+    # Both evaluate distort_points in float32, in the same order: equal.
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("frame_hw,imgsz", [((240, 320), 240), ((216, 384), 128)])
@@ -126,7 +125,12 @@ def test_two_pass_warp_matches(ref_intrinsics, frame_hw, imgsz):
     warp = TwoPassWarp(small_map, src_hw, s2d_out=True, device="cpu")
     jwarp = JaxWarp(small_map, src_hw, s2d_out=True)
     np.testing.assert_array_equal(warp.w1.numpy(), np.asarray(jwarp.w1))
-    np.testing.assert_array_equal(warp.w2.numpy(), np.asarray(jwarp.w2))
+    # W2 holds the reference's weights, then the pad's terms on every row.
+    hs = src_hw[0]
+    assert warp.w2.shape[-1] == hs + PAD_ROWS
+    np.testing.assert_array_equal(warp.w2[..., :hs].numpy(), np.asarray(jwarp.w2))
+    np.testing.assert_array_equal(warp.w2[..., hs:].sum(-1).numpy(),
+                                  np.full(warp.w2.shape[:-1], np.float32(warp.pad_value)))
     frames = np.random.default_rng(5).integers(0, 256, (2, *frame_hw, 3), dtype=np.uint8)
     content = tlb.letterbox_content(torch.from_numpy(frames), spec, decimate=True)
     got = warp(content).numpy()
@@ -135,6 +139,80 @@ def test_two_pass_warp_matches(ref_intrinsics, frame_hw, imgsz):
     np.testing.assert_allclose(got, ref, atol=1e-5)
     plain = TwoPassWarp(small_map, src_hw, s2d_out=False, device="cpu")
     np.testing.assert_allclose(space_to_depth2(plain(content)).numpy(), got, atol=1e-5)
+
+
+def _bf16_step(x):
+    """One bfloat16 step at the magnitude of ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -100))) - 7)
+
+
+def _within_one_bf16_step(got, ref):
+    err = np.abs(got - ref)
+    return err <= _bf16_step(np.maximum(np.abs(got), np.abs(ref)))
+
+
+class _JnpWithUpcastDots:
+    """jax.numpy, except that einsum upcasts its operands to float32 first.
+    XLA's CPU runtime has no bfloat16 x bfloat16 -> float32 dot; the upcast
+    computes the same thing (the products are exact in float32, the sum is
+    float32 either way), and tti's own roundings stay where they are."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def einsum(spec, a, b, preferred_element_type=None):
+        return jnp.einsum(spec, a.astype(jnp.float32), b.astype(jnp.float32),
+                          precision="highest", preferred_element_type=preferred_element_type)
+
+
+@pytest.mark.parametrize("s2d", [True, False], ids=["s2d", "rows"])
+def test_two_pass_warp_bf16_rounds_once(ref_intrinsics, s2d, monkeypatch):
+    """bfloat16 weights on both sides, the same map and frames: tti adds the
+    pad to the float32 accumulator of pass 2 and rounds once, and the port
+    must land within one bfloat16 step of it at the value's own magnitude.
+    Dark pixels make the case: the product is near -pad (step 2^-9) and the
+    result near 0 (steps far finer), so a product rounded before the pad is
+    added misses by hundreds of steps, which the last assertion shows."""
+    monkeypatch.setattr(importlib.import_module("tti.preprocess.warp2pass"), "jnp",
+                        _JnpWithUpcastDots())
+    K, dist, spec, jspec = _small_geometry(ref_intrinsics, (216, 384), 128)
+    small_map = jremap.build_small_undistort_map(K, dist, jspec, unpadded_src=True)
+    src_hw = (spec.new_h, spec.new_w)
+    warp = TwoPassWarp(small_map, src_hw, s2d_out=s2d, device="cpu", weight_dtype=torch.bfloat16)
+    jwarp = JaxWarp(small_map, src_hw, s2d_out=s2d, weight_dtype=jnp.bfloat16)
+    assert warp.w1.dtype == warp.w2.dtype == torch.bfloat16
+    assert sum(split_exactly(warp.pad_value, torch.bfloat16)) == np.float32(warp.pad_value)
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (2, 216, 384, 3), dtype=np.uint8)
+    frames[:, :, :192] //= 8  # a dark half
+    content = tlb.letterbox_content(torch.from_numpy(frames), spec, torch.bfloat16, decimate=True)
+    jcontent = jnp.asarray(content.float().numpy(), jnp.bfloat16)
+    got = warp(content)
+    ref = np.asarray(jwarp(jcontent).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _within_one_bf16_step(got.float().numpy(), ref).all()
+
+    # Pass 2 alone, from an intermediate in the kernel's (y, c, b, o) layout.
+    i1 = (rng.integers(-114, 142, (src_hw[0], 3, 2, spec.dst_w)) / 255.0).astype(np.float32)
+    i1_t = torch.from_numpy(i1).to(torch.bfloat16)
+    got = warp.apply_pass2_ycbo(i1_t).float().numpy()
+    ref = np.asarray(jwarp.apply_pass2_ycbo(jnp.asarray(i1_t.float().numpy(), jnp.bfloat16))
+                     .astype(jnp.float32))
+    assert got.shape == ref.shape and _within_one_bf16_step(got, ref).all()
+    # The product rounded to bfloat16 first, the pad added after: not within a step.
+    w2 = warp.w2[..., :src_hw[0]]
+    if s2d:
+        y, c, b, o = i1_t.shape
+        twice = torch.einsum("ycbod,odvey->bvoedc", i1_t.reshape(y, c, b, o // 2, 2), w2)
+        twice = (twice + torch.tensor(warp.pad_value, dtype=torch.bfloat16)).reshape(ref.shape)
+    else:
+        twice = torch.einsum("ycbo,ovy->bvoc", i1_t, w2) + torch.tensor(warp.pad_value,
+                                                                        dtype=torch.bfloat16)
+        twice = torch.nn.functional.pad(twice, (0, 0, 0, 0, warp.row_start,
+                                                warp.dst_hw[0] - warp.row_stop),
+                                        value=warp.pad_value)
+    assert not _within_one_bf16_step(twice.float().numpy(), ref).all()
 
 
 def test_two_pass_warp_rejects_non_monotonic_map():

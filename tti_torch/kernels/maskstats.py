@@ -12,7 +12,18 @@ Both take a batch: protos (B, Hm, Wm, nm) bf16/f32, coefs (B, D, nm) f32,
 boxes_grid (B, D, 4) f32 xyxy on the proto grid, valid (B, D) bool. A tensor
 on the CPU goes to the plain version; a CUDA tensor launches the kernel or
 raises. What bounds the kernels and how their design meets it is written in
-``csrc/maskstats.cu``: bytes, the bf16 protos read once per frame.
+``csrc/maskstats.cu``: bytes, the bf16 protos read once per frame and the
+per-column outputs of every detection written once.
+
+The kernels cut the work by cells, not by detection: a unit is a strip of
+``STRIP_COLS`` columns of one valid box, whose rows go in chunks of
+``CHUNK_ROWS`` to the warps of one block; the chunks' per-column carries
+(bottom row, p there, p under it) are combined in order, the strips' moments
+are added in order by a second small launch, and invalid detections cost a
+fill of zeros and -1. Nothing is read back to the host and nothing is added
+by float atomics: two calls on the same input return the same bits.
+:func:`mask_stats_chunked_plain` is that decomposition in plain PyTorch, for
+tests of its logic where there is no card.
 
 Dtype policy (the reference's ``_logits_dtype``): the binary path thresholds
 f32 logits; the soft path rounds coefs to bf16 and the f32-accumulated
@@ -33,7 +44,13 @@ from tti_torch.kernels.build import load_library
 
 Tensor = torch.Tensor
 
-# Kernel launches per wrapper (plain-version calls are not counted).
+# The kernels' tiling (``kStrip`` and ``kChunk`` of csrc/maskstats.cu): a unit
+# of work is a strip of columns of one box, its rows cut into chunks.
+STRIP_COLS = 32
+CHUNK_ROWS = {"mask_stats_soft": 4, "mask_stats_binary": 2}
+
+# Wrapper calls that launched their kernel (plain-version calls are not
+# counted; one call is one count, whatever it launches on the device).
 LAUNCHES = {"mask_stats_soft": 0, "mask_stats_binary": 0}
 
 _lib: ctypes.CDLL | None = None
@@ -50,11 +67,19 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = load_library("maskstats")
         p, i = ctypes.c_void_p, ctypes.c_int
-        common = [p, i, p, p, p, i, i, i, i, i, i, i]
-        lib.tti_mask_stats_soft.argtypes = common + [p, p, p, p, p, p]
-        lib.tti_mask_stats_binary.argtypes = common + [p, p, p, p]
-        lib.tti_mask_stats_soft.restype = i
-        lib.tti_mask_stats_binary.restype = i
+        common = [p, i, p, p, p, i, i, i, i, i, i, i, i]
+        lib.tti_mask_stats_soft.argtypes = common + [p, p, p, p, p, p, p, p]
+        lib.tti_mask_stats_binary.argtypes = common + [p, p, p, p, p]
+        for fn in (lib.tti_mask_stats_soft, lib.tti_mask_stats_binary,
+                   lib.tti_mask_stats_strip_cols, lib.tti_mask_stats_chunk_rows):
+            fn.restype = i
+        lib.tti_mask_stats_chunk_rows.argtypes = [i]
+        tiling = (lib.tti_mask_stats_strip_cols(),
+                  {"mask_stats_soft": lib.tti_mask_stats_chunk_rows(1),
+                   "mask_stats_binary": lib.tti_mask_stats_chunk_rows(0)})
+        if tiling != (STRIP_COLS, CHUNK_ROWS):
+            raise RuntimeError(f"maskstats.cu is tiled {tiling}, the wrapper expects "
+                               f"{(STRIP_COLS, CHUNK_ROWS)}")
         _lib = lib
     return _lib
 
@@ -126,6 +151,99 @@ def mask_stats_soft_plain(protos: Tensor, coefs: Tensor, boxes_grid: Tensor, val
 
 
 # ---------------------------------------------------------------------------
+# The kernels' decomposition in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _cell_range(lo: Tensor, hi: Tensor, n: int) -> tuple[Tensor, Tensor]:
+    """The integers i of [0, n) with lo <= i < hi, as [ilo, ihi); a NaN bound
+    gives none (the kernels' ``cell_range``)."""
+    ilo = torch.where(lo > 0, torch.clamp(torch.ceil(lo), max=n), 0.0)
+    ihi = torch.where(hi < n, torch.clamp(torch.ceil(hi), min=0), float(n))
+    ihi = torch.maximum(ihi, ilo)
+    nan = torch.isnan(lo) | torch.isnan(hi)
+    return torch.where(nan, 0.0, ilo).long(), torch.where(nan, 0.0, ihi).long()
+
+
+def mask_stats_chunked_plain(soft: bool, protos: Tensor, coefs: Tensor, boxes_grid: Tensor,
+                             valid: Tensor, logits_dtype: torch.dtype | None = None,
+                             chunk: int | None = None, strip: int = STRIP_COLS
+                             ) -> dict[str, Tensor]:
+    """The statistics computed the way the kernels cut the work, for tests of
+    that logic where no card is present: integer cell ranges per box, rows in
+    chunks of ``chunk`` grid rows that each yield per-column partials (bottom,
+    p there, p of the row under it inside the chunk, p of the first row, max
+    p) and moments per strip of ``strip`` columns, then the chunks combined
+    bottom-up and a detection's strips added in order."""
+    if logits_dtype is None:
+        logits_dtype = torch.bfloat16 if soft else torch.float32
+    if chunk is None:
+        chunk = CHUNK_ROWS["mask_stats_soft" if soft else "mask_stats_binary"]
+    _, hm, wm, _ = protos.shape
+    x0, x1 = _cell_range(boxes_grid[..., 0], boxes_grid[..., 2], wm)
+    y0, y1 = _cell_range(boxes_grid[..., 1], boxes_grid[..., 3], hm)
+    live = valid & (x1 > x0) & (y1 > y0)
+    x0, x1, y0, y1 = (torch.where(live, t, 0)[..., None] for t in (x0, x1, y0, y1))
+    xs = torch.arange(wm, device=protos.device)
+    cols = (xs >= x0) & (xs < x1)  # (B, D, Wm)
+    nstrips = -(-wm // strip)
+    per_strip = lambda t: torch.nn.functional.pad(t, (0, nstrips * strip - wm)).reshape(
+        *t.shape[:-1], nstrips, strip).sum(-1)
+    zeros = lambda: torch.zeros(cols.shape, dtype=torch.float32, device=protos.device)
+    parts, moments = [], [0.0] * (6 if soft else 3)
+    for r0 in range(0, hm, chunk):
+        rows = range(r0, min(r0 + chunk, hm))
+        logits = _logits(protos[:, rows.start:rows.stop], coefs, logits_dtype)
+        bot, p_b, p_below, first_p, cp = zeros() - 1, zeros(), zeros(), zeros(), zeros()
+        sums = [zeros() for _ in moments]
+        for j, y in enumerate(rows):
+            inside = cols & (y >= y0) & (y < y1)
+            lg = logits[:, :, j]
+            if soft:
+                p = torch.where(inside, torch.sigmoid(lg), 0.0)
+                occ = inside & (p >= 0.5)
+                first_p = torch.where(inside & (y == torch.clamp(y0, min=r0)), p, first_p)
+                p_below = torch.where(occ, 0.0, torch.where(
+                    inside & (bot >= 0) & (bot + 1 == y), p, p_below))
+                p_b = torch.where(occ, p, p_b)
+                cp = torch.maximum(cp, p)
+                for k, w in enumerate((1.0, xs.float(), float(y))):
+                    sums[3 + k] = sums[3 + k] + p * w
+            else:
+                occ = inside & (lg > 0)
+            bot = torch.where(occ, float(y), bot)
+            for k, w in enumerate((1.0, xs.float(), float(y))):
+                sums[k] = sums[k] + occ.float() * w
+        # A chunk outside the box's rows is never visited: its first-row p is
+        # not a number, so that a combine that read it would show.
+        visited = (r0 < y1) & (r0 + chunk > y0)
+        parts.append((bot, p_b, p_below, torch.where(visited, first_p, float("nan")), cp))
+        moments = [m + per_strip(s) for m, s in zip(moments, sums)]
+
+    # Ordered combine, bottom-up: the lowest chunk with an occupied cell.
+    bot, p_b, p_below, cp = zeros() - 1, zeros(), zeros(), zeros()
+    for c in reversed(range(len(parts))):
+        c_bot, c_pb, c_pbelow, _, c_cp = parts[c]
+        take = (bot < 0) & (c_bot >= 0)
+        under = c_bot + 1  # on a chunk's last row: the next chunk's first row
+        crosses = (under == (c + 1) * chunk) & (under < y1)
+        if c + 1 < len(parts):
+            c_pbelow = torch.where(crosses, parts[c + 1][3], c_pbelow)
+        bot, p_b = torch.where(take, c_bot, bot), torch.where(take, c_pb, p_b)
+        p_below = torch.where(take, c_pbelow, p_below)
+        cp = torch.maximum(cp, c_cp)
+    strips = torch.arange(nstrips, device=protos.device)
+    owned = live[..., None] & (strips >= x0 // strip) & (strips < (x1 - 1) // strip + 1)
+    m = [torch.where(owned, t, 0.0).sum(-1) for t in moments]
+    out = {"m00": m[0], "m10": m[1], "m01": m[2], "col_any": (bot >= 0).float(), "bottom": bot}
+    if soft:
+        frac = torch.clamp((p_b - 0.5) / torch.clamp(p_b - p_below, min=1e-6), 0.0, 1.0)
+        out.update({"m00s": m[3], "m10s": m[4], "m01s": m[5], "col_p": cp,
+                    "bottom_sub": torch.where(bot >= 0, bot + frac, -1.0)})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -155,6 +273,14 @@ def _check(protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor) -> 
         raise ValueError(f"at most 65535 frames per launch, got {b}")
 
 
+def blocks_per_frame(b: int, wm: int) -> int:
+    """Thread blocks a frame's strips are dealt to. At least enough for a box
+    over the whole width plus a few small ones, so that most blocks hold one
+    strip; more when the batch is small, up to about 2048 blocks in all (each
+    block lists its frame's strips first, which costs about a microsecond)."""
+    return max(-(-wm // STRIP_COLS) + 8, min(-(-2048 // b), 128))
+
+
 def _launch(soft: bool, protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor,
             logits_dtype: torch.dtype) -> dict[str, Tensor]:
     _check(protos, coefs, boxes_grid, valid)
@@ -174,6 +300,11 @@ def _launch(soft: bool, protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid
                     "col_p": extra[0], "bottom_sub": extra[1]})
     if b * d == 0:
         return out
+    # Scratch: the moments of every (frame, detection, strip); the kernel
+    # writes what it reads, so it needs no initial value.
+    nstrips = -(-wm // STRIP_COLS)
+    part_u = torch.empty((b, d, nstrips, 3), dtype=torch.int64, device=protos.device)
+    part_f = (new(b, d, nstrips, 3),) if soft else ()
     per16 = 16 // protos.element_size()
     vec = int(nm % per16 == 0 and protos.data_ptr() % 16 == 0)
     fn = lib.tti_mask_stats_soft if soft else lib.tti_mask_stats_binary
@@ -181,8 +312,9 @@ def _launch(soft: bool, protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(protos.data_ptr(), int(protos.dtype == torch.bfloat16), coefs.data_ptr(),
                  boxes_grid.data_ptr(), valid.data_ptr(), b, d, hm, wm, nm,
-                 int(logits_dtype == torch.bfloat16), vec, m.data_ptr(), col_any.data_ptr(),
-                 bottom.data_ptr(), *(t.data_ptr() for t in extra), stream)
+                 int(logits_dtype == torch.bfloat16), vec, blocks_per_frame(b, wm), m.data_ptr(),
+                 col_any.data_ptr(), bottom.data_ptr(), *(t.data_ptr() for t in extra),
+                 part_u.data_ptr(), *(t.data_ptr() for t in part_f), stream)
     if err != 0:
         raise RuntimeError(f"mask-stats kernel launch failed: cudaError {err}")
     LAUNCHES["mask_stats_soft" if soft else "mask_stats_binary"] += 1

@@ -1,8 +1,10 @@
 """Undistortion sampling maps and the gather remap (port of
 ``tti.preprocess.remap``).
 
-The map is a function of the calibration only and is computed once, in
-numpy float64, at the letterboxed model-input resolution. The runtime's
+The map is a function of the calibration only and is computed once at the
+letterboxed model-input resolution: the grid in numpy float64, the
+distortion model in float32, as the reference evaluates it, so that both
+packages sample at the same positions bit for bit. The runtime's
 default is the two-pass warp (``warp2pass.TwoPassWarp``); ``PackedRemap`` is
 the gather it falls back to when the vertical map is not monotonic, or on
 request. The reference's environment switches are fixed at its defaults:
@@ -33,8 +35,8 @@ def build_undistort_letterbox_map(K: np.ndarray, dist: np.ndarray,
     u = (xs - spec.pad_left + 0.5) / spec.scale - 0.5
     v = (ys - spec.pad_top + 0.5) / spec.scale - 0.5
     xy = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1]], axis=-1)
-    src = distort_points(torch.from_numpy(xy), torch.as_tensor(np.asarray(K, np.float64)),
-                         torch.as_tensor(np.asarray(dist, np.float64))).numpy()
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float64)).to(torch.float32)
+    src = distort_points(f32(xy), f32(K), f32(dist)).numpy()
     content = ((xs >= spec.pad_left) & (xs < spec.pad_left + spec.new_w)
                & (ys >= spec.pad_top) & (ys < spec.pad_top + spec.new_h))
     return np.where(content[..., None], src, -1e6).astype(np.float32)

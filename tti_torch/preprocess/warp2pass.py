@@ -9,6 +9,13 @@ large products left to cuBLAS, as the reference left them to XLA. The input
 is shifted by the pad value so zero-weight rows resolve to the border color.
 ``s2d_out`` emits the frame space-to-depth blocked (B, H/2, W/2, 4C) with the
 letterbox row padding folded into zero weight rows.
+
+The shift back is part of pass 2, so that the result is rounded once, as the
+reference adds the pad to its float32 accumulator: ``W2`` carries
+``PAD_ROWS`` more source rows, whose weights are the float32 pad value split
+into terms the weight type holds exactly (three in bfloat16, one in
+float32), and pass 2 is fed as many rows of ones under the pass-1
+intermediate. The product's own float32 accumulator then adds the pad.
 """
 
 from __future__ import annotations
@@ -19,6 +26,18 @@ import torch
 from tti_torch.preprocess.letterbox import PAD_VALUE
 
 _SENTINEL = -1e5
+PAD_ROWS = 8  # constant rows under the pass-1 intermediate (keeps hs + PAD_ROWS a multiple of 8)
+
+
+def split_exactly(value: float, dtype: torch.dtype) -> list[float]:
+    """``value`` (rounded to float32) as a sum of three numbers that ``dtype``
+    holds exactly, largest first: each is the rounded rest. Three bfloat16
+    terms hold the 24 bits of a float32."""
+    rest, out = float(np.float32(value)), []
+    for _ in range(3):
+        out.append(float(torch.tensor(rest, dtype=torch.float64).to(dtype)))
+        rest -= out[-1]
+    return out
 
 
 class TwoPassWarp:
@@ -29,11 +48,13 @@ class TwoPassWarp:
 
     def __init__(self, map_xy: np.ndarray, src_hw: tuple[int, int],
                  pad_value: float = PAD_VALUE / 255.0, s2d_out: bool = False,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 weight_dtype: torch.dtype | None = None) -> None:
         device = torch.device(device)
-        # bf16 weights on the card (8 mantissa bits, as the reference's TPU
-        # path); f32 on the CPU, as the reference's CPU path.
-        weight_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        if weight_dtype is None:
+            # bf16 weights on the card (8 mantissa bits, as the reference's
+            # TPU path); f32 on the CPU, as the reference's CPU path.
+            weight_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         self.src_hw = src_hw
         self.pad_value = float(pad_value)
         hs, ws = src_hw
@@ -91,17 +112,33 @@ class TwoPassWarp:
             w2_full[:, self.row_start:self.row_stop] = w2
             w2 = w2_full.reshape(wo // 2, 2, dst_h // 2, 2, hs)  # (o2, do, v2, dv, y)
         self.w1 = torch.from_numpy(w1).to(device=device, dtype=weight_dtype)
-        self.w2 = torch.from_numpy(w2).to(device=device, dtype=weight_dtype)
+        # (..., hs + PAD_ROWS): the warp's weights, then the pad's terms on
+        # every output row (a zero-weight row resolves to the pad), then zeros.
+        self.w2 = torch.zeros((*w2.shape[:-1], hs + PAD_ROWS), dtype=weight_dtype, device=device)
+        self.w2[..., :hs] = torch.from_numpy(w2).to(device=device, dtype=weight_dtype)
+        for i, term in enumerate(split_exactly(self.pad_value, weight_dtype)):
+            self.w2[..., hs + i] = term
 
     def apply(self, content: torch.Tensor) -> torch.Tensor:
         """(B, hs, ws, C) content -> (B, dst_h, dst_w, C) warped + padded, or
         (B, dst_h/2, dst_w/2, 4C) blocked in ``s2d_out`` mode."""
         wdt = self.w1.dtype
         x = content.to(wdt) - torch.tensor(self.pad_value, dtype=wdt)
-        return self.apply_pass2(torch.einsum("bywc,ywo->byoc", x, self.w1), content.dtype)
+        b, hs, ws, c = x.shape
+        # Pass 1 (the einsum "bywc,ywo->byoc" as the batched product it is)
+        # written straight above the rows of ones: (hs + PAD_ROWS, b, c, wo).
+        buf = x.new_empty(hs + PAD_ROWS, b, c, self.w1.shape[2])
+        buf[hs:] = 1.0
+        torch.bmm(x.permute(1, 0, 3, 2).reshape(hs, b * c, ws), self.w1,
+                  out=buf[:hs].view(hs, b * c, -1))
+        return self._pass2(buf.permute(1, 0, 3, 2), content.dtype)
 
     def apply_pass2(self, i1: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
         """Pass 2 over the pass-1 intermediate in (b, y, o, c) layout."""
+        return self._pass2(_with_ones(i1, 1), out_dtype)
+
+    def _pass2(self, i1: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        """Pass 2 over (b, hs + PAD_ROWS, o, c): the intermediate, then ones."""
         if self.s2d_out:
             i1 = i1.reshape(i1.shape[0], i1.shape[1], -1, 2, i1.shape[3])
             out = torch.einsum("byodc,odvey->bvoedc", i1, self.w2)
@@ -115,18 +152,18 @@ class TwoPassWarp:
         what :func:`tti_torch.kernels.warp_p1.warp_pass1_decimated` emits:
         the same product as :meth:`apply_pass2` with the free dimensions
         (c, b) in place of (b, c)."""
-        i1 = i1.to(self.w2.dtype)
+        out_dtype = out_dtype or i1.dtype
+        i1 = _with_ones(i1.to(self.w2.dtype), 0)
         if self.s2d_out:
             y, c, b, o = i1.shape
             out = torch.einsum("ycbod,odvey->bvoedc", i1.reshape(y, c, b, o // 2, 2), self.w2)
         else:
             out = torch.einsum("ycbo,ovy->bvoc", i1, self.w2)
-        return self._finish(out, out_dtype or i1.dtype)
+        return self._finish(out, out_dtype)
 
     def _finish(self, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """Shift the pad back (in the weight type, after the product was
-        rounded to it) and give the result its final form."""
-        out = (out + torch.tensor(self.pad_value, dtype=out.dtype)).to(dtype)
+        """Give the product (the pad is already in it) its final form."""
+        out = out.to(dtype)
         if self.s2d_out:
             b, v2, o2, dv, do, c = out.shape
             # channel (dv*2 + do)*C + c: space_to_depth2's order.
@@ -136,3 +173,15 @@ class TwoPassWarp:
             out, (0, 0, 0, 0, self.row_start, dst_h - self.row_stop), value=self.pad_value)
 
     __call__ = apply
+
+
+def _with_ones(i1: torch.Tensor, dim: int) -> torch.Tensor:
+    """``i1`` with ``PAD_ROWS`` rows of ones appended along its source-row
+    dimension ``dim``: one copy, the rows that meet the pad's terms in ``W2``."""
+    shape = list(i1.shape)
+    rows = shape[dim]
+    shape[dim] = rows + PAD_ROWS
+    out = i1.new_empty(shape)
+    out.narrow(dim, 0, rows).copy_(i1)
+    out.narrow(dim, rows, PAD_ROWS).fill_(1.0)
+    return out
