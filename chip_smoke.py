@@ -43,10 +43,28 @@ exits non-zero without printing the final result line:
    packed-remap step against the two-pass step; the dual step (two
    checkpoints, one preprocess) against each model's own pipeline; four
    1080p streams through ``MultiStreamRunner`` (blocking and pipelined);
-6. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
+6. training (``tti_torch.train``, seeded synthetic scenes from
+   ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
+   against the same step on the CPU; the deployed recipe r5s at full width
+   (YOLOv8n-seg, imgsz 960, mask stride 2, sub-pixel protos, soft masks,
+   stitch seg gain 2.0, max_gt 16, batch 8, bf16, initialised from the
+   deploy checkpoint, 32 scenes on the device): 30 augmented steps with
+   finite losses, 30 steps on one fixed batch with a falling loss, where
+   bf16 stops (no op below float32 in the loss, with a control that puts
+   the seg loss in bf16 and must be flagged) and the bf16 first-step loss
+   terms against float32 on 4 batches, and save at step 10 + restore +
+   5 steps equal to 15 uninterrupted steps bit for bit; the EMA exported
+   with ``python -m tti_torch.cli export-weights`` and served by the deploy
+   step (kernel A, against the plain versions); the headline geometry
+   from scratch (imgsz 640, mask stride 4, binary masks, batch 64, bf16,
+   10 steps); and, at both recipes, images/s, ms per step, peak memory and
+   the device's idle share of the trainer's own loop (``train_step``, one
+   synchronisation per window), then per-part iteration times in a
+   separate loop;
+7. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
    on the inputs the batch-128 step gives it;
-7. the ``kernels`` JSON line, then the final
+8. the ``kernels`` JSON line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Checks use seeded data only and need no network. Tolerances are stated
@@ -393,19 +411,28 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     ``flush`` (outside the timed window) evicts L2 before each call. A spin
     kernel (about 0.5 ms) then holds the stream while the host enqueues the
     call, so the window holds the device's time and not the wrapper's host
-    time."""
+    time. Python's garbage collector is off in the loop: once the training
+    phase has filled the heap, a collection outlasts the spin and its host
+    time would fall into a window."""
+    import gc
+
     fn()
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush()
-        torch.cuda._sleep(1_000_000)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
+    gc.collect()
+    gc.disable()
+    try:
+        total = 0.0
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            torch.cuda._sleep(1_000_000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+    finally:
+        gc.enable()
     return total / iters
 
 
@@ -811,14 +838,42 @@ def check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt, kernels, batch=4, **
 STAGES = ("preprocess", "forward", "detect", "measure")
 
 
+def device_time(torch, fn, steps):
+    """``fn`` run ``steps`` times under the profiler: device ms per step by
+    kernel name, the device's busy ms per step (the union of its kernels'
+    intervals) and its ops per step; busy is None without device events.
+    User annotations on the device's timeline (``Optimizer.step#...``) span
+    the gaps between their kernels and are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    per_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+            spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        return per_name, None, 0
+    spans.sort()
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return per_name, (busy + cur_e - cur_s) / 1e3 / steps, len(spans) // steps
+
+
 def breakdown(torch, pipe, label, frames, step_ms, profile=True):
     """Where one batch's step goes: stream time per stage (CUDA events
     between the stages, so device idle while the host enqueues counts to the
     stage that waits), then (``profile``) the profiler's device time by
     kernel name and the device's idle share of the unprofiled step time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     iters = 5
     totals = dict.fromkeys(STAGES, 0.0)
     with torch.inference_mode():
@@ -843,29 +898,12 @@ def breakdown(torch, pipe, label, frames, step_ms, profile=True):
         return {"stages_ms": totals}
 
     steps = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            pipe.step(frames)
-        torch.cuda.synchronize()
-    per_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-            spans.append((e.time_range.start, e.time_range.end))
-    if not spans:
+    per_name, busy, n_ops = device_time(torch, lambda: pipe.step(frames), steps)
+    if busy is None:
         log(f"{label} profiler: no device events recorded")
         return {"stages_ms": totals, "busy_ms": None, "idle_share": None}
-    spans.sort()
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) / 1e3 / steps
     idle = 1.0 - busy / step_ms
-    log(f"{label} profiler: {len(spans) // steps} device ops per step, busy {busy:.3f} ms of "
+    log(f"{label} profiler: {n_ops} device ops per step, busy {busy:.3f} ms of "
         f"a {step_ms:.3f} ms step (idle share {idle:.1%}); top kernels:")
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:8.3f} ms {t / busy:6.1%}  {name[:110]}")
@@ -1186,6 +1224,355 @@ def time_warp_p1(torch, wp, pipe, frame_hw, flush) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+
+
+CAM_CKPT = os.path.join(HERE, "checkpoints", "yolov8n_textile_cam.msgpack")
+R5S = dict(imgsz=960, mask_stride=2, proto_head="subpixel", soft_masks="all", max_gt=16,
+           batch=8, gains=(2.0, 1.0), n_scenes=32, total_steps=10800)
+HEADLINE_TRAIN = dict(imgsz=640, mask_stride=4, proto_head="deconv", soft_masks=None, max_gt=32,
+                      batch=64, gains=None, n_scenes=32, total_steps=10)
+LOSS_KEYS = ("total", "cls", "box", "dfl", "seg")
+
+
+def train_dataset(torch, recipe, seed):
+    from torch_scenes import textile_samples
+    from tti_torch.train.augment import build_device_dataset
+
+    return build_device_dataset(textile_samples(recipe["n_scenes"], recipe["imgsz"], seed=seed),
+                                recipe["imgsz"], recipe["max_gt"], mask_stride=recipe["mask_stride"],
+                                soft_masks=recipe["soft_masks"], device="cuda")
+
+
+def recipe_trainer(torch, data, recipe, dtype, init, total_steps, lr=1e-3):
+    """The recipe's trainer on the card; ``total_steps`` None: a constant rate."""
+    from tti_torch.train.loop import build_model, build_trainer
+
+    model = build_model("n", 2, recipe["mask_stride"], recipe["proto_head"], dtype, "cuda", init)
+    return build_trainer(data, model, recipe["batch"], recipe["max_gt"], total_steps, lr, dtype,
+                         recipe["gains"])
+
+
+def finite_losses(metrics, label) -> dict:
+    vals = {k: float(metrics[k]) for k in LOSS_KEYS}
+    check(all(np.isfinite(v) for v in vals.values()), f"{label}: a loss term is not finite: {vals}")
+    return vals
+
+
+def check_train_card_vs_cpu(torch) -> dict:
+    """One float32 step (forward, loss, backward) at imgsz 64, batch 2, on
+    the card and on the CPU, same weights and batch, TF32 off. cuDNN and
+    the CPU differ by summation order only: loss terms within 1e-4
+    relative, every gradient within 1e-3 of its tensor's largest entry."""
+    from torch_scenes import textile_samples
+    from tti_torch.train.data import scene_to_targets
+    from tti_torch.train.loop import build_model
+    from tti_torch.train.step import Targets, TrainStep
+
+    imgs, tgts = [], []
+    for s in textile_samples(2, 64, seed=3):
+        img, t = scene_to_targets(s.image.astype(np.float32) / 255.0, s.polygons, s.classes, 64, 8,
+                                  mask_stride=2, soft_masks="stitch")
+        imgs.append(img)
+        tgts.append(t)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model("n", 2, 2, "subpixel", torch.float32, dev, CAM_CKPT)
+        targets = Targets(*(torch.from_numpy(np.stack([t[k] for t in tgts])).to(dev)
+                            for k in ("boxes", "classes", "masks", "valid")))
+        step = TrainStep((64, 64), seg_class_gains=(2.0, 1.0))
+        total, losses = step.loss(model, torch.from_numpy(np.stack(imgs)).to(dev), targets)
+        total.backward()
+        terms = {"total": total, **losses}
+        out[dev] = ({k: float(v.detach()) for k, v in terms.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(lc[k] - lh[k]) / max(abs(lh[k]), 1e-12) for k in LOSS_KEYS)
+    check(loss_rel <= 1e-4, f"train card vs cpu: loss terms differ by {loss_rel} relative: {lc} {lh}")
+    grad_rel = max(float((gc[n] - gh[n]).abs().max()) / max(float(gh[n].abs().max()), 1e-12)
+                   for n in gh)
+    check(grad_rel <= 1e-3, f"train card vs cpu: a gradient differs by {grad_rel} of its largest entry")
+    check(lc["seg"] > 0 and lc["box"] > 0, "train card vs cpu: the batch has no positives")
+    log(f"train step card vs CPU (float32, imgsz 64, batch 2, TF32 off): loss terms max rel diff "
+        f"{loss_rel:.3g} (limit 1e-4), gradients max diff {grad_rel:.3g} of each tensor's largest "
+        f"entry over {len(gh)} tensors (limit 1e-3); total {lc['total']:.5f}")
+    return {"loss_max_rel_diff": loss_rel, "grad_max_rel_diff": grad_rel, "total": lc["total"]}
+
+
+def state_tensors(torch, state) -> dict:
+    """Every tensor of a TrainState, by name, for bitwise comparison."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in state.ema.items()})
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items() if isinstance(v, torch.Tensor)})
+    return out
+
+
+def check_resume_bit_equal(torch, data, recipe, out_dir) -> dict:
+    """Save at step 10 and restore into a fresh state: 5 more steps equal 15
+    uninterrupted steps bit for bit (cuDNN deterministic, no autotuning)."""
+    from tti_torch.train.checkpoint import restore_train_state, save_train_state
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        straight = recipe_trainer(torch, data, recipe, torch.bfloat16, CAM_CKPT,
+                                  recipe["total_steps"])
+        for i in range(1, 16):
+            straight.train_step(i)
+        first = recipe_trainer(torch, data, recipe, torch.bfloat16, CAM_CKPT, recipe["total_steps"])
+        for i in range(1, 11):
+            first.train_step(i)
+        path = save_train_state(first.state, out_dir, step=10)
+        del first
+        resumed = recipe_trainer(torch, data, recipe, torch.bfloat16, CAM_CKPT,
+                                 recipe["total_steps"])
+        restore_train_state(path, resumed.state)
+        check(resumed.state.step == 10, "resume: the restored step is not 10")
+        for i in range(11, 16):
+            resumed.train_step(i)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    a, b = state_tensors(torch, straight.state), state_tensors(torch, resumed.state)
+    check(a.keys() == b.keys(), "resume: the states hold different tensors")
+    differ = [k for k in a if a[k].device != b[k].device or not torch.equal(a[k], b[k])]
+    check(not differ and straight.state.step == resumed.state.step == 15,
+          f"resume: {len(differ)} of {len(a)} tensors differ after 15 steps, e.g. {differ[:5]}")
+    log(f"r5s resume: saved at step 10 ({os.path.getsize(path) / 1e6:.1f} MB), restored into a "
+        f"fresh state, 5 more steps: all {len(a)} tensors (params, BN statistics, EMA, AdamW "
+        f"state) bit-equal to 15 uninterrupted steps")
+    return {"tensors": len(a), "checkpoint_mb": os.path.getsize(path) / 1e6}
+
+
+# bf16 against float32, relative difference of the first step's loss terms
+# (no update) on the same weights and batch. The limits are about 3x the
+# largest readings on an H100 over the r5s batches 1-4 (total 1.6e-3, the
+# cls term 6.9e-3).
+BF16_TOTAL_LIMIT = 5e-3
+BF16_TERM_LIMIT = 2e-2
+
+
+def low_precision_loss_ops(torch, step, model, images, targets) -> dict:
+    """The aten ops that make a floating tensor other than float32 after the
+    model's forward returns, with their counts, over ``step.loss``: where
+    bf16 stops. A forward hook on the model marks the head's exit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    found = {}
+
+    class Record(TorchDispatchMode):
+        after_head = False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if self.after_head and any(isinstance(t, torch.Tensor) and t.is_floating_point()
+                                       and t.dtype != torch.float32 for t in tree_leaves(out)):
+                found[str(func)] = found.get(str(func), 0) + 1
+            return out
+
+    mode = Record()
+    hook = model.register_forward_hook(lambda *_: setattr(mode, "after_head", True))
+    try:
+        with torch.no_grad(), mode:
+            step.loss(model, images, targets)
+    finally:
+        hook.remove()
+    return found
+
+
+def check_bf16(torch, data, trainer, batches=(1, 2, 3, 4)) -> dict:
+    """r5s in bf16 against float32. Where bf16 stops: the bf16 model's loss
+    makes no tensor in a lower precision after the head, and the same
+    detector flags the seg loss run with ``seg_dtype=torch.bfloat16`` (the
+    control). Then the first step's loss terms on ``batches``: the total
+    within BF16_TOTAL_LIMIT and each term within BF16_TERM_LIMIT, relative.
+    The control's own shift of the float32 model's seg term is printed: a
+    comparison of loss values cannot resolve it, the detector can."""
+    from tti_torch.train.loop import build_model
+    from tti_torch.train.step import TrainStep
+
+    models = {name: build_model("n", 2, R5S["mask_stride"], R5S["proto_head"], dt, "cuda", CAM_CKPT)
+              for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    images, targets = trainer.batch(batches[0])
+    sound = low_precision_loss_ops(torch, trainer.step_fn, models["bf16"], images, targets)
+    check(not sound, f"r5s bf16: the loss runs ops below float32: {sound}")
+    seg_bf16 = TrainStep(trainer.step_fn.input_hw, R5S["gains"], seg_dtype=torch.bfloat16)
+    control = low_precision_loss_ops(torch, seg_bf16, models["bf16"], images, targets)
+    check(control, "r5s bf16: the detector missed the seg loss in bf16 (the control)")
+    rel = {k: 0.0 for k in LOSS_KEYS}
+    control_seg = 0.0
+    firsts = []
+    for i in batches:
+        images, targets = trainer.batch(i)
+        terms = {}
+        for name, model, step in (("bf16", models["bf16"], trainer.step_fn),
+                                  ("f32", models["f32"], trainer.step_fn),
+                                  ("f32_seg_bf16", models["f32"], seg_bf16)):
+            with torch.no_grad():
+                total, losses = step.loss(model, images.float(), targets)
+            terms[name] = {"total": float(total), **{k: float(v) for k, v in losses.items()}}
+        for k in LOSS_KEYS:
+            rel[k] = max(rel[k], abs(terms["bf16"][k] - terms["f32"][k]) / abs(terms["f32"][k]))
+        control_seg = max(control_seg, abs(terms["f32_seg_bf16"]["seg"] - terms["f32"]["seg"])
+                          / abs(terms["f32"]["seg"]))
+        firsts.append(terms)
+    check(rel["total"] <= BF16_TOTAL_LIMIT and max(rel.values()) <= BF16_TERM_LIMIT,
+          f"r5s bf16 vs float32 first-step loss terms, max relative difference over batches "
+          f"{batches}: {rel} (limits: total {BF16_TOTAL_LIMIT}, each term {BF16_TERM_LIMIT})")
+    log(f"r5s bf16: the loss makes no tensor below float32 after the head; the control "
+        f"(seg_dtype=bf16) is flagged at {sum(control.values())} ops ({', '.join(sorted(control))}) "
+        f"and moves the float32 model's seg term by at most {control_seg:.3g} relative")
+    log(f"r5s first-step loss terms, bf16 against float32 over batches {list(batches)}: max relative "
+        f"difference " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" (limits: total {BF16_TOTAL_LIMIT}, each term {BF16_TERM_LIMIT}); batch "
+        f"{batches[0]} totals bf16 {firsts[0]['bf16']['total']:.5f}, float32 "
+        f"{firsts[0]['f32']['total']:.5f}")
+    del models
+    return {"rel_diff": rel, "terms": firsts, "control_ops": control,
+            "control_seg_rel_diff": control_seg}
+
+
+def time_training(torch, trainer, label, start, n, iters=10, part_iters=5) -> dict:
+    """The trainer's own loop (batch ``n``), ``trainer.train_step`` with one
+    synchronisation at the end as in ``loop.run``: images/s, ms per step
+    and peak device memory over ``iters`` steps, then the profiler's device
+    busy time over 3 more steps of the same loop, whose idle share is
+    1 - busy / (ms per step). Then, in a separate loop of ``part_iters``
+    steps through ``TrainStep``'s public parts, the ms of each part (CUDA
+    events between augment, forward + loss, backward, optimizer + EMA, read
+    after one synchronisation at the end)."""
+    nxt = [start]
+
+    def one_step():
+        trainer.train_step(nxt[0])
+        nxt[0] += 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        one_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = 1e3 * wall / iters
+    per_name, busy, n_ops = device_time(torch, one_step, 3)
+    idle = None if busy is None else 1.0 - busy / step_ms
+
+    step, state = trainer.step_fn, trainer.state
+    marks = []
+    for _ in range(part_iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        images, targets = trainer.batch(nxt[0])
+        nxt[0] += 1
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        total, _ = step.loss(state.model, images, targets)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        step.update(state)
+        ev[4].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    parts = {key: sum(ev[j].elapsed_time(ev[j + 1]) for ev in marks) / part_iters
+             for j, key in enumerate(("augment", "forward_loss", "backward", "optimizer_ema"))}
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"{label} training (train_step, one sync per {iters} steps): {n * iters / wall:.1f} "
+        f"images/s at batch {n}, {step_ms:.2f} ms per step; peak device memory {peak_gb:.2f} GB; "
+        f"device busy " + (f"{busy:.2f} ms per step, idle share {idle:.1%}, {n_ops} device ops "
+                           f"per step" if busy else "not measured (no device events)"))
+    log(f"{label} per part ms over {part_iters} more steps (events, one sync): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f}")
+    for name, t in top:
+        log(f"  {t:8.3f} ms  {name[:110]}")
+    return {"images_per_s": n * iters / wall, "batch": n, "step_ms": step_ms, "parts_ms": parts,
+            "peak_memory_gb": peak_gb, "busy_ms": busy, "idle_share": idle, "ops_per_step": n_ops,
+            "top_kernels_ms": dict(top)}
+
+
+def check_training(torch, ms, wp, card) -> dict:
+    """Phase 6 (see the module docstring). Launch counts are set to 0 before
+    the training path and read after it: training launches no kernel; the
+    deploy step with the exported checkpoint launches kernel A."""
+    from tti_torch.cli.__main__ import main as cli
+    from tti_torch.train.checkpoint import save_train_state
+
+    out_dir = os.path.join(HERE, "build", "train_smoke")
+    result = {"card": card, "card_vs_cpu": check_train_card_vs_cpu(torch)}
+
+    t0 = time.perf_counter()
+    data = train_dataset(torch, R5S, seed=101)
+    log(f"r5s dataset: {data.images.shape[0]} scenes at {data.imgsz} px on the card, masks "
+        f"{tuple(data.masks.shape[1:])} (soft={data.soft}), {int(data.valid.sum())} GT, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launch_counts(ms, wp)
+    trainer = recipe_trainer(torch, data, R5S, torch.bfloat16, CAM_CKPT, R5S["total_steps"])
+    t0 = time.perf_counter()
+    aug = [finite_losses(trainer.train_step(i), f"r5s augmented step {i}") for i in range(1, 31)]
+    torch.cuda.synchronize()
+    launches = launch_counts(ms, wp)
+    check(not any(launches.values()), f"training launched a kernel: {launches}")
+    log(f"r5s (YOLOv8n-seg, imgsz 960, mask stride 2 sub-pixel, soft masks, stitch seg gain 2.0, "
+        f"max_gt 16, batch 8, bf16, --init {os.path.basename(CAM_CKPT)}): 30 augmented steps in "
+        f"{time.perf_counter() - t0:.1f} s, every loss term finite; totals step 1 "
+        f"{aug[0]['total']:.4f}, step 30 {aug[-1]['total']:.4f}; kernel launches {launches}")
+    result["r5s_augmented_totals"] = [a["total"] for a in aug]
+    ckpt = save_train_state(trainer.state, out_dir)
+
+    # One fixed batch, 30 steps at the recipe's peak rate (constant).
+    images, targets = trainer.batch(1)
+    fixed = recipe_trainer(torch, data, R5S, torch.bfloat16, CAM_CKPT, None)
+    totals = [finite_losses(fixed.step_fn(fixed.state, images, targets), "r5s fixed batch")["total"]
+              for _ in range(30)]
+    first5, last5 = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
+    check(last5 < first5, f"r5s fixed batch: the loss does not fall ({first5} -> {last5})")
+    log(f"r5s fixed batch, 30 steps at lr 1e-3: mean total of the first 5 {first5:.4f}, of the "
+        f"last 5 {last5:.4f}")
+    result["r5s_fixed_batch"] = {"first5": first5, "last5": last5, "totals": totals}
+    del fixed
+
+    result["r5s_bf16_vs_f32"] = check_bf16(torch, data, trainer)
+    result["r5s_resume"] = check_resume_bit_equal(torch, data, R5S, out_dir)
+    result["r5s_timing"] = time_training(torch, trainer, "r5s", 31, R5S["batch"])
+    del trainer, data
+    torch.cuda.empty_cache()
+
+    # Back into the inspection step: the EMA through export-weights.
+    deploy = os.path.join(out_dir, "r5s_ema.msgpack")
+    check(cli(["export-weights", "--train-dir", ckpt, "--out", deploy, "--imgsz", "960",
+               "--mask-stride", "2", "--proto-head", "subpixel", "--soft-masks",
+               "--recipe", "chip_smoke r5s: 30 steps from the deploy checkpoint"]) == 0,
+          "export-weights failed")
+    check_step(torch, ms, wp, "deploy step with the exported r5s EMA checkpoint", (960, 1280), 960,
+               deploy, ("mask_stats_soft",))
+    torch.cuda.empty_cache()
+
+    # The headline geometry from scratch.
+    data = train_dataset(torch, HEADLINE_TRAIN, seed=202)
+    reset_launch_counts(ms, wp)
+    trainer = recipe_trainer(torch, data, HEADLINE_TRAIN, torch.bfloat16, None,
+                             HEADLINE_TRAIN["total_steps"])
+    head = [finite_losses(trainer.train_step(i), f"headline step {i}") for i in range(1, 11)]
+    check(not any(launch_counts(ms, wp).values()), "training launched a kernel")
+    totals = ", ".join(f"{h['total']:.3f}" for h in head)
+    log(f"headline from scratch (imgsz 640, mask stride 4, binary masks, max_gt 32, batch 64, bf16, "
+        f"fresh init_model): 10 steps, every loss term finite; totals {totals}")
+    result["headline_totals"] = [h["total"] for h in head]
+    result["headline_timing"] = time_training(torch, trainer, "headline from scratch", 11,
+                                               HEADLINE_TRAIN["batch"])
+    del trainer, data
+    torch.cuda.empty_cache()
+    log(card)
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -1270,8 +1657,12 @@ def main() -> int:
     dual = check_dual(torch, ms, wp, head, got_e, head_hw, 640, "yolov8n_textile_960.msgpack")
     torch.cuda.empty_cache()
     streams = check_streams(torch, head, head_hw)
+    torch.cuda.empty_cache()
 
-    # Phase 6: kernel timings, on each step's own inputs (the kernels line)
+    # Phase 6: training.
+    training = check_training(torch, ms, wp, card)
+
+    # Phase 7: kernel timings, on each step's own inputs (the kernels line)
     # and, for the mask statistics, on a synthetic input whose first box
     # covers the whole grid.
     log("kernel timings (CUDA events, L2 flushed before each call):")
@@ -1323,7 +1714,8 @@ def main() -> int:
     })
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
-        "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams}}))
+        "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams},
+        "training": training}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

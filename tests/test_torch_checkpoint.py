@@ -77,8 +77,15 @@ def test_from_flax_variables_names_and_layouts():
     up = params["m22"]["proto"]["upsample"]["kernel"]
     np.testing.assert_array_equal(sd["m22.proto.upsample.weight"][:, :, 0, 1], up[1, 0])
     assert "m22.proto.cv3sp.conv.bias" in sd and "m0s2d.conv.weight" in sd
+    # An unfolded tree maps with its batch_stats (the training-form model);
+    # its params alone do not.
+    unfolded = ck.load_flax_msgpack(CHECKPOINTS[0])
+    sd = ck.from_flax_variables(unfolded)
+    np.testing.assert_array_equal(sd["m1.bn.running_var"],
+                                  unfolded["batch_stats"]["m1"]["bn"]["var"])
+    np.testing.assert_array_equal(sd["m1.bn.weight"], unfolded["params"]["m1"]["bn"]["scale"])
     with pytest.raises(ValueError, match="fold_batchnorm"):
-        ck.from_flax_variables(ck.load_flax_msgpack(CHECKPOINTS[0]))
+        ck.from_flax_variables({"params": unfolded["params"]})
 
 
 @pytest.mark.parametrize("path", CHECKPOINTS)

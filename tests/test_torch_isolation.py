@@ -1,5 +1,6 @@
 """tti_torch stands alone: it imports neither jax (nor flax, optax, msgpack)
-nor anything of tti, and a tiny CPU step runs with all of them blocked."""
+nor anything of tti, and a tiny CPU inspection step and a training step run
+with all of them blocked."""
 
 import os
 import re
@@ -20,7 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(tti_torch.__path__, "tti_torch.")
 for name in names:
     importlib.import_module(name)
 for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
-             "tti_torch.kernels.warp_p1", "tti_torch.core.logging"):
+             "tti_torch.kernels.warp_p1", "tti_torch.core.logging", "tti_torch.cli.__main__",
+             *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
+                                               "checkpoint", "loop"))):
     assert name in names and name in sys.modules, name
 
 import numpy as np
@@ -43,6 +46,15 @@ pipe = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_stri
                           device="cpu")
 out = pipe.process_batch(textile_frames(1, 96, 128))
 assert out.boxes_frame.shape == (1, 200, 4) and out.envelope.shape == (1, 64)
+import torch
+from tests.torch_scenes import textile_samples
+from tti_torch.train.augment import build_device_dataset
+from tti_torch.train.loop import build_model, build_trainer, run
+
+data = build_device_dataset(textile_samples(2, 32), 32, 4, device="cpu")
+trainer = build_trainer(data, build_model("n", 2, 4, "deconv", torch.float32, "cpu"), 2, 4, 2,
+                        dtype=torch.float32)
+assert run(trainer, 0, 1, log_every=0) == 1 and trainer.state.step == 1
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tti") and sys.modules[m]]
 assert not bad, bad
 print("OK", len(names))
@@ -50,7 +62,7 @@ print("OK", len(names))
 
 
 def test_port_imports_nothing_of_jax_or_tti():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -60,9 +72,12 @@ def test_port_imports_nothing_of_jax_or_tti():
 def test_port_sources_name_no_forbidden_module():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
-    sources.append(REPO / "chip_smoke.py")
+    sources += [REPO / "chip_smoke.py", REPO / "tests" / "torch_scenes.py",
+                REPO / "tests" / "torch_synth.py"]
     names = {p.name for p in sources}
-    assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "framering.cpp"} <= names
+    assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "framering.cpp", "loop.py",
+                                  "assigner.py", "augment.py", "__main__.py",
+                                  "torch_scenes.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -1,20 +1,25 @@
-"""Flax msgpack checkpoints -> PyTorch state dicts, without flax or msgpack.
+"""Flax msgpack checkpoints <-> PyTorch state dicts, without flax or msgpack.
 
-Three parts:
+Four parts:
 
 - :func:`load_flax_msgpack` is a small pure-Python msgpack decoder for the
   files ``flax.serialization.to_bytes`` writes: maps, strings, bin, arrays,
   ints, floats, nil/bool, and ext type 1 (a packed ``(shape, dtype_name,
   buffer)`` ndarray; ext 3 is the same for numpy scalars).
   :func:`checkpoint_metadata` reads the ``.json`` sidecar.
+- :func:`save_flax_msgpack` is the encoder for the same format (what
+  ``tti.model.convert.save_checkpoint`` writes), with the sidecar.
 - :func:`stem_to_s2d` and :func:`fold_batchnorm` are copies of the exact
   inference transforms in ``tti.model.convert``.
-- :func:`from_flax_variables` maps the (folded, s2d) flax tree onto
-  :class:`tti_torch.model.yolo.YOLOv8Seg`'s state dict: module paths are the
-  flax paths joined with '.', conv kernels go (kH, kW, I, O) -> (O, I, kH,
-  kW), and transposed-conv kernels go (kH, kW, I, O) -> (I, O, kH, kW) with
-  both spatial axes flipped (flax's ConvTranspose applies its kernel
-  un-flipped, torch's ConvTranspose2d is the gradient of a correlation).
+- :func:`from_flax_variables` maps a flax tree onto
+  :class:`tti_torch.model.yolo.YOLOv8Seg`'s state dict and
+  :func:`to_flax_variables` maps back: module paths are the flax paths
+  joined with '.', conv kernels go (kH, kW, I, O) <-> (O, I, kH, kW), and
+  transposed-conv kernels go (kH, kW, I, O) <-> (I, O, kH, kW) with both
+  spatial axes flipped (flax's ConvTranspose applies its kernel un-flipped,
+  torch's ConvTranspose2d is the gradient of a correlation). An unfolded
+  tree's ``bn`` nodes are the BatchNorm's weight (flax ``scale``) and bias,
+  and its ``batch_stats`` the running mean and variance.
 """
 
 from __future__ import annotations
@@ -141,6 +146,97 @@ def load_flax_msgpack(path: str) -> Tree:
     return _unchunk(tree)
 
 
+class _Writer:
+    """Encoder state: msgpack's big-endian wire format, the subset
+    :class:`_Reader` decodes."""
+
+    def __init__(self) -> None:
+        self.parts: list[bytes] = []
+
+    def head(self, n: int, fix: int | None, fix_max: int, codes: tuple[int, ...]) -> None:
+        """A type byte and length: the fix form below ``fix_max``, else the
+        8-, 16- or 32-bit length form (``codes``, smallest first; maps and
+        arrays have no 8-bit form)."""
+        if fix is not None and n <= fix_max:
+            self.parts.append(struct.pack(">B", fix | n))
+            return
+        fmts = ("B", "H", "I")[3 - len(codes):]
+        for code, fmt in zip(codes, fmts):
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.parts.append(struct.pack(">B" + fmt, code, n))
+                return
+        raise ValueError(f"msgpack object of {n} elements is too large")
+
+    def obj(self, x: Any) -> None:
+        if isinstance(x, dict):
+            self.head(len(x), 0x80, 15, (0xDE, 0xDF))
+            for key, value in x.items():
+                self.obj(str(key))
+                self.obj(value)
+        elif isinstance(x, str):
+            data = x.encode("utf-8")
+            self.head(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.parts.append(data)
+        elif isinstance(x, bytes):
+            self.head(len(x), None, -1, (0xC4, 0xC5, 0xC6))
+            self.parts.append(x)
+        elif isinstance(x, (list, tuple)):
+            self.head(len(x), 0x90, 15, (0xDC, 0xDD))
+            for item in x:
+                self.obj(item)
+        elif x is None or isinstance(x, bool):
+            self.parts.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[x])
+        elif isinstance(x, int):
+            if 0 <= x <= 0x7F or -32 <= x < 0:
+                self.parts.append(struct.pack(">b" if x < 0 else ">B", x))
+                return
+            forms = ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")) if x > 0 else \
+                ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q"))
+            for code, fmt in forms:
+                bits = 8 * struct.calcsize(fmt)
+                if (x < 1 << bits) if x > 0 else (x >= -(1 << (bits - 1))):
+                    self.parts.append(struct.pack(">B" + fmt, code, x))
+                    return
+            raise ValueError(f"integer {x} is out of msgpack's range")
+        elif isinstance(x, float):
+            self.parts.append(struct.pack(">Bd", 0xCB, x))
+        elif isinstance(x, np.ndarray):
+            self.ext(_EXT_NDARRAY, x)
+        else:
+            raise TypeError(f"cannot encode {type(x).__name__} as msgpack")
+
+    def ext(self, code: int, arr: np.ndarray) -> None:
+        inner = _Writer()
+        arr = np.ascontiguousarray(arr)
+        inner.obj([list(arr.shape), arr.dtype.name, arr.tobytes()])
+        payload = b"".join(inner.parts)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.parts.append(struct.pack(">Bb", fixext[n], code))
+        else:
+            self.head(n, None, -1, (0xC7, 0xC8, 0xC9))
+            self.parts.append(struct.pack(">b", code))
+        self.parts.append(payload)
+
+
+def save_flax_msgpack(variables: Tree, path: str, metadata: dict | None = None) -> None:
+    """Write a nested dict of numpy arrays as ``flax.serialization.to_bytes``
+    does (ndarray leaves as ext type 1), and ``metadata`` as the ``.json``
+    sidecar. The file loads in ``tti.model.convert.load_checkpoint`` and in
+    :func:`load_flax_msgpack`. (Arrays above flax's 1 GiB chunk size would
+    need its chunked form; a checkpoint of this model has none.)"""
+    writer = _Writer()
+    writer.obj(variables)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"".join(writer.parts))
+    os.replace(tmp, path)
+    if metadata is not None:
+        with open(path + ".json", "w", encoding="utf-8") as f:
+            json.dump(metadata, f, indent=2)
+
+
 def checkpoint_metadata(path: str) -> dict:
     """The ``{path}.json`` sidecar, or {} when there is none."""
     sidecar = path + ".json"
@@ -218,18 +314,31 @@ def fold_batchnorm(variables: Tree) -> Tree:
     return {"params": fold(dict(variables["params"]), dict(variables["batch_stats"]))}
 
 
-def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
-    """Folded flax variables ({'params': ...}, numpy leaves) -> a state dict
-    for :class:`tti_torch.model.yolo.YOLOv8Seg` (numpy float32 values)."""
-    out: dict[str, np.ndarray] = {}
+_BN_PARAMS = {"scale": "weight", "bias": "bias"}
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
-    def walk(node: Tree, path: list[str]) -> None:
+
+def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
+    """Flax variables (numpy leaves) -> a state dict for
+    :class:`tti_torch.model.yolo.YOLOv8Seg` (numpy float32 values). A folded
+    tree ({'params': ...}) fits the ``folded_bn=True`` model; an unfolded one
+    ({'params', 'batch_stats'}, ``bn`` nodes) the ``folded_bn=False`` model."""
+    out: dict[str, np.ndarray] = {}
+    stats_root = variables_np.get("batch_stats")
+
+    def walk(node: Tree, stats: Tree | None, path: list[str]) -> None:
         for key, child in node.items():
+            if key == "bn":
+                if stats is None or "bn" not in stats:
+                    raise ValueError(f"{'/'.join(path)}: BatchNorm without batch_stats; "
+                                     "pass the batch_stats or run fold_batchnorm first")
+                for src, dst in _BN_PARAMS.items():
+                    out[".".join(path + ["bn", dst])] = np.asarray(child[src], np.float32)
+                for src, dst in _BN_STATS.items():
+                    out[".".join(path + ["bn", dst])] = np.asarray(stats["bn"][src], np.float32)
+                continue
             if isinstance(child, dict):
-                if key == "bn":
-                    raise ValueError(
-                        f"{'/'.join(path)}: unfolded BatchNorm; run fold_batchnorm first")
-                walk(child, path + [key])
+                walk(child, None if stats is None else stats.get(key), path + [key])
                 continue
             arr = np.asarray(child, np.float32)
             name = ".".join(path + ["weight" if key == "kernel" else key])
@@ -240,5 +349,39 @@ def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
                     arr = arr.transpose(3, 2, 0, 1)
             out[name] = np.ascontiguousarray(arr)
 
-    walk(variables_np["params"], [])
+    walk(variables_np["params"], stats_root, [])
     return out
+
+
+def to_flax_variables(state_dict: dict[str, Any]) -> Tree:
+    """Inverse of :func:`from_flax_variables`: a ``YOLOv8Seg`` state dict
+    (tensors or arrays) -> the flax tree under flax's names, numpy float32
+    leaves: {'params'} for a folded model, {'params', 'batch_stats'} for an
+    unfolded one."""
+    params: Tree = {}
+    stats: Tree = {}
+
+    def put(tree: Tree, path: list[str], value: np.ndarray) -> None:
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value
+
+    for name, value in state_dict.items():
+        arr = np.asarray(value.detach().cpu().float() if hasattr(value, "detach") else value,
+                         np.float32)
+        *path, leaf = name.split(".")
+        if path and path[-1] == "bn":
+            if leaf in _BN_STATS.values():
+                src = {v: k for k, v in _BN_STATS.items()}[leaf]
+                put(stats, path + [src], np.ascontiguousarray(arr))
+            else:
+                put(params, path + [{v: k for k, v in _BN_PARAMS.items()}[leaf]], arr)
+            continue
+        if leaf == "weight":
+            if path[-1].startswith("upsample"):
+                arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        put(params, path + [leaf], np.ascontiguousarray(arr))
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}

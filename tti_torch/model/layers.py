@@ -1,9 +1,17 @@
 """YOLOv8 building blocks as ``nn.Module``s (port of ``tti.model.layers``).
 
-This slice carries the inference form only: BatchNorm is folded into each
-conv's weights and bias (:func:`tti_torch.model.checkpoint.fold_batchnorm`),
-so ``Conv`` is Conv2d(bias=True) + SiLU. Modules run NCHW inside; attribute
-names mirror the flax tree so the weight map is a rename.
+Two forms of every block. ``folded=True`` (inference): BatchNorm is folded
+into each conv's weights and bias
+(:func:`tti_torch.model.checkpoint.fold_batchnorm`), so ``Conv`` is
+Conv2d(bias=True) + SiLU. ``folded=False`` (training): Conv2d without bias,
+then :class:`BatchNorm`, then SiLU, as flax's ``Conv`` block with
+``nn.BatchNorm``. Modules run NCHW inside; attribute names mirror the flax
+tree so the weight map is a rename.
+
+Every convolution computes in its input's dtype: parameters are cast to it
+(a no-op when they already have it), so a float32 model fed bfloat16
+activations trains in mixed precision with float32 parameters and float32
+gradients, as flax's ``dtype=bf16, param_dtype=f32`` does.
 """
 
 from __future__ import annotations
@@ -23,28 +31,88 @@ def autopad(k: int, d: int = 1) -> int:
     return (d * (k - 1) + 1) // 2
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (stride = kernel, no padding) that computes in
+    its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)`` over NCHW channels.
+
+    Training normalises with the batch mean and the *biased* batch variance,
+    computed in float32 whatever the input dtype, and moves the running
+    statistics by ``r = 0.97 r + 0.03 s`` with that same biased variance.
+    ``torch.nn.BatchNorm2d`` would update ``running_var`` with the unbiased
+    variance (n/(n-1) larger), so ``F.batch_norm`` gets a zeroed scratch
+    buffer for the variance and the biased value is recovered from it. In
+    eval mode the running statistics normalise. The output has the input's
+    dtype; weight and bias stay float32.
+    """
+
+    momentum = 0.03  # torch convention: flax's 0.97 is the weight of the old value
+    eps = 1e-3
+
+    def __init__(self, c: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        scratch = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        # scratch = momentum * n/(n-1) * biased variance.
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.mul_(1.0 - self.momentum).add_(scratch * ((n - 1) / n))
+        return y
+
+
 class Conv(nn.Module):
-    """Conv2d with folded BN + SiLU. ``pad=None`` is 'same' padding for odd
-    kernels; 0 is VALID (the caller pre-pads, as the s2d stem does)."""
+    """Conv2d + BN + SiLU. ``folded``: BN folded into the conv's weights and
+    bias; otherwise Conv2d without bias, then :class:`BatchNorm`. ``pad=None``
+    is 'same' padding for odd kernels; 0 is VALID (the caller pre-pads, as
+    the s2d stem does)."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
-                 pad: int | None = None, act: bool = True) -> None:
+                 pad: int | None = None, act: bool = True, folded: bool = True) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k) if pad is None else pad, bias=True)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k) if pad is None else pad, bias=folded)
+        if not folded:
+            self.bn = BatchNorm(c2)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
+        if hasattr(self, "bn"):
+            x = self.bn(x)
         return F.silu(x) if self.act else x
 
 
 class Bottleneck(nn.Module):
     """Two 3x3 Convs with optional residual (C2f inner block, e=1.0)."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True) -> None:
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, folded: bool = True) -> None:
         super().__init__()
-        self.cv1 = Conv(c1, c2, 3)
-        self.cv2 = Conv(c2, c2, 3)
+        self.cv1 = Conv(c1, c2, 3, folded=folded)
+        self.cv2 = Conv(c2, c2, 3, folded=folded)
         self.add = shortcut and c1 == c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -57,14 +125,14 @@ class C2f(nn.Module):
     Bottlenecks are attributes m0, m1, ... as in the flax tree."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
-                 e: float = 0.5) -> None:
+                 e: float = 0.5, folded: bool = True) -> None:
         super().__init__()
         self.c = int(c2 * e)
         self.n = n
-        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv1 = Conv(c1, 2 * self.c, 1, folded=folded)
         for i in range(n):
-            setattr(self, f"m{i}", Bottleneck(self.c, self.c, shortcut))
-        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+            setattr(self, f"m{i}", Bottleneck(self.c, self.c, shortcut, folded))
+        self.cv2 = Conv((2 + n) * self.c, c2, 1, folded=folded)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = list(self.cv1(x).split(self.c, dim=1))
@@ -76,10 +144,10 @@ class C2f(nn.Module):
 class SPPF(nn.Module):
     """Spatial pyramid pooling (fast): 3 chained k-pools, concat, project."""
 
-    def __init__(self, c1: int, c2: int, k: int = 5) -> None:
+    def __init__(self, c1: int, c2: int, k: int = 5, folded: bool = True) -> None:
         super().__init__()
-        self.cv1 = Conv(c1, c1 // 2, 1)
-        self.cv2 = Conv(c1 // 2 * 4, c2, 1)
+        self.cv1 = Conv(c1, c1 // 2, 1, folded=folded)
+        self.cv2 = Conv(c1 // 2 * 4, c2, 1, folded=folded)
         self.k = k
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,21 +174,21 @@ class Proto(nn.Module):
     """
 
     def __init__(self, c1: int, c_hidden: int, nm: int = 32, ups: int = 1,
-                 subpixel: bool = False) -> None:
+                 subpixel: bool = False, folded: bool = True) -> None:
         super().__init__()
         self.nm = nm
         self.ups = ups
         self.subpixel = subpixel
-        self.cv1 = Conv(c1, c_hidden, 3)
-        self.upsample = nn.ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
-        self.cv2 = Conv(c_hidden, c_hidden, 3)
+        self.cv1 = Conv(c1, c_hidden, 3, folded=folded)
+        self.upsample = ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
+        self.cv2 = Conv(c_hidden, c_hidden, 3, folded=folded)
         if ups == 2 and subpixel:
-            self.cv3sp = Conv(c_hidden, 4 * nm, 1)
+            self.cv3sp = Conv(c_hidden, 4 * nm, 1, folded=folded)
             return
         if ups == 2:
-            self.upsample2 = nn.ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
-            self.cv2b = Conv(c_hidden, c_hidden, 3)
-        self.cv3 = Conv(c_hidden, nm, 1)
+            self.upsample2 = ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
+            self.cv2b = Conv(c_hidden, c_hidden, 3, folded=folded)
+        self.cv3 = Conv(c_hidden, nm, 1, folded=folded)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cv2(self.upsample(self.cv1(x)))

@@ -6,19 +6,23 @@ every field of :class:`RawPredictions` is NHWC. Inside, the network runs
 NCHW tensors in channels_last memory, which is cuDNN's fast layout; the
 NHWC outputs are then views, not copies.
 
-Only the inference form is ported: folded BatchNorm and the exact
-space-to-depth stem (``m0s2d``), which the runtime always uses.
+Two forms: the inference form the runtime serves (folded BatchNorm and the
+exact space-to-depth stem ``m0s2d``, the defaults) and the training form
+(``folded_bn=False``: BatchNorm with running statistics; ``s2d_stem=False``:
+the plain k3/s2 stem ``m0``). :func:`init_model` gives the training form
+flax's fresh initialisation.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tti_torch.model.layers import C2f, Conv, Proto, SPPF, make_divisible
+from tti_torch.model.layers import C2f, Conv, Conv2d, Proto, SPPF, make_divisible
 
 SCALES: dict[str, tuple[float, float, int]] = {
     "n": (1 / 3, 0.25, 1024),
@@ -72,23 +76,24 @@ class Segment(nn.Module):
 
     def __init__(self, nc: int = 2, nm: int = 32, npr: int = 64,
                  ch: tuple[int, int, int] = (64, 128, 256), mask_stride: int = 4,
-                 proto_head: str = "deconv") -> None:
+                 proto_head: str = "deconv", folded: bool = True) -> None:
         super().__init__()
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
         c3 = max(ch[0], min(nc, 100))
         c4 = max(ch[0] // 4, nm)
+        f = folded
         self.proto = Proto(ch[0], npr, nm, ups={4: 1, 2: 2}[mask_stride],
-                           subpixel=proto_head == "subpixel")
+                           subpixel=proto_head == "subpixel", folded=f)
         for level, c in enumerate(ch):
-            setattr(self, f"cv2_{level}_0", Conv(c, c2, 3))
-            setattr(self, f"cv2_{level}_1", Conv(c2, c2, 3))
-            setattr(self, f"cv2_{level}_2", nn.Conv2d(c2, 4 * REG_MAX, 1))
-            setattr(self, f"cv3_{level}_0", Conv(c, c3, 3))
-            setattr(self, f"cv3_{level}_1", Conv(c3, c3, 3))
-            setattr(self, f"cv3_{level}_2", nn.Conv2d(c3, nc, 1))
-            setattr(self, f"cv4_{level}_0", Conv(c, c4, 3))
-            setattr(self, f"cv4_{level}_1", Conv(c4, c4, 3))
-            setattr(self, f"cv4_{level}_2", nn.Conv2d(c4, nm, 1))
+            setattr(self, f"cv2_{level}_0", Conv(c, c2, 3, folded=f))
+            setattr(self, f"cv2_{level}_1", Conv(c2, c2, 3, folded=f))
+            setattr(self, f"cv2_{level}_2", Conv2d(c2, 4 * REG_MAX, 1))
+            setattr(self, f"cv3_{level}_0", Conv(c, c3, 3, folded=f))
+            setattr(self, f"cv3_{level}_1", Conv(c3, c3, 3, folded=f))
+            setattr(self, f"cv3_{level}_2", Conv2d(c3, nc, 1))
+            setattr(self, f"cv4_{level}_0", Conv(c, c4, 3, folded=f))
+            setattr(self, f"cv4_{level}_1", Conv(c4, c4, 3, folded=f))
+            setattr(self, f"cv4_{level}_2", Conv2d(c4, nm, 1))
 
     def _branch(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
         for j in range(3):
@@ -122,43 +127,56 @@ def depth_to_space2(x: torch.Tensor) -> torch.Tensor:
 
 
 class YOLOv8Seg(nn.Module):
-    """Backbone + PAN neck + Segment head with the space-to-depth stem.
+    """Backbone + PAN neck + Segment head.
 
-    ``s2d_input``: the input is already (B, H/2, W/2, 12) blocked (the
-    two-pass warp emits it that way); otherwise the model blocks it.
+    ``s2d_stem``: the exact space-to-depth stem ``m0s2d`` (inference);
+    otherwise the k3/s2 stem ``m0`` on (B, H, W, 3) (training).
+    ``s2d_input``: with the s2d stem, the input is already (B, H/2, W/2, 12)
+    blocked (the two-pass warp emits it that way); otherwise the model blocks
+    it. ``folded_bn``: folded BatchNorm (inference) or BatchNorm with running
+    statistics (training). ``dtype``: the compute dtype the input is cast to
+    (None: the parameters' dtype).
     """
 
     def __init__(self, variant: str = "n", nc: int = 2, nm: int = 32,
                  mask_stride: int = 4, proto_head: str = "deconv",
-                 s2d_input: bool = True) -> None:
+                 s2d_input: bool = True, s2d_stem: bool = True, folded_bn: bool = True,
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
         cc = model_channels(variant)
         n3, n6 = cc["depth3"], cc["depth6"]
-        self.s2d_input = s2d_input
-        self.m0s2d = Conv(12, cc["c64"], 2, 1, pad=0)
-        self.m1 = Conv(cc["c64"], cc["c128"], 3, 2)
-        self.m2 = C2f(cc["c128"], cc["c128"], n3, True)
-        self.m3 = Conv(cc["c128"], cc["c256"], 3, 2)
-        self.m4 = C2f(cc["c256"], cc["c256"], n6, True)
-        self.m5 = Conv(cc["c256"], cc["c512"], 3, 2)
-        self.m6 = C2f(cc["c512"], cc["c512"], n6, True)
-        self.m7 = Conv(cc["c512"], cc["c1024"], 3, 2)
-        self.m8 = C2f(cc["c1024"], cc["c1024"], n3, True)
-        self.m9 = SPPF(cc["c1024"], cc["c1024"], 5)
-        self.m12 = C2f(cc["c1024"] + cc["c512"], cc["c512"], n3, False)
-        self.m15 = C2f(cc["c512"] + cc["c256"], cc["c256"], n3, False)
-        self.m16 = Conv(cc["c256"], cc["c256"], 3, 2)
-        self.m18 = C2f(cc["c256"] + cc["c512"], cc["c512"], n3, False)
-        self.m19 = Conv(cc["c512"], cc["c512"], 3, 2)
-        self.m21 = C2f(cc["c512"] + cc["c1024"], cc["c1024"], n3, False)
+        f = folded_bn
+        self.s2d_stem = s2d_stem
+        self.s2d_input = s2d_input and s2d_stem
+        self.dtype = dtype
+        if s2d_stem:
+            self.m0s2d = Conv(12, cc["c64"], 2, 1, pad=0, folded=f)
+        else:
+            self.m0 = Conv(3, cc["c64"], 3, 2, folded=f)
+        self.m1 = Conv(cc["c64"], cc["c128"], 3, 2, folded=f)
+        self.m2 = C2f(cc["c128"], cc["c128"], n3, True, folded=f)
+        self.m3 = Conv(cc["c128"], cc["c256"], 3, 2, folded=f)
+        self.m4 = C2f(cc["c256"], cc["c256"], n6, True, folded=f)
+        self.m5 = Conv(cc["c256"], cc["c512"], 3, 2, folded=f)
+        self.m6 = C2f(cc["c512"], cc["c512"], n6, True, folded=f)
+        self.m7 = Conv(cc["c512"], cc["c1024"], 3, 2, folded=f)
+        self.m8 = C2f(cc["c1024"], cc["c1024"], n3, True, folded=f)
+        self.m9 = SPPF(cc["c1024"], cc["c1024"], 5, folded=f)
+        self.m12 = C2f(cc["c1024"] + cc["c512"], cc["c512"], n3, False, folded=f)
+        self.m15 = C2f(cc["c512"] + cc["c256"], cc["c256"], n3, False, folded=f)
+        self.m16 = Conv(cc["c256"], cc["c256"], 3, 2, folded=f)
+        self.m18 = C2f(cc["c256"] + cc["c512"], cc["c512"], n3, False, folded=f)
+        self.m19 = Conv(cc["c512"], cc["c512"], 3, 2, folded=f)
+        self.m21 = C2f(cc["c512"] + cc["c1024"], cc["c1024"], n3, False, folded=f)
         self.m22 = Segment(nc, nm, cc["npr"], (cc["p3"], cc["p4"], cc["p5"]),
-                           mask_stride, proto_head)
+                           mask_stride, proto_head, folded=f)
 
     def forward(self, x: torch.Tensor) -> RawPredictions:
-        z = x if self.s2d_input else space_to_depth2(x)
-        dtype = next(self.parameters()).dtype
-        z = z.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x0 = self.m0s2d(F.pad(z, (1, 0, 1, 0)))
+        dtype = self.dtype or next(self.parameters()).dtype
+        if self.s2d_stem and not self.s2d_input:
+            x = space_to_depth2(x)
+        z = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x0 = self.m0s2d(F.pad(z, (1, 0, 1, 0))) if self.s2d_stem else self.m0(z)
         x2 = self.m2(self.m1(x0))
         x4 = self.m4(self.m3(x2))  # P3
         x6 = self.m6(self.m5(x4))  # P4
@@ -172,11 +190,52 @@ class YOLOv8Seg(nn.Module):
 
 
 def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int = 4,
-                 proto_head: str = "deconv", s2d_input: bool = True) -> YOLOv8Seg:
+                 proto_head: str = "deconv", s2d_input: bool = True, s2d_stem: bool = True,
+                 folded_bn: bool = True, dtype: torch.dtype | None = None) -> YOLOv8Seg:
     if variant not in SCALES:
         raise ValueError(f"unknown variant {variant!r}; choose from {sorted(SCALES)}")
     if mask_stride not in (2, 4):
         raise ValueError(f"mask_stride must be 2 or 4, got {mask_stride}")
     if proto_head not in ("deconv", "subpixel"):
         raise ValueError(f"proto_head must be 'deconv' or 'subpixel', got {proto_head!r}")
-    return YOLOv8Seg(variant, nc, nm, mask_stride, proto_head, s2d_input)
+    return YOLOv8Seg(variant, nc, nm, mask_stride, proto_head, s2d_input, s2d_stem, folded_bn,
+                     dtype)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init: variance 1/fan_in, normal truncated at two
+    standard deviations (jax's truncated_normal rescaled to unit variance)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape, dtype=torch.float32), 0.0, 1.0,
+                                            -2.0, 2.0, generator=generator) * std)
+
+
+def init_model(variant: str = "n", nc: int = 2, mask_stride: int = 4,
+               proto_head: str = "deconv", generator: torch.Generator | None = None,
+               nm: int = 32, dtype: torch.dtype | None = None) -> YOLOv8Seg:
+    """A fresh training-form model (k3/s2 stem, BatchNorm with running
+    statistics), float32 on the CPU, initialised with the distributions
+    ``tti.model.yolo.init_variables`` uses: lecun-normal (truncated) conv
+    and transposed-conv kernels, zero biases, BN scale 1 / bias 0 / mean 0 /
+    var 1, the class-bias prior ``log(5 / nc / (640 / stride)^2)`` on the
+    class heads and 1.0 on the DFL heads' biases. The draws come from
+    ``generator`` in module order; the values are not flax's."""
+    model = create_model(variant, nc, nm, mask_stride, proto_head, s2d_stem=False,
+                         folded_bn=False, dtype=dtype)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.ConvTranspose2d):  # kernel (I, O, kh, kw); flax fan_in = kh*kw*I
+            _lecun_normal_(mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel(), gen)
+        elif isinstance(mod, nn.Conv2d):
+            _lecun_normal_(mod.weight, mod.weight[0].numel(), gen)
+        else:
+            continue
+        if mod.bias is not None:
+            nn.init.zeros_(mod.bias)
+    head = model.m22
+    for level, stride in enumerate(STRIDES):
+        nn.init.ones_(getattr(head, f"cv2_{level}_2").bias)
+        nn.init.constant_(getattr(head, f"cv3_{level}_2").bias,
+                          math.log(5 / nc / (640 / stride) ** 2))
+    return model
