@@ -5,7 +5,7 @@
 
 ``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
 file as the commit that added the port's measurement path had it); it is
-built beside the current kernels and timed on the same inputs in phase 6,
+built beside the current kernels and timed on the same inputs in phase 8,
 before and after them. Nothing else uses it. ``--ablate`` runs phases 1-2
 and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
 part of the design out or tune it otherwise, timed on synthetic inputs
@@ -61,10 +61,32 @@ exits non-zero without printing the final result line:
    the device's idle share of the trainer's own loop (``train_step``, one
    synchronisation per window), then per-part iteration times in a
    separate loop;
-7. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
+7. the application at the deployed geometry (960x1280 frames, imgsz 960,
+   the cam checkpoint, bf16, through the CLI's ``load_pipeline``): 32 seeded
+   textile frames through the ``Orchestrator``'s own loop at inference
+   interval 0, blocking and then pipelined, each with a sqlite database
+   under ``build/app_smoke/``, ``SerialReader`` on a scripted counter (5
+   stitches per frame) and ``random.Random(0)``: 32 frames each, kernel A
+   once per frame, rows = inserts + the daily-reset row, the pipelined
+   readings equal to the blocking ones (its stitch deltas and inserts one
+   tick earlier, as its lag makes them), and the same frames with the plain
+   statistics bound in the kernels' place give the same valid/inserted
+   sequence and seam/width within 0.01 mm; one annotated JPEG per frame
+   where OpenCV imports (none where it does not); frames/s, the stage timer,
+   the host ms of fusion and of drawing and saving the annotated frame. Then
+   ``python -m tti_torch.cli run --synthetic --max-frames 2
+   --skip-calibration`` and ``--cameras 4`` in subprocesses (exit 0, two
+   measurement records; eight stream records), from a directory holding a
+   .env and the calibration files. Then ``tti eval``'s loop
+   (``evaluate_samples``) with ``Predictor`` at the deployed recipe over 16
+   seeded scenes in chunks of 8: box and mask mAP, images/s, the host
+   seconds of ``evaluate``; bf16 against float32 on the card (median mask
+   IoU >= 0.999) and the card's float32 against the CPU's on 2 scenes
+   (boxes within 1e-2 px, mask IoU >= 0.999);
+8. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
    on the inputs the batch-128 step gives it;
-8. the ``kernels`` JSON line, then the final
+9. the ``kernels`` JSON line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Checks use seeded data only and need no network. Tolerances are stated
@@ -74,6 +96,7 @@ where they are applied.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import subprocess
@@ -734,28 +757,40 @@ def textile(frame_hw, n=8):
     return np.ascontiguousarray(np.tile(base, ((n + 7) // 8, 1, 1, 1))[:n])
 
 
-def build_pipeline(torch, frame_hw, imgsz, ckpt, **kw):
+def bench_calibration(frame_hw):
+    """bench.py's calibration, its intrinsics scaled to the frame size."""
     from tti_torch.calib.io import CalibrationData
-    from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
+
+    h, w = frame_hw
+    K = K_960.copy()
+    K[0] *= w / 1280.0
+    K[1] *= h / 960.0
+    return CalibrationData(K=K, dist=DIST, rvec=RVEC, tvec=TVEC)
+
+
+def bench_roi(frame_hw):
+    """bench.py's ROI for the frame size."""
+    from tti_torch.core.config import RoiConfig
+
+    h, w = frame_hw
+    return RoiConfig(enabled=True, x_min=10, x_max=w - 10, y_min=min(300, h // 3),
+                     y_max=h - min(200, h // 5))
+
+
+def build_pipeline(torch, frame_hw, imgsz, ckpt, **kw):
+    from tti_torch.core.config import MeasureConfig, ModelConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
     from tti_torch.parallel.runtime import InspectionPipeline
 
     path = os.path.join(HERE, "checkpoints", ckpt)
     meta = checkpoint_metadata(path)
-    h, w = frame_hw
-    K = K_960.copy()
-    K[0] *= w / 1280.0
-    K[1] *= h / 960.0
     cfg = ModelConfig(variant=meta.get("variant", "n"), num_classes=meta.get("num_classes", 2),
                       image_size=imgsz, dtype="bfloat16",
                       mask_stride=meta.get("mask_stride", 4),
                       proto_head=meta.get("proto_head", "deconv"))
     return InspectionPipeline(
-        cfg, load_flax_msgpack(path), frame_hw,
-        calibration=CalibrationData(K=K, dist=DIST, rvec=RVEC, tvec=TVEC),
-        measure_cfg=MeasureConfig().with_subcell_from(meta),
-        roi=RoiConfig(enabled=True, x_min=10, x_max=w - 10, y_min=min(300, h // 3),
-                      y_max=h - min(200, h // 5)),
+        cfg, load_flax_msgpack(path), frame_hw, calibration=bench_calibration(frame_hw),
+        measure_cfg=MeasureConfig().with_subcell_from(meta), roi=bench_roi(frame_hw),
         device="cuda", **kw)
 
 
@@ -1573,6 +1608,396 @@ def check_training(torch, ms, wp, card) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the application (``run`` and ``eval``)
+# ---------------------------------------------------------------------------
+
+
+# The deployed geometry and the phase's depth.
+APP = dict(device="cuda", frame_hw=(960, 1280), imgsz=960, frames=32, scenes=16, chunk=8,
+           cpu_scenes=2)
+APP_DIR = os.path.join(HERE, "build", "app_smoke")
+
+
+class CountingTransport:
+    """A scripted ESP32 stitch counter for ``SerialReader``: it sends the
+    count when the count changes, and ``read_available`` waits up to 50 ms
+    for a change, so the reader's thread takes a new count at once."""
+
+    def __init__(self):
+        import threading
+
+        self.cond = threading.Condition()
+        self.count = self.sent = 0
+        self.is_open = True
+
+    def advance(self, n: int) -> None:
+        with self.cond:
+            self.count += n
+            self.cond.notify_all()
+
+    def read_available(self) -> bytes:
+        with self.cond:
+            self.cond.wait_for(lambda: self.count != self.sent or not self.is_open, timeout=0.05)
+            if self.count == self.sent:
+                return b""
+            self.sent = self.count
+            return f"{self.count}\n".encode()
+
+    def close(self) -> None:
+        with self.cond:
+            self.is_open = False
+            self.cond.notify_all()
+
+
+class StitchedFrames:
+    """Fixed frames as a camera on a sewing line: each read advances the
+    stitch counter by ``PER_FRAME`` and returns once the serial reader has
+    the new count, so a blocking tick sees a delta of exactly ``PER_FRAME``."""
+
+    PER_FRAME = 5
+
+    def __init__(self, frames, transport, reader):
+        self.frames = list(frames)
+        self.transport, self.reader = transport, reader
+
+    def read(self):
+        if not self.frames:
+            return False, None
+        self.transport.advance(self.PER_FRAME)
+        deadline = time.monotonic() + 1.0
+        while self.reader.get_stitch_count() != self.transport.count:
+            check(time.monotonic() < deadline, "the serial reader did not take the count")
+            time.sleep(0)
+        return True, self.frames.pop(0)
+
+    def reconnect(self): ...
+
+    def release(self): ...
+
+
+def run_loop(ms, wp, pipe, frames, tag, pipelined=False) -> dict:
+    """``frames`` through the Orchestrator's own loop (``run``) at
+    inference interval 0, with a sqlite database, the scripted serial
+    counter and ``random.Random(0)``; launch counts set to 0 just before and
+    read just after. Returns the per-frame results, frames/s (from the start
+    of ``run`` to the end of the last frame's fusion, so the services'
+    shutdown is outside), the host ms of ``_fuse_outputs``, of drawing the
+    annotated frame and of saving it, the stage timer, the launches and the
+    database's row count."""
+    import random
+    import sqlite3
+
+    from tti_torch.app.orchestrator import Orchestrator
+    from tti_torch.core.config import AppConfig, DatabaseConfig, RuntimeConfig, SerialConfig
+    from tti_torch.services.serial_reader import SerialReader
+
+    d = os.path.join(APP_DIR, tag)
+    os.makedirs(d, exist_ok=True)
+    cfg = AppConfig(model=pipe.model_cfg, measure=pipe.measure_cfg,
+                    database=DatabaseConfig(sqlite_path=os.path.join(d, "line.db")),
+                    runtime=RuntimeConfig(inference_interval_s=0.0,
+                                          save_dir=os.path.join(d, "saved_annotations")))
+    transport = CountingTransport()
+    reader = SerialReader(SerialConfig(port="scripted"), transport_factory=lambda port: transport,
+                          port_detector=lambda: None)
+    check(reader.start_reading(), f"{tag}: the scripted serial reader did not start")
+    orch = Orchestrator(cfg, pipe, StitchedFrames(frames, transport, reader),
+                        rng=random.Random(0))
+    orch.init_services()  # no ESP32, no MQTT server: the counter is the scripted one
+    orch.serial = reader
+    results, fusion_s, done = [], [], []
+    fuse = orch._fuse_outputs
+
+    def timed_fuse(outs):
+        t = time.perf_counter()
+        results.append(fuse(outs))
+        done.append(time.perf_counter())
+        fusion_s.append(done[-1] - t)
+        return results[-1]
+
+    orch._fuse_outputs = timed_fuse
+    jpeg_s = {"render": [], "save": []}
+
+    def timed(name, fn):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            jpeg_s[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    orch.render_annotated = timed("render", orch.render_annotated)
+    orch.save_annotated_frame = timed("save", orch.save_annotated_frame)
+    reset_launch_counts(ms, wp)
+    t0 = time.perf_counter()
+    orch.run(max_frames=len(frames), pipelined=pipelined)
+    launches = launch_counts(ms, wp)
+    with sqlite3.connect(cfg.database.sqlite_path) as con:
+        rows = con.execute('SELECT COUNT(*) FROM "measurements"').fetchone()[0]
+    check(orch.frame_count == len(frames) == len(results),
+          f"{tag}: {orch.frame_count} frames processed, {len(results)} fused, of {len(frames)}")
+    # One annotated JPEG per frame where OpenCV imports, none where it does not.
+    jpegs = len(glob.glob(os.path.join(cfg.runtime.save_dir, "*", "frame_*.jpg")))
+    check(jpegs == (len(frames) if opencv_version() else 0),
+          f"{tag}: {jpegs} annotated JPEGs for {len(frames)} frames (cv2 {opencv_version()})")
+    return {"results": results, "frames_per_s": len(results) / (done[-1] - t0),
+            "fusion_ms_p50": 1e3 * float(np.median(fusion_s)),
+            "fusion_ms_mean": 1e3 * float(np.mean(fusion_s)), "timer": orch.timer.summary(),
+            "render_ms_p50": 1e3 * float(np.median(jpeg_s["render"] or [0.0])),
+            "save_ms_p50": 1e3 * float(np.median(jpeg_s["save"] or [0.0])),
+            "launches": launches, "rows": rows, "inserted": sum(r["inserted"] for r in results),
+            "jpegs": jpegs}
+
+
+def opencv_version() -> str | None:
+    """OpenCV's version where it imports (the loop then saves annotated
+    JPEGs), else None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2.__version__
+
+
+def check_cli() -> dict:
+    """``python -m tti_torch.cli run`` in a subprocess, from a working
+    directory that holds a .env (the cam checkpoint, a sqlite path, the
+    geometry) and the calibration files written by ``tti_torch.calib.io``:
+    two frames of the single-camera loop at the reference's 2 s cadence,
+    then four synthetic cameras through ``MultiStreamRunner``."""
+    from tti_torch.calib.io import save_extrinsics, save_intrinsics
+
+    d = os.path.join(APP_DIR, "cli")
+    os.makedirs(d, exist_ok=True)
+    (h, w), roi = APP["frame_hw"], bench_roi(APP["frame_hw"])
+    calib = bench_calibration(APP["frame_hw"])
+    save_intrinsics(calib.K, calib.dist, os.path.join(d, "camera_calibration.json"),
+                    image_size=(w, h))
+    save_extrinsics(calib.rvec, calib.tvec, os.path.join(d, "extrinsics.json"))
+    with open(os.path.join(d, ".env"), "w", encoding="utf-8") as f:
+        f.write(f"TTI_WEIGHTS={CAM_CKPT}\nTTI_SQLITE_PATH=line.db\nCALIB_W={w}\nCALIB_H={h}\n"
+                f"TTI_IMAGE_SIZE={APP['imgsz']}\nROI_X_MIN={roi.x_min}\nROI_X_MAX={roi.x_max}\n"
+                f"ROI_Y_MIN={roi.y_min}\nROI_Y_MAX={roi.y_max}\n")
+    env = dict(os.environ, PYTHONPATH=HERE, TTI_LOG_JSON="1")
+    out = {}
+    for label, extra in (("run", ["--skip-calibration"]), ("run --cameras 4", ["--cameras", "4"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tti_torch.cli", "run", "--synthetic",
+                               "--max-frames", "2", "--device", APP["device"], *extra],
+                              cwd=d, env=env, capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        records = []
+        for line in proc.stderr.splitlines():
+            with contextlib.suppress(ValueError):
+                records.append(json.loads(line))
+        msgs = [r.get("msg", "") for r in records]
+        if label == "run":
+            n = sum(m == "measurement" for m in msgs)
+            check(n == 2, f"cli {label}: {n} measurement records, expected 2")
+        else:
+            n = sum(m.startswith("stream ") for m in msgs)
+            check(n == 8 and "multistream shutdown: 2 batches x 4 streams" in msgs,
+                  f"cli {label}: {n} stream records; {msgs[-3:]}")
+        out[label] = {"seconds": secs, "records": n}
+        log(f"cli `python -m tti_torch.cli {label} --synthetic --max-frames 2`: exit 0 in "
+            f"{secs:.1f} s, {n} records")
+    return out
+
+
+def matched_mask_ious(a, b, min_box_iou=0.5) -> list[float]:
+    """Mask IoU of ``masks_input`` over detections of ``a`` matched to
+    ``b`` (same image and class, greedy by box IoU >= ``min_box_iou``)."""
+    from tti_torch.train.eval import box_iou
+
+    out = []
+    for i in range(a.valid.shape[0]):
+        m = a.masks_input.shape[1]
+        ia = np.flatnonzero(a.valid[i][:m])
+        ib = np.flatnonzero(b.valid[i][:m])
+        iou = box_iou(a.boxes[i][ia], b.boxes[i][ib])
+        same = a.classes[i][ia][:, None] == b.classes[i][ib][None, :]
+        iou = np.where(same, iou, 0.0)
+        taken = np.zeros(len(ib), bool)
+        for r in range(len(ia)):
+            cand = np.where(taken, -1.0, iou[r])
+            if cand.size == 0 or cand.max() < min_box_iou:
+                continue
+            c = int(cand.argmax())
+            taken[c] = True
+            ma, mb = a.masks_input[i, ia[r]] > 0, b.masks_input[i, ib[c]] > 0
+            union = int((ma | mb).sum())
+            out.append(1.0 if union == 0 else int((ma & mb).sum()) / union)
+    return out
+
+
+def check_eval(torch) -> dict:
+    """``tti eval``'s loop (``evaluate_samples``) with ``Predictor`` at the
+    deployed recipe (cam checkpoint, imgsz 960, stride 2, sub-pixel protos,
+    bf16) over seeded scenes in chunks of 8: box mAP, mask mAP at the proto
+    grid and at full resolution, images/s of the predict calls and the host
+    seconds of ``evaluate``. Then bf16 against float32 on the card (median
+    mask IoU of matched detections >= 0.999, the reference's own parity
+    target) and the card's float32 against the CPU's (valid rows and classes
+    equal, boxes within 1e-2 px, every mask IoU >= 0.999)."""
+    from torch_scenes import textile_samples
+    from tti_torch.app.predict import Predictor
+    from tti_torch.core.config import ModelConfig
+    from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
+    from tti_torch.train.eval import evaluate_samples
+
+    imgsz, chunk, dev = APP["imgsz"], APP["chunk"], APP["device"]
+    meta = checkpoint_metadata(CAM_CKPT)
+    variables = load_flax_msgpack(CAM_CKPT)
+
+    def predictor(dtype, device):
+        cfg = ModelConfig(weights=CAM_CKPT, image_size=imgsz, dtype=dtype,
+                          mask_stride=meta["mask_stride"], proto_head=meta["proto_head"])
+        return Predictor(cfg, variables, (imgsz, imgsz), mask_topk=64, proto_masks=True,
+                         device=device)
+
+    t0 = time.perf_counter()
+    samples = textile_samples(APP["scenes"], imgsz, seed=303)
+    scenes_s = time.perf_counter() - t0
+    bgr = np.ascontiguousarray(np.stack([s.image[..., ::-1] for s in samples[:chunk]]))
+    bf16 = predictor("bfloat16", dev)
+    bf16(bgr)  # warm-up at the chunk's shape
+    res = evaluate_samples(samples, bf16, imgsz, meta.get("num_classes", 2), meta["mask_stride"],
+                           chunk=chunk)
+    for key in ("box", "mask_proto", "mask_full"):
+        check(all(np.isfinite(v) for v in res[key].values()), f"eval {key}: not finite")
+    check(res["mask_full"]["mAP50"] > 0.0, "eval: the deploy checkpoint found nothing")
+    fps = res["images"] / res["predict_s"]
+    fmt = lambda d: {k: round(v, 4) for k, v in d.items()}
+    log(f"eval ({res['images']} seeded scenes at {imgsz}, chunks of {chunk}, bf16; scenes drawn in "
+        f"{scenes_s:.1f} s): box {fmt(res['box'])}; mask (proto grid) {fmt(res['mask_proto'])}; "
+        f"mask (full resolution) {fmt(res['mask_full'])}; predict {fps:.1f} images/s; evaluate "
+        f"{res['evaluate_s']:.2f} s on the host")
+
+    f32 = predictor("float32", dev)
+    a, b = bf16(bgr), f32(bgr)
+    ious = matched_mask_ious(a, b)
+    med = float(np.median(ious)) if ious else 0.0
+    check(len(ious) > 0 and med >= 0.999,
+          f"eval bf16 vs float32: median mask IoU {med} over {len(ious)} matched detections")
+    log(f"predict bf16 against float32 on the card ({chunk} scenes): {len(ious)} matched "
+        f"detections of {int(a.valid.sum())} / {int(b.valid.sum())}, mask IoU median {med:.5f} "
+        f"(limit 0.999), min {min(ious):.4f}")
+
+    n = APP["cpu_scenes"]
+    g, c = f32(bgr[:n]), predictor("float32", "cpu")(bgr[:n])
+    np.testing.assert_array_equal(g.valid, c.valid)
+    np.testing.assert_array_equal(g.classes[g.valid], c.classes[c.valid])
+    box_err = float(np.abs(g.boxes[g.valid] - c.boxes[c.valid]).max()) if g.valid.any() else 0.0
+    cpu_ious = matched_mask_ious(g, c)
+    check(box_err <= 1e-2, f"predict card vs CPU: boxes differ by {box_err} px")
+    check(len(cpu_ious) == int(g.valid[:, :g.masks_input.shape[1]].sum())
+          and min(cpu_ious, default=1.0) >= 0.999,
+          f"predict card vs CPU: mask IoUs {sorted(cpu_ious)[:3]} over {len(cpu_ious)}")
+    log(f"predict float32 card against CPU ({n} scenes): {int(g.valid.sum())} detections, boxes "
+        f"max abs diff {box_err:.3g} px (limit 1e-2), mask IoU min {min(cpu_ious, default=1.0):.5f} "
+        f"(limit 0.999)")
+    return {"box": res["box"], "mask_proto": res["mask_proto"], "mask_full": res["mask_full"],
+            "predict_images_per_s": fps, "evaluate_host_s": res["evaluate_s"],
+            "bf16_vs_f32_mask_iou_median": med, "bf16_vs_f32_matched": len(ious),
+            "card_vs_cpu_box_max_diff": box_err,
+            "card_vs_cpu_mask_iou_min": min(cpu_ious, default=1.0)}
+
+
+def check_application(torch, ms, wp, step_p50_ms) -> dict:
+    """Phase 7 (see the module docstring)."""
+    import shutil
+
+    from tti_torch.cli.__main__ import load_pipeline
+    from tti_torch.core.config import AppConfig, ModelConfig
+
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    os.makedirs(APP_DIR)
+    frame_hw, n = APP["frame_hw"], APP["frames"]
+    cfg = AppConfig(model=ModelConfig(weights=CAM_CKPT, image_size=APP["imgsz"]),
+                    roi=bench_roi(frame_hw))
+    t0 = time.perf_counter()
+    pipe = load_pipeline(cfg, frame_hw, bench_calibration(frame_hw), device=APP["device"])
+    setup_s = time.perf_counter() - t0
+    check(pipe.model_cfg.mask_stride == 2 and pipe.measure_cfg.subcell_edge,
+          "run: the sidecar's architecture and readout were not adopted")
+    frames = list(textile(frame_hw, n))
+    lats = []
+    for i in range(12):  # the first two warm the batch-1 shapes
+        t = time.perf_counter()
+        pipe.process_batch(frames[i % n][None])
+        lats.append(time.perf_counter() - t)
+    process_p50 = 1e3 * float(np.median(lats[2:]))
+
+    blocking = run_loop(ms, wp, pipe, frames, "blocking")
+    piped = run_loop(ms, wp, pipe, frames, "pipelined", pipelined=True)
+    with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
+        plain = run_loop(ms, wp, pipe, frames, "plain")
+    for tag, loop in (("blocking", blocking), ("pipelined", piped)):
+        check(loop["launches"]["mask_stats_soft"] == n and not loop["launches"]["mask_stats_binary"],
+              f"run {tag}: kernel A once per frame expected, launches {loop['launches']}")
+        check(loop["rows"] == loop["inserted"] + 1,
+              f"run {tag}: {loop['rows']} rows for {loop['inserted']} inserts + the reset row")
+    check(not any(plain["launches"].values()), f"run plain: launched {plain['launches']}")
+    check(blocking["inserted"] > 0, "run: nothing was inserted")
+    keys = ("valid", "edge_distance_mm", "stitch_width_mm", "seam_mm", "width_mm", "stitch_count")
+    seq = lambda loop: [tuple(r[k] for k in keys) for r in loop["results"]]
+    check(seq(piped) == seq(blocking), "run: the pipelined readings differ from the blocking ones")
+    # The pipelined loop fuses frame N after frame N+1's counter read, and
+    # its last frame after no new read: the stitch deltas move one tick
+    # earlier and the last frame inserts nothing.
+    per = StitchedFrames.PER_FRAME
+    check([r["stitch_delta"] for r in blocking["results"]] == [per] * n
+          and [r["stitch_delta"] for r in piped["results"]] == [2 * per] + [per] * (n - 2) + [0],
+          "run: the stitch deltas are not the expected ones")
+    ins = lambda loop: [r["inserted"] for r in loop["results"]]
+    check(ins(piped) == ins(blocking)[:-1] + [False],
+          "run: the pipelined inserts are not the blocking ones shifted by the last tick")
+    flags = lambda loop: [(r["valid"], r["inserted"]) for r in loop["results"]]
+    check(flags(plain) == flags(blocking), "run: valid/inserted differ on the plain route")
+    worst = 0.0
+    for got, ref in zip(blocking["results"], plain["results"]):
+        for key in ("seam_mm", "width_mm"):
+            check((got[key] is None) == (ref[key] is None), f"run plain: {key} presence differs")
+            if got[key] is not None:
+                worst = max(worst, abs(got[key] - ref[key]))
+    check(worst <= 1e-2, f"run: kernel and plain routes differ by {worst} mm")
+    measured = sum(r["edge_distance_mm"] is not None for r in blocking["results"])
+    check(measured > 0, "run: no frame measured")
+    host_ms = lambda loop: (f"fusion p50 {loop['fusion_ms_p50']:.3f} ms, annotated frame: draw "
+                            f"p50 {loop['render_ms_p50']:.3f} ms, save p50 "
+                            f"{loop['save_ms_p50']:.3f} ms")
+    stages = lambda loop: ", ".join(f"{k} p50 {v['p50_ms']:.3f} ms (mean {v['mean_ms']:.3f})"
+                                    for k, v in loop["timer"].items())
+    log(f"run ({n} frames {frame_hw[0]}x{frame_hw[1]}, imgsz {APP['imgsz']}, cam checkpoint, bf16, "
+        f"interval 0, cv2 {opencv_version() or 'absent'}: {blocking['jpegs']} annotated JPEGs per "
+        f"loop; pipeline set-up {setup_s:.1f} s): blocking {blocking['frames_per_s']:.2f} "
+        f"frames/s [{stages(blocking)}; {host_ms(blocking)}], pipelined "
+        f"{piped['frames_per_s']:.2f} frames/s [{stages(piped)}; {host_ms(piped)}]; batch-1 "
+        f"process_batch p50 {process_p50:.3f} ms, "
+        f"device-resident step p50 {step_p50_ms:.3f} ms (phase 4)")
+    log(f"run: kernel A launches {blocking['launches']['mask_stats_soft']} (blocking), "
+        f"{piped['launches']['mask_stats_soft']} (pipelined); {measured} of {n} frames measured; "
+        f"inserts {blocking['inserted']} / {piped['inserted']}, rows {blocking['rows']} / "
+        f"{piped['rows']}; pipelined readings = blocking, its stitch deltas and inserts one "
+        f"tick earlier (last frame: delta 0, no insert); kernel vs plain route: valid/inserted "
+        f"equal, seam/width max diff {worst:.3g} mm (limit 0.01)")
+    summary = lambda loop: {k: loop[k] for k in ("frames_per_s", "fusion_ms_p50",
+                                                 "fusion_ms_mean", "render_ms_p50", "save_ms_p50",
+                                                 "timer", "launches", "rows", "inserted", "jpegs")}
+    result = {"opencv": opencv_version(), "blocking": summary(blocking),
+              "pipelined": summary(piped),
+              "plain_route_max_mm_diff": worst, "measured_frames": measured,
+              "process_batch_b1_p50_ms": process_p50, "step_b1_p50_ms": step_p50_ms}
+    del pipe
+    if APP["device"] == "cuda":
+        torch.cuda.empty_cache()
+    result["cli"] = check_cli()
+    result["eval"] = check_eval(torch)
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -1629,7 +2054,7 @@ def main() -> int:
     errs = check_kernels(torch, ms)
 
     # Phases 4-5: the configurations through process_batch; each step's own
-    # kernel inputs at batch 128 are kept for phase 6.
+    # kernel inputs at batch 128 are kept for phase 8.
     head_hw, head_ckpt = (1080, 1920), "yolov8n_textile.msgpack"
     dep, dep_launches, _ = check_step(
         torch, ms, wp, "deploy step (960x1280, imgsz 960, stride-2 soft)", (960, 1280), 960,
@@ -1662,7 +2087,11 @@ def main() -> int:
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
 
-    # Phase 7: kernel timings, on each step's own inputs (the kernels line)
+    # Phase 7: the application, ``run`` and ``eval``.
+    application = check_application(torch, ms, wp, dep_time["p50_ms"])
+    log(card)
+
+    # Phase 8: kernel timings, on each step's own inputs (the kernels line)
     # and, for the mask statistics, on a synthetic input whose first box
     # covers the whole grid.
     log("kernel timings (CUDA events, L2 flushed before each call):")
@@ -1691,6 +2120,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "einsum_ms": t["einsum_ms"],
             "timed_on": label, "timed_shape": t["shape"], "timed_d": t["d"],
+            "run_launches": {"frames": APP["frames"], **{
+                tag: application[tag]["launches"][name] for tag in ("blocking", "pipelined")}},
             "whole_grid": {k: g[k] for k in timed if k in g},
             **({k: t[k] for k in ("ms_again", "first_design_ms")} if first else {}),
         })
@@ -1715,7 +2146,7 @@ def main() -> int:
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams},
-        "training": training}))
+        "training": training, "application": application}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

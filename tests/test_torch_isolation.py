@@ -1,6 +1,7 @@
 """tti_torch stands alone: it imports neither jax (nor flax, optax, msgpack)
-nor anything of tti, and a tiny CPU inspection step and a training step run
-with all of them blocked."""
+nor anything of tti, and a tiny CPU inspection step, one frame of the
+measurement loop and a training step run with all of them blocked, and with
+the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too."""
 
 import os
 import re
@@ -13,7 +14,8 @@ PORT = REPO / "tti_torch"
 
 SCRIPT = r"""
 import pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "tti"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "tti",
+             "cv2", "PIL", "mysql", "paho", "serial"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib
 import tti_torch
@@ -23,7 +25,11 @@ for name in names:
 for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
              "tti_torch.kernels.warp_p1", "tti_torch.core.logging", "tti_torch.cli.__main__",
              *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
-                                               "checkpoint", "loop"))):
+                                               "checkpoint", "loop", "eval")),
+             *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
+                                                  "mqtt", "cleaner")),
+             *(f"tti_torch.app.{m}" for m in ("results", "annotate", "orchestrator",
+                                             "predict"))):
     assert name in names and name in sys.modules, name
 
 import numpy as np
@@ -46,6 +52,17 @@ pipe = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_stri
                           device="cpu")
 out = pipe.process_batch(textile_frames(1, 96, 128))
 assert out.boxes_frame.shape == (1, 200, 4) and out.envelope.shape == (1, 64)
+import os, random, tempfile
+from tti_torch.app.orchestrator import Orchestrator
+from tti_torch.app.sources import SyntheticSource
+from tti_torch.core.config import AppConfig, DatabaseConfig, RuntimeConfig
+tmp = tempfile.mkdtemp()
+cfg = AppConfig(database=DatabaseConfig(sqlite_path=os.path.join(tmp, "m.db")),
+                runtime=RuntimeConfig(inference_interval_s=0.0, save_dir=os.path.join(tmp, "a")))
+orch = Orchestrator(cfg, pipe, SyntheticSource(96, 128), rng=random.Random(0))
+orch.init_services()  # no serial port, no MQTT server, no cv2: each degrades
+orch.run(max_frames=1)
+assert orch.frame_count == 1 and orch.render_annotated(None, {}) is None
 import torch
 from tests.torch_scenes import textile_samples
 from tti_torch.train.augment import build_device_dataset
@@ -76,7 +93,8 @@ def test_port_sources_name_no_forbidden_module():
                 REPO / "tests" / "torch_synth.py"]
     names = {p.name for p in sources}
     assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "framering.cpp", "loop.py",
-                                  "assigner.py", "augment.py", "__main__.py",
+                                  "assigner.py", "augment.py", "__main__.py", "orchestrator.py",
+                                  "predict.py", "eval.py", "database.py",
                                   "torch_scenes.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}

@@ -1,4 +1,4 @@
-"""Calibration file IO (copy of ``tti.calib.io``'s loaders).
+"""Calibration file IO (copy of ``tti.calib.io``): loaders and writers.
 
 ``camera_calibration.json`` holds a 3x3 camera_matrix, 5 dist_coeffs and
 optionally rms/image_size; ``extrinsics.json`` holds {rvec, tvec}.
@@ -62,3 +62,29 @@ def load_extrinsics(path: str) -> tuple[np.ndarray, np.ndarray]:
     except (KeyError, ValueError, json.JSONDecodeError) as e:
         raise CalibrationError(f"Failed to load extrinsics from {path}: {e}") from e
     return rvec, tvec
+
+
+def save_extrinsics(rvec: np.ndarray, tvec: np.ndarray, path: str) -> None:
+    """Write {rvec, tvec} as flat lists (the reference's bytes)."""
+    data = {
+        "rvec": np.asarray(rvec, dtype=np.float64).flatten().tolist(),
+        "tvec": np.asarray(tvec, dtype=np.float64).flatten().tolist(),
+    }
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f, indent=2)
+
+
+def save_intrinsics(K: np.ndarray, dist: np.ndarray, path: str,
+                    image_size: tuple[int, int] | None = None, rms: float | None = None) -> None:
+    """Write camera_matrix, dist_coeffs (one nested row) and optionally rms
+    and image_size (the reference's bytes)."""
+    data: dict = {
+        "camera_matrix": np.asarray(K, dtype=np.float64).tolist(),
+        "dist_coeffs": [np.asarray(dist, dtype=np.float64).ravel().tolist()],
+    }
+    if rms is not None:
+        data["rms"] = float(rms)
+    if image_size is not None:
+        data["image_size"] = [int(image_size[0]), int(image_size[1])]
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f, indent=2)

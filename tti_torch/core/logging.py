@@ -70,7 +70,7 @@ class StageTimer:
         timer = StageTimer()
         with timer.stage("preprocess"):
             ...
-        timer.summary()  # {'preprocess': {'n': 1, 'total_s': ..., 'mean_ms': ...}}
+        timer.summary()  # {'preprocess': {'n': 1, 'total_s': ..., 'mean_ms': ..., 'p50_ms': ...}}
     """
 
     def __init__(self) -> None:
@@ -90,6 +90,7 @@ class StageTimer:
                 "n": len(samples),
                 "total_s": total,
                 "mean_ms": 1e3 * total / max(1, len(samples)),
+                "p50_ms": 1e3 * sorted(samples)[len(samples) // 2] if samples else 0.0,
             }
         return out
 

@@ -67,6 +67,40 @@ class PipelineOutputs:
     envelope: np.ndarray | None = None  # (B, Wm) mask-grid envelope
     telemetry: dict | None = None  # (B,) int32 counts vs the static budgets
 
+    def budget_overflows(self, model_cfg: ModelConfig,
+                         measure_cfg: MeasureConfig | None = None) -> dict[str, np.ndarray]:
+        """Per-frame booleans: which static budgets this batch exceeded. An
+        exceeded budget means the lowest-score rows were dropped at that
+        stage; results remain valid but may under-count crowded scenes."""
+        if not self.telemetry:
+            return {}
+        t = self.telemetry
+        out = {"nms_pre_topk": t["n_candidates"] > model_cfg.nms_pre_topk}
+        if "n_valid" in t:
+            # A saturated output: the NMS max_det cap truncated survivors
+            # (n_candidates counts before NMS; suppressed rows are no drops).
+            out["max_detections"] = t["n_valid"] >= model_cfg.max_detections
+        if measure_cfg is not None and "n_roi_valid" in t:
+            out["max_stats_dets"] = t["n_roi_valid"] > measure_cfg.max_stats_dets
+            out["max_stitches"] = t["n_stitches_raw"] > measure_cfg.max_stitches
+        return out
+
+
+def inference_model(model_cfg: ModelConfig, variables: dict, device: torch.device,
+                    s2d_input: bool = True) -> torch.nn.Module:
+    """The checkpoint's flax tree (numpy leaves) -> the inference form the
+    port always runs: the space-to-depth stem and folded BatchNorm, in the
+    config's compute dtype, channels_last, on ``device``. ``s2d_input``: the
+    model takes the (B, H/2, W/2, 12) blocked input (else it blocks itself)."""
+    state = from_flax_variables(fold_batchnorm(stem_to_s2d(variables)))
+    model = create_model(model_cfg.variant, nc=model_cfg.num_classes,
+                         mask_stride=model_cfg.mask_stride, proto_head=model_cfg.proto_head,
+                         s2d_input=s2d_input)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
+    model = model.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    return model.to(memory_format=torch.channels_last)
+
 
 def _to_host(obj: Any) -> Any:
     if obj is None:
@@ -163,13 +197,7 @@ class InspectionPipeline:
             frame_hw[0], frame_hw[1], model_cfg.image_size, model_cfg.letterbox)
         self.dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
 
-        state = from_flax_variables(fold_batchnorm(stem_to_s2d(variables)))
-        model = create_model(model_cfg.variant, nc=model_cfg.num_classes,
-                             mask_stride=model_cfg.mask_stride,
-                             proto_head=model_cfg.proto_head, s2d_input=warp_s2d)
-        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
-        self.model = model.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
-        self.model.to(memory_format=torch.channels_last)
+        self.model = inference_model(model_cfg, variables, self.device, s2d_input=warp_s2d)
 
         self.roi_bounds: tuple[float, float, float, float] | None = None
         if roi is not None and roi.enabled:
