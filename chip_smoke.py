@@ -5,7 +5,7 @@
 
 ``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
 file as the commit that added the port's measurement path had it); it is
-built beside the current kernels and timed on the same inputs in phase 8,
+built beside the current kernels and timed on the same inputs in phase 9,
 before and after them. Nothing else uses it. ``--ablate`` runs phases 1-2
 and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
 part of the design out or tune it otherwise, timed on synthetic inputs
@@ -35,9 +35,13 @@ exits non-zero without printing the final result line:
 4. deploy step: 960x1280 frames, imgsz 960, the stride-2 soft checkpoint,
    through ``InspectionPipeline.process_batch``; it must launch kernel A and
    agree with the same step run with the plain versions bound in the
-   kernels' place;
+   kernels' place; then one ``step`` on device-resident frames at batch 128
+   and at batch 1 under ``torch.cuda.set_sync_debug_mode("warn")`` must make
+   at most one synchronising call (the NMS block check; the count and the
+   NMS sweeps to the fixed point are printed);
 5. headline step: 1080x1920 frames, imgsz 640, the stride-4 binary
-   checkpoint, through kernel B, with the same checks; then the same step
+   checkpoint, through kernel B, with the same checks (the synchronising
+   calls too, also on the kernel route's step); then the same step
    with ``warp_pass1="kernel"`` at batch 128 (kernels C and B, once per step
    each), against the plain versions and against the "einsum" step; the
    packed-remap step against the two-pass step; the dual step (two
@@ -83,10 +87,26 @@ exits non-zero without printing the final result line:
    seconds of ``evaluate``; bf16 against float32 on the card (median mask
    IoU >= 0.999) and the card's float32 against the CPU's on 2 scenes
    (boxes within 1e-2 px, mask IoU >= 0.999);
-8. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
+8. calibrate, then measure, at the deployed geometry: a ChArUco board
+   lying on the fabric plane, seen by the deployment camera (the board's
+   texture sampled at every pixel's plane point, so the view carries the
+   lens distortion), through ``run_startup_calibration`` on a
+   ``DirectorySource`` of three such views: the extrinsics file written, the
+   recovered translation within 0.5 mm and rotation within 0.1 degree of the
+   truth, and solver "cv2" within 1e-3 mm / 1e-4 rad of "tti"; then
+   ``python -m tti_torch.cli calibrate-intrinsics --images`` on 8 views at
+   several poses (exit 0, an rms printed); then the first 16 seed-0 scenes
+   of ``tools/measure_report_torch.py`` through the deploy step in float32
+   and bf16, with the true and with the recovered extrinsics: kernel A once
+   per step, ``tests/test_measure_report.py``'s per-frame gate (every width
+   finite, stitches >= min(truth, 3), an edge on most frames, edge error
+   < 1.0 mm, width error < 0.8 mm), recovered against true within 0.05 mm
+   per frame, kernel A against its plain version within 0.01 mm; coverage,
+   p50, p95 and bias printed;
+9. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
    on the inputs the batch-128 step gives it;
-9. the ``kernels`` JSON line, then the final
+10. the ``kernels`` JSON line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Checks use seeded data only and need no network. Tolerances are stated
@@ -949,11 +969,59 @@ def breakdown(torch, pipe, label, frames, step_ms, profile=True):
             "mask_stats_ms": soft_or_binary}
 
 
+def nms_sweeps(torch, pipe, frames) -> int:
+    """The sweeps one step's NMS takes to its fixed point, the last one
+    confirming it: the step's own candidates, swept one at a time with a
+    host check after each."""
+    import tti_torch.postprocess.nms as nms
+
+    seen, saved = [], nms.greedy_suppress
+
+    def recorder(*args):
+        seen.append(args)
+        return saved(*args)
+
+    nms.greedy_suppress = recorder  # batched_nms looks it up at each call
+    try:
+        pipe.step(frames)
+    finally:
+        nms.greedy_suppress = saved
+    check(len(seen) == 1, f"one NMS per step expected, got {len(seen)}")
+    boxes, _, classes, _, ok, iou_thresh, _, class_aware = seen[0]
+    blocked = nms.suppression_matrix(boxes, classes, iou_thresh, class_aware)
+    keep, sweeps = ok, 0
+    while True:
+        new = nms.sweep(blocked, ok, keep)
+        sweeps += 1
+        if torch.equal(new, keep):
+            return sweeps
+        keep = new
+
+
+def check_step_syncs(torch, pipe, label, frames) -> dict:
+    """The synchronising calls in one step on device-resident frames (at
+    most one: the NMS block check) and the NMS sweep count."""
+    from step_syncs_torch import count_step_syncs
+
+    import tti_torch.postprocess.nms as nms
+
+    n, where, first = count_step_syncs(torch, pipe, frames)
+    sweeps = nms_sweeps(torch, pipe, frames)
+    log(f"{label} batch {frames.shape[0]}: {n} synchronising call(s) per step {where}"
+        + (f" (the first window: {first})" if first != where else "")
+        + f"; NMS reaches its fixed point in {sweeps} sweeps (blocks of {nms.SWEEPS_PER_CHECK})")
+    check(n <= 1, f"{label}: {n} synchronising calls in one step (at most 1): {where}")
+    return {"syncs": n, "where": where, "first_window": first, "nms_sweeps": sweeps}
+
+
 def time_step(torch, ms, pipe, label, frame_hw, profile=True, iters=20, p50_iters=50):
-    """Step timings and breakdowns; also returns the mask-stats inputs of
-    one batch-128 step."""
+    """Step timings and breakdowns, after the synchronising calls of one
+    step at batch 128 and 1; also returns the mask-stats inputs of one
+    batch-128 step."""
     batch = BATCH
     frames = torch.from_numpy(textile(frame_hw, batch)).cuda()
+    one = frames[:1].contiguous()
+    syncs = {b: check_step_syncs(torch, pipe, label, f) for b, f in ((batch, frames), (1, one))}
     pipe.step(frames)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -961,7 +1029,6 @@ def time_step(torch, ms, pipe, label, frame_hw, profile=True, iters=20, p50_iter
         pipe.step(frames)
     torch.cuda.synchronize()
     fps = batch * iters / (time.perf_counter() - t0)
-    one = frames[:1].contiguous()
     pipe.step(one)
     torch.cuda.synchronize()
     lats = []
@@ -978,7 +1045,7 @@ def time_step(torch, ms, pipe, label, frame_hw, profile=True, iters=20, p50_iter
     one_parts = breakdown(torch, pipe, f"{label} batch-1", one, p50, profile)
     stats_args = capture_stats_inputs(ms, pipe, frames)
     return {"frames_per_s": fps, "batch": batch, "p50_ms": p50, "at_batch": parts,
-            "at_batch_1": one_parts}, stats_args
+            "at_batch_1": one_parts, "syncs": syncs}, stats_args
 
 
 def warp_in_f32(torch, warp, content):
@@ -1998,6 +2065,217 @@ def check_application(torch, ms, wp, step_p50_ms) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: calibrate, then measure
+# ---------------------------------------------------------------------------
+
+
+CAL_DIR = os.path.join(HERE, "build", "calib_smoke")
+BOARD_PX_PER_M = 16000  # board texture: 0.0625 mm per texel, finer than a frame pixel
+REPORT_SCENES = 16  # the first scenes of the mm report's seed 0
+
+
+def board_texture(board):
+    """The board's image at BOARD_PX_PER_M (texel (u, v) = board point (u, v) / BOARD_PX_PER_M m)."""
+    cfg = board.config
+    size = (int(cfg.squares_y * cfg.square_length_m * BOARD_PX_PER_M),
+            int(cfg.squares_x * cfg.square_length_m * BOARD_PX_PER_M))
+    return board.board.generateImage(size, marginSize=0, borderBits=1)
+
+
+def deployment_board_view(cv2, mapper, texture, origin_mm):
+    """The board lying on the fabric plane with its origin at world
+    ``origin_mm``, seen by the deployment camera: the texture sampled at
+    every pixel's plane point (so the view carries the lens distortion
+    exactly), pre-inverted (the detector inverts), 3-channel."""
+    b = (mapper.plane_mm - origin_mm) * (BOARD_PX_PER_M / 1000.0)
+    view = cv2.remap(texture, b[..., 0].astype(np.float32), b[..., 1].astype(np.float32),
+                     cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT, borderValue=255)
+    return cv2.cvtColor(cv2.bitwise_not(view), cv2.COLOR_GRAY2BGR)
+
+
+def pinhole_board_views(cv2, texture, n=8, hw=(960, 1280)):
+    """``n`` views of the board at diverse tilts and depths through a
+    zero-distortion camera (fx = fy = 880), pre-inverted: calibrate-intrinsics'
+    input (tests/test_charuco.py's pose sweep)."""
+    K = np.array([[880.0, 0, hw[1] / 2], [0, 880.0, hw[0] / 2], [0, 0, 1.0]])
+    S = np.diag([1.0 / BOARD_PX_PER_M, 1.0 / BOARD_PX_PER_M, 1.0])
+    rng = np.random.default_rng(3)
+    views = []
+    for k in range(n):
+        ang = 2 * np.pi * k / n
+        tilt = 0.35 + 0.15 * rng.uniform()
+        rvec = np.array([tilt * np.cos(ang), tilt * np.sin(ang), 0.0]) + rng.normal(scale=0.05,
+                                                                                   size=3)
+        tvec = np.array([-0.03 + 0.02 * rng.uniform(), -0.025 + 0.02 * rng.uniform(),
+                         0.18 + 0.1 * rng.uniform()])
+        R, _ = cv2.Rodrigues(rvec)
+        H = K @ np.column_stack([R[:, 0], R[:, 1], tvec]) @ S
+        view = cv2.warpPerspective(texture, H, (hw[1], hw[0]), flags=cv2.INTER_LINEAR,
+                                   borderValue=255)
+        views.append(cv2.cvtColor(cv2.bitwise_not(view), cv2.COLOR_GRAY2BGR))
+    return views
+
+
+def rotation_deg(rvec_a, rvec_b, rodrigues) -> float:
+    R = rodrigues(rvec_a) @ rodrigues(rvec_b).T
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def error_summary(measured, truth) -> dict:
+    """Coverage and |measured - truth| p50, p95 and the mean signed error."""
+    ok = np.isfinite(measured)
+    err = measured[ok] - truth[ok]
+    return {"coverage": f"{int(ok.sum())}/{len(measured)}",
+            "p50": float(np.percentile(np.abs(err), 50)) if ok.any() else None,
+            "p95": float(np.percentile(np.abs(err), 95)) if ok.any() else None,
+            "bias": float(err.mean()) if ok.any() else None}
+
+
+def check_calibrate_measure(torch, ms, wp) -> dict:
+    """Phase 8 (see the module docstring)."""
+    import shutil
+
+    import cv2
+    import measure_report_torch as mr
+
+    from tti_torch.app.orchestrator import run_startup_calibration
+    from tti_torch.app.sources import DirectorySource
+    from tti_torch.calib.charuco import create_charuco_board, detect_charuco, solve_board_pose
+    from tti_torch.calib.io import load_extrinsics, save_intrinsics
+    from tti_torch.core.config import AppConfig, RuntimeConfig
+
+    shutil.rmtree(CAL_DIR, ignore_errors=True)
+    views_dir = os.path.join(CAL_DIR, "views")
+    os.makedirs(views_dir)
+    t0 = time.perf_counter()
+    mapper = mr.PlaneMapper()
+    board = create_charuco_board()
+    texture = board_texture(board)
+    # The board centred on the plane point under the frame's centre: every
+    # corner in view. Truth: the board frame is the world frame shifted by
+    # ``origin`` in the plane, so R stays and t becomes R o + t.
+    cfg = board.config
+    half_mm = 500.0 * cfg.square_length_m * np.array([cfg.squares_y, cfg.squares_x])
+    origin = mapper.plane_mm[mr.FRAME_HW[0] // 2, mr.FRAME_HW[1] // 2] - half_mm
+    corners_px = mapper.to_pixel(board.chessboard_corners()[:, :2] * 1000.0 + origin)
+    check(((corners_px > 20) & (corners_px < np.array(mr.FRAME_HW[::-1]) - 20)).all(),
+          f"calibrate: board corners outside the frame: {corners_px.min(0)}, {corners_px.max(0)}")
+    view = deployment_board_view(cv2, mapper, texture, origin)
+    for i in range(3):
+        cv2.imwrite(os.path.join(views_dir, f"view_{i}.png"), view)
+    R_true = mr.rodrigues_np(mr.REF_RVEC)
+    t_true = R_true @ np.array([*origin / 1000.0, 0.0]) + mr.REF_TVEC
+    intrinsics = os.path.join(CAL_DIR, "camera_calibration.json")
+    extrinsics = os.path.join(CAL_DIR, "extrinsics.json")
+    save_intrinsics(mr.REF_K, mr.REF_DIST, intrinsics, image_size=mr.FRAME_HW[::-1])
+    app = AppConfig(runtime=RuntimeConfig(intrinsics_file=intrinsics, extrinsics_file=extrinsics))
+    # A finite source ends the capture loop at its last view.
+    check(run_startup_calibration(app, DirectorySource(views_dir)) and os.path.exists(extrinsics),
+          "calibrate: the startup gate did not write the extrinsics")
+    rvec, tvec = load_extrinsics(extrinsics)
+    t_err_mm = 1e3 * float(np.abs(tvec - t_true).max())
+    r_err_deg = rotation_deg(rvec, mr.REF_RVEC, mr.rodrigues_np)
+    corners, ids = detect_charuco(board, view)
+    solved = {s: solve_board_pose(board, corners, ids, mr.REF_K, mr.REF_DIST, solver=s)
+              for s in ("tti", "cv2")}
+    cv2_t_mm = 1e3 * float(np.abs(solved["cv2"][1] - solved["tti"][1]).max())
+    cv2_r_rad = float(np.abs(solved["cv2"][0] - solved["tti"][0]).max())
+    gate_s = time.perf_counter() - t0
+    log(f"calibrate: deployment-pose board ({len(ids)} of {len(board.chessboard_corners())} "
+        f"corners, px x {corners_px[:, 0].min():.0f}-{corners_px[:, 0].max():.0f}, y "
+        f"{corners_px[:, 1].min():.0f}-{corners_px[:, 1].max():.0f}); the gate wrote "
+        f"extrinsics: tvec off by {t_err_mm:.4f} mm (limit 0.5), rotation by {r_err_deg:.5f} deg "
+        f"(limit 0.1); reprojection rms {solved['tti'][2]:.4f} px; solver cv2 against tti "
+        f"{cv2_t_mm:.2e} mm, {cv2_r_rad:.2e} rad (limits 1e-3, 1e-4); {gate_s:.1f} s")
+    check(t_err_mm <= 0.5 and r_err_deg <= 0.1, "calibrate: the recovered pose is off")
+    check(cv2_t_mm <= 1e-3 and cv2_r_rad <= 1e-4, "calibrate: solver cv2 disagrees with tti")
+
+    # calibrate-intrinsics through the CLI, on views at several poses.
+    intr_dir = os.path.join(CAL_DIR, "intrinsic_views")
+    os.makedirs(intr_dir)
+    for i, v in enumerate(pinhole_board_views(cv2, texture)):
+        cv2.imwrite(os.path.join(intr_dir, f"view_{i:02d}.png"), v)
+    out_json = os.path.join(CAL_DIR, "intrinsics_cli.json")
+    proc = subprocess.run([sys.executable, "-m", "tti_torch.cli", "calibrate-intrinsics",
+                           "--images", intr_dir, "--out", out_json], cwd=CAL_DIR,
+                          env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
+                          timeout=300)
+    result_line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT: rms=")),
+                       None)
+    check(proc.returncode == 0 and result_line is not None and os.path.exists(out_json),
+          f"calibrate-intrinsics: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out_json) as f:
+        fx = json.load(f)["camera_matrix"][0][0]
+    log(f"calibrate-intrinsics (8 views, fx 880 rendered): {result_line}; fx {fx:.2f}")
+
+    # The first scenes of the mm report through the deploy step, with the
+    # true and the recovered extrinsics, in float32 and bf16.
+    rng = np.random.default_rng(0)
+    scenes = [mr.make_measure_scene(mapper, rng) for _ in range(REPORT_SCENES)]
+    frames = np.stack([f for f, _ in scenes])
+    gt_edge = np.array([t.frame_edge for _, t in scenes])
+    gt_width = np.array([t.frame_width for _, t in scenes])
+    gt_n = np.array([t.n_stitches for _, t in scenes])
+    summary = {"t_err_mm": t_err_mm, "r_err_deg": r_err_deg, "cv2_vs_tti_mm": cv2_t_mm,
+               "cv2_vs_tti_rad": cv2_r_rad, "intrinsics_cli": result_line}
+    kernel_a = summary["kernel_a_launches"] = []  # one per step, four steps
+    for dtype in ("float32", "bfloat16"):
+        got = {}
+        for tag, (rv, tv) in (("true", (mr.REF_RVEC, mr.REF_TVEC)), ("recovered", (rvec, tvec))):
+            pipe = mr.build_pipeline(CAM_CKPT, undistort=False, dtype=dtype, device="cuda",
+                                     rvec=rv, tvec=tv)
+            reset_launch_counts(ms, wp)
+            out = pipe.process_batch(frames).measurements
+            launches = launch_counts(ms, wp)
+            kernel_a.append(launches["mask_stats_soft"])
+            check(launches["mask_stats_soft"] == 1 and not launches["mask_stats_binary"],
+                  f"measure {dtype} {tag}: kernel A once per step expected: {launches}")
+            edge, width = out.raw_edge_mm.astype(float), out.raw_width_mm.astype(float)
+            fin = np.isfinite(edge)
+            label = f"measure {dtype}, {tag} extrinsics"
+            check(np.isfinite(width).all(), f"{label}: a frame without a width: {width}")
+            check((out.n_stitches >= np.minimum(gt_n, 3)).all(),
+                  f"{label}: stitches {out.n_stitches.tolist()} against {gt_n.tolist()}")
+            check(fin.sum() > len(edge) / 2, f"{label}: the edge on a minority of frames")
+            check((np.abs(edge[fin] - gt_edge[fin]) < 1.0).all(), f"{label}: edge error >= 1 mm")
+            check((np.abs(width - gt_width) < 0.8).all(), f"{label}: width error >= 0.8 mm")
+            stats = {"edge": error_summary(edge, gt_edge), "width": error_summary(width, gt_width)}
+            got[tag] = (edge, width)
+            if tag == "true":
+                with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
+                    plain = pipe.process_batch(frames).measurements
+                check(launch_counts(ms, wp) == launches, f"{label}: the plain step launched")
+                for key in MM_KEYS:
+                    a, r = getattr(out, key).astype(float), getattr(plain, key).astype(float)
+                    check((np.isnan(a) == np.isnan(r)).all(), f"{label}: plain NaN pattern")
+                    stats[f"plain_{key}"] = float(np.nanmax(np.abs(a - r), initial=0.0))
+                check(max(stats["plain_raw_edge_mm"], stats["plain_raw_width_mm"]) <= 1e-2,
+                      f"{label}: kernel A and its plain version differ by over 0.01 mm")
+            summary[f"{dtype}/{tag}"] = stats
+            log(f"{label} ({REPORT_SCENES} scenes, kernel A once): " + "; ".join(
+                f"{k} {v['coverage']} p50 {v['p50']:.4f} p95 {v['p95']:.4f} bias "
+                f"{v['bias']:+.4f} mm" for k, v in stats.items() if isinstance(v, dict))
+                + ("; kernel A against its plain version "
+                   f"{max(stats['plain_raw_edge_mm'], stats['plain_raw_width_mm']):.2e} mm"
+                   if tag == "true" else ""))
+            del pipe
+        diffs = []
+        for i in range(2):
+            a, r = got["recovered"][i], got["true"][i]
+            check((np.isnan(a) == np.isnan(r)).all(), f"measure {dtype}: recovered NaN pattern")
+            diffs.append(np.abs(a - r)[np.isfinite(a)])
+        worst = float(np.concatenate(diffs).max())
+        summary[f"{dtype}/recovered_vs_true_mm"] = worst
+        log(f"measure {dtype}: recovered against true extrinsics, max {worst:.2e} mm per frame "
+            f"(limit 0.05)")
+        check(worst <= 0.05, f"measure {dtype}: recovered extrinsics move a reading by {worst} mm")
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"calibrate, then measure: {summary['seconds']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import argparse
 
@@ -2014,6 +2292,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     sys.path.append(os.path.join(HERE, "tests"))
+    sys.path.append(os.path.join(HERE, "tools"))
     from tti_torch import native
     from tti_torch.kernels import build as kbuild
     from tti_torch.kernels import maskstats as ms
@@ -2054,7 +2333,7 @@ def main() -> int:
     errs = check_kernels(torch, ms)
 
     # Phases 4-5: the configurations through process_batch; each step's own
-    # kernel inputs at batch 128 are kept for phase 8.
+    # kernel inputs at batch 128 are kept for phase 9.
     head_hw, head_ckpt = (1080, 1920), "yolov8n_textile.msgpack"
     dep, dep_launches, _ = check_step(
         torch, ms, wp, "deploy step (960x1280, imgsz 960, stride-2 soft)", (960, 1280), 960,
@@ -2091,7 +2370,10 @@ def main() -> int:
     application = check_application(torch, ms, wp, dep_time["p50_ms"])
     log(card)
 
-    # Phase 8: kernel timings, on each step's own inputs (the kernels line)
+    # Phase 8: calibrate, then measure, at the deployed geometry.
+    calibrated = check_calibrate_measure(torch, ms, wp)
+
+    # Phase 9: kernel timings, on each step's own inputs (the kernels line)
     # and, for the mask statistics, on a synthetic input whose first box
     # covers the whole grid.
     log("kernel timings (CUDA events, L2 flushed before each call):")
@@ -2122,6 +2404,8 @@ def main() -> int:
             "timed_on": label, "timed_shape": t["shape"], "timed_d": t["d"],
             "run_launches": {"frames": APP["frames"], **{
                 tag: application[tag]["launches"][name] for tag in ("blocking", "pipelined")}},
+            **({"calibrate_measure_launches": calibrated["kernel_a_launches"]}
+               if name == "mask_stats_soft" else {}),
             "whole_grid": {k: g[k] for k in timed if k in g},
             **({k: t[k] for k in ("ms_again", "first_design_ms")} if first else {}),
         })
@@ -2146,7 +2430,7 @@ def main() -> int:
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams},
-        "training": training, "application": application}))
+        "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,10 @@
   to the scanline fill both packages share without cv2).
 - ``run --synthetic --max-frames 2 --device cpu --skip-calibration`` exits 0
   and logs two measurements; ``check-model`` writes its JPEGs.
-- The refusals: ``run`` on a camera without ``--skip-calibration`` and
-  ``TTI_QUANT=int8`` / ``int8s`` name their ROADMAP items.
+- The refusals: ``TTI_QUANT=int8`` / ``int8s`` name their ROADMAP item;
+  ``run`` on a camera without ``--skip-calibration`` runs the startup
+  calibration gate, which stops the run when neither intrinsics nor
+  extrinsics are on disk.
 """
 
 import ast
@@ -188,16 +190,28 @@ def test_check_model_cli_writes_jpegs(tmp_path, ref_intrinsics, ref_extrinsics, 
 
 
 @pytest.mark.parametrize("argv,env,item", [
-    (["run", "--device", "cpu"], {}, "Queue 1 item 7"),
+    (["run", "--device", "cpu"], {}, "cannot load intrinsics"),
     (["run", "--synthetic", "--device", "cpu"], {"TTI_QUANT": "int8"}, "Queue 1 item 5"),
     (["eval", "--images", "none", "--imgsz", "64", "--device", "cpu"], {"TTI_QUANT": "int8s"},
      "Queue 1 item 5"),
     (["check-model", "--device", "cpu"], {"TTI_QUANT": "int8"}, "Queue 1 item 5"),
 ], ids=["camera_without_calibration", "run_int8", "eval_int8s", "check_model_int8"])
 def test_cli_refusals(argv, env, item, tmp_path, monkeypatch, capsys):
+    import tti_torch.app.sources as sources
+
     monkeypatch.chdir(tmp_path)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    assert port_main(argv) == 1
-    assert item in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())  # refused before opening anything
+    # A camera that opens (there is none here); the gate reads no frame.
+    monkeypatch.setattr(sources, "OpenCVCameraSource",
+                        lambda cfg, index=None: sources.SyntheticSource(8, 8, count=1))
+    handler = _Records()
+    logger = logging.getLogger("tti_torch.app.orchestrator")
+    logger.addHandler(handler)
+    try:
+        assert port_main(argv) == 1
+    finally:
+        logger.removeHandler(handler)
+    said = capsys.readouterr().err + "\n".join(r.getMessage() for r in handler.records)
+    assert item in said
+    assert not any(tmp_path.iterdir())  # stopped before opening anything

@@ -1,7 +1,10 @@
 """tti_torch stands alone: it imports neither jax (nor flax, optax, msgpack)
 nor anything of tti, and a tiny CPU inspection step, one frame of the
 measurement loop and a training step run with all of them blocked, and with
-the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too."""
+the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too.
+The calibration modules import without OpenCV (it is imported where it is
+used), and ``tools/measure_report_torch.py`` imports neither tti nor
+``tools.measure_report``."""
 
 import os
 import re
@@ -29,8 +32,19 @@ for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.st
              *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
                                                   "mqtt", "cleaner")),
              *(f"tti_torch.app.{m}" for m in ("results", "annotate", "orchestrator",
-                                             "predict"))):
+                                             "predict")),
+             *(f"tti_torch.calib.{m}" for m in ("pnp", "charuco", "intrinsics"))):
     assert name in names and name in sys.modules, name
+sys.path.insert(0, "tools")
+import measure_report_torch
+assert "measure_report" not in sys.modules and "tools.measure_report" not in sys.modules
+from tti_torch.calib.charuco import create_charuco_board
+from tti_torch.core.errors import CalibrationError
+try:
+    create_charuco_board()
+    raise AssertionError("a board without cv2")
+except CalibrationError:
+    pass
 
 import numpy as np
 from tti_torch.calib.io import CalibrationData
@@ -87,15 +101,17 @@ def test_port_imports_nothing_of_jax_or_tti():
 
 
 def test_port_sources_name_no_forbidden_module():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti"
+                         r"|tools\.measure_report|measure_report)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
     sources += [REPO / "chip_smoke.py", REPO / "tests" / "torch_scenes.py",
-                REPO / "tests" / "torch_synth.py"]
+                REPO / "tests" / "torch_synth.py", REPO / "tools" / "measure_report_torch.py"]
     names = {p.name for p in sources}
     assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "framering.cpp", "loop.py",
                                   "assigner.py", "augment.py", "__main__.py", "orchestrator.py",
-                                  "predict.py", "eval.py", "database.py",
-                                  "torch_scenes.py"} <= names
+                                  "predict.py", "eval.py", "database.py", "pnp.py",
+                                  "charuco.py", "intrinsics.py", "torch_scenes.py",
+                                  "measure_report_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

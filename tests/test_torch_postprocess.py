@@ -88,3 +88,61 @@ def test_box_iou_matrix_matches():
     boxes = _nms_inputs(np.random.default_rng(3), b=1, a=50)[0][0]
     np.testing.assert_allclose(tnms.box_iou_matrix(torch.from_numpy(boxes)).numpy(),
                                np.asarray(jnms.box_iou_matrix(jnp.asarray(boxes))), atol=1e-6)
+
+
+def _chain(n, b=2):
+    """``n`` unit-height boxes along x, each overlapping the next by IoU 1/3
+    and the one after by 0, with falling scores: greedy keeps every other
+    box, and each sweep settles about one more link of the chain."""
+    x = np.arange(n, dtype=np.float32) * 2.0
+    boxes = np.stack([x, np.zeros(n), x + 4.0, np.ones(n)], -1).astype(np.float32)
+    probs = np.stack([np.linspace(0.9, 0.3, n), np.zeros(n)], -1).astype(np.float32)
+    coefs = np.random.default_rng(4).normal(size=(n, 32)).astype(np.float32)
+    rep = lambda a: np.ascontiguousarray(np.broadcast_to(a, (b, *a.shape)))
+    return rep(boxes), rep(probs), rep(coefs)
+
+
+def test_nms_chain_longer_than_a_block_matches_tti():
+    """A suppression chain of 3 * SWEEPS_PER_CHECK boxes needs several blocks
+    of sweeps (counted with ``sweep`` alone); the keep set equals tti's
+    while_loop's exactly."""
+    n = 3 * tnms.SWEEPS_PER_CHECK
+    boxes, probs, coefs = _chain(n)
+    kw = dict(conf_thresh=0.2, iou_thresh=0.25, max_det=n, pre_topk=n)
+    t = [torch.from_numpy(a) for a in (boxes, probs, coefs)]
+    blocked = tnms.suppression_matrix(t[0], torch.zeros(2, n, dtype=torch.int32), 0.25)
+    ok = torch.ones(2, n, dtype=torch.bool)
+    keep, sweeps = ok, 0
+    while True:
+        new = tnms.sweep(blocked, ok, keep)
+        sweeps += 1
+        if torch.equal(new, keep):
+            break
+        keep = new
+    assert sweeps > 2 * tnms.SWEEPS_PER_CHECK
+    got = tnms.batched_nms(*t, **kw)
+    ref = jnms.batched_nms(*(jnp.asarray(a) for a in (boxes, probs, coefs)), **kw)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(got.scores.numpy(), np.asarray(ref.scores))
+    np.testing.assert_array_equal(got.boxes.numpy(), np.asarray(ref.boxes))
+    assert int(got.valid[0].sum()) == n // 2  # every other box
+
+
+def test_constants_without_host_copies_are_bit_equal():
+    """Box scaling with per-axis Python scalars equals the list-built
+    constant tensors it replaced, bit for bit (NaN and inf included)."""
+    from tti_torch.preprocess import letterbox as tlb
+
+    rng = np.random.default_rng(6)
+    boxes = torch.from_numpy(rng.uniform(-50, 1100, (3, 200, 4)).astype(np.float32))
+    boxes[0, 0, 1], boxes[0, 1, 2] = float("nan"), float("inf")
+    same = lambda a, b: torch.equal(torch.nan_to_num(a, nan=-7.0), torch.nan_to_num(b, nan=-7.0))
+    for spec in (tlb.letterbox_spec(960, 1280, 960), tlb.letterbox_spec(1080, 1920, 640),
+                 tlb.letterbox_spec_rect(240, 320, 240)):
+        shift = boxes.new_tensor([spec.pad_left, spec.pad_top, spec.pad_left, spec.pad_top])
+        limit = boxes.new_tensor([spec.src_w, spec.src_h, spec.src_w, spec.src_h])
+        before = torch.minimum(torch.clamp((boxes - shift) / spec.scale, min=0.0), limit)
+        assert same(tlb.scale_boxes_to_frame(boxes, spec), before)
+    for sx, sy in ((480 / 960, 368 / 736), (160 / 640, 96 / 384), (80 / 320, 60 / 240)):
+        before = boxes * boxes.new_tensor([sx, sy, sx, sy])
+        assert same(tlb.map_xyxy(boxes, lambda x: x * sx, lambda y: y * sy), before)

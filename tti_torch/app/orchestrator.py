@@ -4,6 +4,7 @@
 Reproduces the reference's orchestration semantics (reference: main.py:56-355)
 on top of the inspection step on one card:
 
+- startup extrinsic calibration with stale-extrinsics fallback (main.py:25-53),
 - component init with degrade-don't-die: DB, serial, cleaner, MQTT each
   continue as None/no-op on failure (main.py:100-155),
 - daily total-distance reset + resume from the last DB record
@@ -19,9 +20,7 @@ on top of the inspection step on one card:
 
 Injectable clock/sleep/rng/frame-source make the whole loop unit-testable
 (tests/test_torch_orchestrator.py) — the reference needs real hardware for any
-of it. The startup extrinsic calibration (ChArUco + PnP) is not ported yet:
-``python -m tti_torch.cli run`` on a camera needs ``--skip-calibration`` and
-the extrinsics on disk.
+of it.
 
 Differences from ``tti``: the temporal median's state lives on the
 pipeline's device (each frame uploads its two raw readings and reads back the
@@ -45,7 +44,7 @@ import torch
 
 from tti_torch.app.annotate import annotate_frame, draw_measurement_geometry, envelope_to_polyline
 from tti_torch.app.results import measurement_to_dict
-from tti_torch.app.sources import FrameSource
+from tti_torch.app.sources import FrameSource, frames_iter
 from tti_torch.core.config import AppConfig
 from tti_torch.core.logging import StageTimer, get_logger
 from tti_torch.measure.pipeline import FrameMeasurement, init_measure_state, smooth_measurement
@@ -57,6 +56,43 @@ from tti_torch.services.serial_reader import SerialReader
 log = get_logger("app.orchestrator")
 
 MAX_RECONNECT_ATTEMPTS = 10  # (reference: main.py:180)
+
+
+def run_startup_calibration(
+    config: AppConfig, source: FrameSource, solver: str = "tti"
+) -> bool:
+    """Extrinsic calibration gate with stale-extrinsics fallback
+    (reference: main.py:25-53). True when the loop may run: fresh
+    extrinsics were written, or calibration failed and an extrinsics file
+    is on disk (with a warning). Without intrinsics, only a file on disk
+    lets the loop run."""
+    from tti_torch.calib.charuco import create_charuco_board, run_extrinsic_calibration
+    from tti_torch.calib.io import load_intrinsics
+
+    try:
+        K, dist, _, _ = load_intrinsics(config.runtime.intrinsics_file)
+    except Exception as e:
+        log.error("cannot load intrinsics: %s", e)
+        return os.path.exists(config.runtime.extrinsics_file)
+
+    try:
+        board = create_charuco_board(config.board)
+        ok = run_extrinsic_calibration(
+            frames_iter(source), K, dist, config.runtime.extrinsics_file,
+            board=board, solver=solver,
+        )
+    except Exception as e:
+        log.warning("calibration error: %s", e)
+        ok = False
+
+    if ok:
+        log.info("calibration complete")
+        return True
+    if os.path.exists(config.runtime.extrinsics_file):
+        log.warning("calibration failed; using existing extrinsics file")
+        return True
+    log.error("calibration failed and no extrinsics on disk — cannot continue")
+    return False
 
 
 class Orchestrator:

@@ -32,8 +32,6 @@ from tti_torch.preprocess.letterbox import (
     LetterboxSpec, letterbox_u8, make_letterbox_spec, scale_boxes_to_frame,
 )
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
 
 def _packbits_lastdim(bits: torch.Tensor) -> torch.Tensor:
     """(..., W) {0,1} uint8 -> (..., ceil(W/8)) uint8 in np.packbits' bit
@@ -42,7 +40,9 @@ def _packbits_lastdim(bits: torch.Tensor) -> torch.Tensor:
     pad = (-w) % 8
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=bits.device)
+    # 128, 64, ..., 1 made on the device (a list-built tensor would be a
+    # blocking host-to-device copy).
+    weights = (1 << torch.arange(7, -1, -1, device=bits.device)).to(torch.uint8)
     grouped = bits.reshape(*bits.shape[:-1], (w + pad) // 8, 8)
     return (grouped * weights).sum(-1, dtype=torch.uint8)
 

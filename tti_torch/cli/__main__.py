@@ -1,7 +1,11 @@
 """Command line of the port: ``python -m tti_torch.cli <command>``.
 
+    calibrate        the extrinsic ChArUco calibration on the camera [--solver tti|cv2]
+    calibrate-intrinsics
+                     intrinsics from board views [--images DIR] [--out] [--max-views]
     run              the measurement loop [--images DIR | --synthetic]
                      [--cameras N] [--max-frames N] [--pipelined]
+                     [--skip-calibration]
     check-model      annotated detection dump (JPEGs, needs cv2)
     eval             box and mask mAP on a YOLO-format dataset
     train            train a segmentation model on a YOLO-format dataset
@@ -9,11 +13,13 @@
 
 The flags are ``tti``'s, plus ``--device`` (default cuda; ``run``,
 ``check-model``, ``eval``, ``train``) and ``--init`` (``train``: start from
-a deploy checkpoint's params and batch stats). Configuration comes from the
-environment and ``.env`` as in ``tti`` (:func:`tti_torch.core.config.load_config`).
-Refused, naming the ROADMAP item that ports them: ``train --host-aug``, ``run``
-on a camera without ``--skip-calibration`` (the startup ChArUco/PnP
-calibration), and ``TTI_QUANT=int8`` / ``int8s`` (int8 inference).
+a deploy checkpoint's params and batch stats). The calibration commands run
+on the host (numpy and OpenCV) and take no ``--device``. ``run`` on a camera
+first runs the startup calibration gate, as ``tti`` does, unless given
+``--skip-calibration``. Configuration comes from the environment and ``.env``
+as in ``tti`` (:func:`tti_torch.core.config.load_config`). Refused, naming
+the ROADMAP item that ports them: ``train --host-aug`` and ``TTI_QUANT=int8``
+/ ``int8s`` (int8 inference).
 """
 
 from __future__ import annotations
@@ -112,9 +118,42 @@ def _probe_hw(source) -> tuple[int, int]:
     return frame.shape[:2]
 
 
+def cmd_calibrate(args) -> int:
+    """The extrinsic ChArUco calibration on the camera (the startup gate)."""
+    from tti_torch.app.orchestrator import run_startup_calibration
+    from tti_torch.app.sources import OpenCVCameraSource
+
+    cfg = load_config()
+    source = OpenCVCameraSource(cfg.camera)
+    try:
+        ok = run_startup_calibration(cfg, source, solver=args.solver)
+    finally:
+        source.release()
+    print("RESULT:", "SUCCESS" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+def cmd_calibrate_intrinsics(args) -> int:
+    """Intrinsic calibration from the camera or an image directory."""
+    from tti_torch.app.sources import DirectorySource, OpenCVCameraSource, frames_iter
+    from tti_torch.calib.charuco import create_charuco_board
+    from tti_torch.calib.intrinsics import calibrate_intrinsics
+
+    cfg = load_config(validate=False)
+    source = DirectorySource(args.images) if args.images else OpenCVCameraSource(cfg.camera)
+    board = create_charuco_board(cfg.board)
+    try:
+        result = calibrate_intrinsics(frames_iter(source), board=board,
+                                      output_path=args.out, max_views=args.max_views)
+    finally:
+        source.release()
+    print(f"RESULT: rms={result.rms:.3f}px views={result.n_views} -> {args.out}")
+    return 0
+
+
 def cmd_run(args) -> int:
     """The measurement loop (the reference's ``python main.py``)."""
-    from tti_torch.app.orchestrator import Orchestrator
+    from tti_torch.app.orchestrator import Orchestrator, run_startup_calibration
     from tti_torch.app.sources import DirectorySource, OpenCVCameraSource, SyntheticSource
 
     if _refuses_quant():
@@ -130,13 +169,10 @@ def cmd_run(args) -> int:
         source = SyntheticSource(cfg.camera.height, cfg.camera.width)
         frame_hw = (cfg.camera.height, cfg.camera.width)
     else:
-        if not args.skip_calibration:
-            return _refuse(
-                "the startup extrinsic calibration (ChArUco + PnP) is not ported: ROADMAP "
-                "Queue 1 item 7. Pass --skip-calibration to measure with the extrinsics on "
-                f"disk ({cfg.runtime.extrinsics_file}).")
         source = OpenCVCameraSource(cfg.camera)
         frame_hw = (cfg.camera.height, cfg.camera.width)
+        if not args.skip_calibration and not run_startup_calibration(cfg, source):
+            return 1
 
     calibration = _load_calibration(cfg)
     if calibration is None:
@@ -290,7 +326,7 @@ def cmd_train(args) -> int:
 
     if args.host_aug:
         print("--host-aug is not ported: tti_torch augments on the device. The host "
-              "recipe is ROADMAP Queue 1 item 3 (--host-aug).", file=sys.stderr)
+              "recipe is ROADMAP Queue 1 item 4 (--host-aug).", file=sys.stderr)
         return 1
     path = train(discover_dataset(args.images), args.out, variant=args.variant,
                  num_classes=args.num_classes, imgsz=args.imgsz, batch_size=args.batch_size,
@@ -337,6 +373,17 @@ def _device_flag(p: argparse.ArgumentParser) -> None:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="python -m tti_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("calibrate", help="run extrinsic ChArUco calibration")
+    p.add_argument("--solver", default="tti", choices=["tti", "cv2"])
+    p.set_defaults(func=cmd_calibrate)
+
+    p = sub.add_parser("calibrate-intrinsics",
+                       help="intrinsic camera calibration from board views")
+    p.add_argument("--images", help="calibrate from an image directory")
+    p.add_argument("--out", default="camera_calibration.json")
+    p.add_argument("--max-views", type=int, default=25)
+    p.set_defaults(func=cmd_calibrate_intrinsics)
 
     p = sub.add_parser("export-weights",
                        help="export a deploy msgpack + sidecar from a training checkpoint (EMA)")

@@ -20,7 +20,7 @@ from tti_torch.kernels.maskstats import mask_stats_binary, mask_stats_soft, subc
 from tti_torch.measure.ops import kmeans_1d_two_clusters, masked_mean, masked_median
 from tti_torch.postprocess.decode import Detections
 from tti_torch.postprocess.nms import stable_topk
-from tti_torch.preprocess.letterbox import LetterboxSpec, scale_boxes_to_frame
+from tti_torch.preprocess.letterbox import LetterboxSpec, map_xyxy, scale_boxes_to_frame
 
 Tensor = torch.Tensor
 
@@ -155,9 +155,8 @@ def prepare_frame_inputs(
     is_stitch = in_roi & (dets.classes == stitch_class_id)
     is_fabric = in_roi & (dets.classes == fabric_class_id)
 
-    scale_vec = dets.boxes.new_tensor([wm / input_hw[1], hm / input_hw[0],
-                                       wm / input_hw[1], hm / input_hw[0]])
-    boxes_grid = (dets.boxes * scale_vec).contiguous()
+    sx, sy = wm / input_hw[1], hm / input_hw[0]
+    boxes_grid = map_xyxy(dets.boxes, lambda x: x * sx, lambda y: y * sy)
     env_subcell = subcell if subcell_envelope is None else subcell_envelope
     soft = subcell or env_subcell
     stats_fn = mask_stats_soft if soft else mask_stats_binary
@@ -300,9 +299,8 @@ def measure_frame(stitches: StitchSet, envelope: Tensor, fabric_any: Tensor,
     avg_dist = masked_mean(dists, dist_valid)[0] + cfg.cal_edge_mm
     avg_width = masked_mean(widths, width_valid)[0] + cfg.cal_width_mm
     usable = fabric_any & any_stitch
-    nan = torch.tensor(float("nan"), device=valid.device)
-    raw_edge = torch.where(usable & (n_dist >= cfg.min_stitches), avg_dist, nan)
-    raw_width = torch.where(usable & (n_width >= cfg.min_stitches), avg_width, nan)
+    raw_edge = torch.where(usable & (n_dist >= cfg.min_stitches), avg_dist, float("nan"))
+    raw_width = torch.where(usable & (n_width >= cfg.min_stitches), avg_width, float("nan"))
     return FrameMeasurement(
         edge_distance_mm=raw_edge,
         stitch_width_mm=raw_width,

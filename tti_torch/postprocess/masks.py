@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tti_torch.preprocess.letterbox import map_xyxy
+
 Tensor = torch.Tensor
 
 
@@ -38,9 +40,9 @@ def assemble_masks(protos: Tensor, coefs: Tensor, boxes_input_px: Tensor, valid:
     or binarized when ``threshold`` is given. Invalid rows are zero."""
     hm, wm = protos.shape[-3], protos.shape[-2]
     probs = torch.sigmoid(torch.einsum("...nc,...hwc->...nhw", coefs.float(), protos.float()))
-    scale = probs.new_tensor([wm / input_hw[1], hm / input_hw[0],
-                              wm / input_hw[1], hm / input_hw[0]])
-    probs = crop_masks(probs, boxes_input_px.float() * scale)
+    sx, sy = wm / input_hw[1], hm / input_hw[0]
+    probs = crop_masks(probs, map_xyxy(boxes_input_px.float(), lambda x: x * sx,
+                                       lambda y: y * sy))
     if threshold is not None:
         probs = (probs > threshold).to(probs.dtype)
     return probs * valid[..., None, None].to(probs.dtype)

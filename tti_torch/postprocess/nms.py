@@ -4,7 +4,8 @@
 2. top ``pre_topk`` candidates by score,
 3. one K x K class-masked IoU matrix,
 4. exact greedy suppression as a fixed-point sweep (the greedy keep-set is
-   the unique fixed point; chains are short, so few sweeps run),
+   the unique fixed point; chains are short, so few sweeps run), in blocks
+   of ``SWEEPS_PER_CHECK`` sweeps with one host read per block,
 5. the top ``max_det`` survivors, padded with valid=False rows.
 
 Every ranking is a stable descending sort, so ties keep the lower index
@@ -43,24 +44,49 @@ def _gather_rows(a: Tensor, idx: Tensor) -> Tensor:
     return a[torch.arange(a.shape[0], device=a.device)[:, None], idx]
 
 
-def greedy_suppress(cand_boxes: Tensor, top_scores: Tensor, cand_classes: Tensor,
-                    cand_coefs: Tensor, cand_ok: Tensor, iou_thresh: float,
-                    max_det: int, class_aware: bool = True) -> Detections:
-    """Greedy NMS over score-sorted (B, K) candidates -> (B, max_det) rows."""
+# Sweeps run in blocks of this many, with one host read after each block
+# (``torch.equal`` waits for the device): one read per step where a read per
+# sweep stalled the host at every sweep. A sweep applied to the fixed point
+# returns it unchanged, so a sweep past it costs only its few small kernels.
+# The seeded frames of the deploy and headline configurations reach the fixed
+# point in 2 sweeps (the confirming one included) at batch 1 and 128
+# (``chip_smoke.py`` prints the counts); 4 leaves room for chains twice as
+# long, so a step reads the host once.
+SWEEPS_PER_CHECK = 4
+
+
+def suppression_matrix(cand_boxes: Tensor, cand_classes: Tensor, iou_thresh: float,
+                       class_aware: bool = True) -> Tensor:
+    """(B, K, K) bool: [b, i, j] when candidate j outranks i and overlaps it."""
     k = cand_boxes.shape[1]
     iou = box_iou_matrix(cand_boxes)
     if class_aware:
         iou = torch.where(cand_classes[:, :, None] == cand_classes[:, None, :], iou, 0.0)
     tri = torch.ones(k, k, dtype=torch.bool, device=iou.device).tril(-1)  # j < i
-    blocked_by = (iou > iou_thresh) & tri  # [b, i, j]: j outranks i and overlaps
-    # keep_i <- ok_i & no kept higher-ranked box overlaps i, to the fixed point
-    # (position i is final after at most i sweeps).
-    keep = cand_ok
-    for _ in range(k):
-        new = cand_ok & ~(blocked_by & keep[:, None, :]).any(-1)
-        if torch.equal(new, keep):
+    return (iou > iou_thresh) & tri
+
+
+def sweep(blocked_by: Tensor, cand_ok: Tensor, keep: Tensor) -> Tensor:
+    """keep_i <- ok_i & no kept higher-ranked box overlaps i."""
+    return cand_ok & ~(blocked_by & keep[:, None, :]).any(-1)
+
+
+def greedy_suppress(cand_boxes: Tensor, top_scores: Tensor, cand_classes: Tensor,
+                    cand_coefs: Tensor, cand_ok: Tensor, iou_thresh: float,
+                    max_det: int, class_aware: bool = True) -> Detections:
+    """Greedy NMS over score-sorted (B, K) candidates -> (B, max_det) rows."""
+    k = cand_boxes.shape[1]
+    blocked_by = suppression_matrix(cand_boxes, cand_classes, iou_thresh, class_aware)
+    # Sweep to the fixed point, at most k sweeps as tti's while_loop (position
+    # i is final after at most i sweeps); the block ends at a fixed point when
+    # its last sweep changed nothing.
+    keep, done = cand_ok, 0
+    while done < k:
+        for _ in range(min(SWEEPS_PER_CHECK, k - done)):
+            prev, keep = keep, sweep(blocked_by, cand_ok, keep)
+            done += 1
+        if torch.equal(prev, keep):
             break
-        keep = new
 
     k_out = min(max_det, k)
     out_scores, order = stable_topk(torch.where(keep, top_scores, -1.0), k_out)

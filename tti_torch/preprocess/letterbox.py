@@ -116,9 +116,16 @@ def letterbox_u8(frames_bgr_u8: Tensor, spec: LetterboxSpec, dtype=torch.float32
                  value=PAD_VALUE / 255.0)
 
 
+def map_xyxy(boxes_xyxy: Tensor, fx, fy) -> Tensor:
+    """(..., 4) xyxy boxes with ``fx`` applied to the x columns and ``fy`` to
+    the y columns. The per-axis constants stay Python scalars: a tensor built
+    from a list on a CUDA device is a blocking host-to-device copy."""
+    return torch.stack([fx(boxes_xyxy[..., 0::2]), fy(boxes_xyxy[..., 1::2])], -1).flatten(-2)
+
+
 def scale_boxes_to_frame(boxes_xyxy: Tensor, spec: LetterboxSpec) -> Tensor:
     """xyxy boxes in letterboxed model-input px -> source-frame px, clipped."""
-    shift = boxes_xyxy.new_tensor([spec.pad_left, spec.pad_top, spec.pad_left, spec.pad_top])
-    out = (boxes_xyxy - shift) / spec.scale
-    limit = out.new_tensor([spec.src_w, spec.src_h, spec.src_w, spec.src_h])
-    return torch.minimum(torch.clamp(out, min=0.0), limit)
+    return map_xyxy(
+        boxes_xyxy,
+        lambda x: torch.clamp((x - spec.pad_left) / spec.scale, 0.0, spec.src_w),
+        lambda y: torch.clamp((y - spec.pad_top) / spec.scale, 0.0, spec.src_h))
