@@ -16,9 +16,9 @@ exits non-zero without printing the final result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tti_torch/kernels/csrc`` (mask statistics,
-   warp pass 1) into ``build/``, one nvcc process each, started together,
-   and the C++ frame ring (g++), with the build time and ptxas' register
-   report;
+   warp pass 1, greedy NMS) into ``build/``, one nvcc process each, started
+   together, and the C++ frame ring (g++), with the build time and ptxas'
+   register report;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, plus edge cases. Mask statistics: all rows invalid, a
    box reaching y2 == Hm, a bottom on the last row, a small-logit case
@@ -31,22 +31,39 @@ exits non-zero without printing the final result line:
    batch 128 and 1 with the headline warp's own weights, a k = 5 geometry,
    dense weights j/64, a frame holding every byte value on which the plain
    version that divides by 255 must fail, and the stride-k select alone
-   (identity weights, bytes 0 or 255) at k = 3 and k = 5;
+   (identity weights, bytes 0 or 255) at k = 3 and k = 5. Kernel D (greedy
+   NMS keep-set) bit-equal to ``greedy_keep_plain``, two launches bit-equal,
+   at K = 256, 512 and 1000 (the rows in the scratch buffer), on a
+   suppression chain through all K, every candidate invalid, every box
+   identical, zero-area boxes, ``class_aware`` off and a negative threshold;
+   then (phases 4-5) on the deploy and headline steps' own candidates at
+   batch 128 and 1;
 4. deploy step: 960x1280 frames, imgsz 960, the stride-2 soft checkpoint,
-   through ``InspectionPipeline.process_batch``; it must launch kernel A and
-   agree with the same step run with the plain versions bound in the
-   kernels' place; then one ``step`` on device-resident frames at batch 128
-   and at batch 1 under ``torch.cuda.set_sync_debug_mode("warn")`` must make
-   at most one synchronising call (the NMS block check; the count and the
-   NMS sweeps to the fixed point are printed);
+   through ``InspectionPipeline.process_batch``; it must launch kernels A
+   and D once and agree with the same step run with the plain versions
+   bound in the kernels' place; then one ``step`` on device-resident frames
+   at batch 128 and at batch 1 under ``torch.cuda.set_sync_debug_mode("warn")``
+   must make no synchronising call and launch kernel D once;
 5. headline step: 1080x1920 frames, imgsz 640, the stride-4 binary
    checkpoint, through kernel B, with the same checks (the synchronising
    calls too, also on the kernel route's step); then the same step
    with ``warp_pass1="kernel"`` at batch 128 (kernels C and B, once per step
    each), against the plain versions and against the "einsum" step; the
-   packed-remap step against the two-pass step; the dual step (two
-   checkpoints, one preprocess) against each model's own pipeline; four
-   1080p streams through ``MultiStreamRunner`` (blocking and pipelined);
+   packed-remap step against the two-pass step (its pack of the decimated
+   bytes bit-equal to the float resize it skips); the dual step (two
+   checkpoints, one preprocess, kernel D twice) against each model's own
+   pipeline; four 1080p streams through ``MultiStreamRunner`` (blocking and
+   pipelined);
+5b. the step's opt-in modes at full width, each where ``tti`` applies it
+   (:data:`MODES`: lazy decode, fused head and ``warp_block=64`` on both
+   configurations, ``warp_col_expand`` on the headline, ``fold_bn=False``
+   and ``maskstats_logits="f32"`` on deploy):
+   kernels once per step, no synchronising call at batch 128 and 1, float32
+   (batch 8) within 1e-3 px and 1e-3 mm of its reference step (the default
+   step), bf16 (batch 128)
+   detection counts equal on most frames and mm within the kernel route's
+   limits, frames/s and batch-1 p50 beside the reference step's; the
+   phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -105,7 +122,7 @@ exits non-zero without printing the final result line:
    p50, p95 and bias printed;
 9. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
-   on the inputs the batch-128 step gives it;
+   on the inputs the batch-128 step gives it (kernel D also at batch 1);
 10. the ``kernels`` JSON line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -449,6 +466,126 @@ def check_warp_p1(torch, wp, warp, spec) -> dict:
     return {"max_abs_err": worst[0], "max_rel_err": worst[1], "dividing_rel_err": div_err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, kernel D: greedy NMS suppression
+# ---------------------------------------------------------------------------
+
+
+def nms_problem(torch, b, k, seed, spread=300.0, nc=2):
+    """Score-sorted candidates on the card: boxes (B, K, 4) float32 xyxy,
+    classes (B, K) int32, about 90% of them valid."""
+    gen = np.random.default_rng(seed)
+    xy = gen.uniform(0, spread, (b, k, 2))
+    wh = gen.uniform(4, 60, (b, k, 2))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return (t(np.concatenate([xy, xy + wh], -1).astype(np.float32)),
+            t(gen.integers(0, nc, (b, k)).astype(np.int32)), t(gen.uniform(size=(b, k)) < 0.9))
+
+
+# Kernel D against its plain version over every case of this run: keep
+# bits compared, keep bits that differ, and the largest |keep - plain|.
+NMS_TALLY = {"compared": 0, "mismatched": 0, "max_abs_err": 0}
+
+
+def check_nms_case(torch, label, boxes, classes, ok, iou_thresh=0.25, class_aware=True) -> int:
+    """Kernel D against ``greedy_keep_plain`` on one input: the keep masks
+    bit-equal, and two launches bit-equal. Adds to :data:`NMS_TALLY`;
+    returns the kept count."""
+    from tti_torch.kernels import nms as nk
+
+    got = nk.greedy_keep(boxes, classes, ok, iou_thresh, class_aware)
+    again = nk.greedy_keep(boxes, classes, ok, iou_thresh, class_aware)
+    ref = nk.greedy_keep_plain(boxes, classes, ok, iou_thresh, class_aware)
+    torch.cuda.synchronize()
+    diff = (got.int() - ref.int()).abs()
+    NMS_TALLY["compared"] += got.numel()
+    NMS_TALLY["mismatched"] += int(diff.sum())
+    NMS_TALLY["max_abs_err"] = max(NMS_TALLY["max_abs_err"], int(diff.max()))
+    check(torch.equal(got, ref), f"kernel D {label}: the keep mask differs from the plain "
+          f"version's in {int(diff.sum())} of {got.numel()} places")
+    check(torch.equal(got, again), f"kernel D {label}: two launches differ")
+    kept = int(got.sum())
+    log(f"  greedy_keep {label}: (B, K) = {tuple(ok.shape)}, keep mask equal to the plain "
+        f"version's ({kept} kept of {int(ok.sum())} valid); two launches bit-equal")
+    return kept
+
+
+def check_nms(torch) -> dict:
+    """Kernel D on synthetic candidates (the steps' own candidates at batch
+    128 and 1 follow in phases 4-5, in :func:`time_step`)."""
+    # 1000: not a multiple of 32, the rows in shared memory above the default
+    # 48 KB; 2048: the rows in the scratch buffer.
+    for k in (256, 512, 1000, 2048):
+        check_nms_case(torch, f"seeded K={k}", *nms_problem(torch, 16, k, seed=k))
+    k, b = 256, 4
+    x = torch.arange(k, dtype=torch.float32, device="cuda") * 2.0
+    z = torch.zeros_like(x)
+    # Each box overlaps the next (IoU 1/3) and not the one after: a chain
+    # through all K, greedy keeps every other box.
+    chain = torch.stack([x, z, x + 4.0, z + 1.0], -1).expand(b, k, 4).contiguous()
+    cls0 = torch.zeros(b, k, dtype=torch.int32, device="cuda")
+    ok = torch.ones(b, k, dtype=torch.bool, device="cuda")
+    check(check_nms_case(torch, f"a chain through all {k}", chain, cls0, ok) == b * k // 2,
+          "kernel D: the chain must keep every other box")
+    for k2 in (512, 1000, 2048):
+        x2 = torch.arange(k2, dtype=torch.float32, device="cuda") * 2.0
+        chain2 = torch.stack([x2, x2 * 0, x2 + 4.0, x2 * 0 + 1.0], -1)[None].contiguous()
+        ones2 = torch.ones(1, k2, dtype=torch.bool, device="cuda")
+        check(check_nms_case(torch, f"a chain through all {k2}", chain2,
+                             torch.zeros(1, k2, dtype=torch.int32, device="cuda"), ones2)
+              == k2 // 2, "kernel D: the chain must keep every other box")
+    check(check_nms_case(torch, "every candidate invalid", chain, cls0, ~ok) == 0,
+          "kernel D: invalid candidates are never kept")
+    same = torch.tensor([10.0, 10.0, 30.0, 30.0], device="cuda").expand(b, k, 4).contiguous()
+    check(check_nms_case(torch, "every box identical", same, cls0, ok) == b,
+          "kernel D: identical boxes keep the first")
+    flat = torch.tensor([5.0, 5.0, 5.0, 9.0], device="cuda").expand(b, k, 4).contiguous()
+    check(check_nms_case(torch, "zero-area boxes", flat, cls0, ok) == b * k,
+          "kernel D: zero-area boxes overlap nothing")
+    boxes, classes, valid = nms_problem(torch, 16, 256, seed=7)
+    check_nms_case(torch, "class_aware off", boxes, classes, valid, class_aware=False)
+    kept = check_nms_case(torch, "threshold -0.25", boxes, classes, valid, iou_thresh=-0.25)
+    check(kept == int(valid.any(1).sum()),
+          "kernel D: below a negative threshold every pair overlaps (one kept per frame)")
+
+
+def nms_errors() -> dict:
+    """Kernel D's errors against its plain version over every case checked
+    in this run (phase 3 and the steps' candidates): the largest |keep -
+    plain|, the share of keep bits that differ and their count."""
+    t = NMS_TALLY
+    return {"max_abs_err": float(t["max_abs_err"]),
+            "max_rel_err": t["mismatched"] / max(t["compared"], 1),
+            "mismatched_keep_bits": t["mismatched"], "compared_keep_bits": t["compared"]}
+
+
+def nms_bound_ms(boxes) -> tuple[float, str, dict]:
+    """Kernel D's least time on this input: its bytes (boxes, classes and ok
+    read once, keep written once) over 3.35 TB/s against its operations,
+    16 float32 operations per candidate pair j < i (the IoU and the test)
+    over the float32 peak. Neither counts the K dependent row checks of the
+    rank walk, which bound the kernel in fact."""
+    b, k, _ = boxes.shape
+    nbytes = b * k * (16 + 4 + 1 + 1)
+    ops = 16.0 * b * k * (k - 1) / 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
+    info = {"bytes": nbytes, "ops": ops, "serial_row_checks": k}
+    return (t_bytes, "bytes", info) if t_bytes >= t_ops else (t_ops, "operations", info)
+
+
+def time_nms(torch, args, flush) -> dict:
+    """Kernel D on one step's candidates: kernel, plain sweep, bound."""
+    from tti_torch.kernels import nms as nk
+
+    boxes, classes, ok, iou_thresh, class_aware = args
+    with torch.inference_mode():
+        t = {"ms": time_ms(torch, lambda: nk.greedy_keep(*args), flush=flush),
+             "plain_ms": time_ms(torch, lambda: nk.greedy_keep_plain(*args), iters=5,
+                                 flush=flush)}
+    bound, bound_by, info = nms_bound_ms(boxes)
+    return {**t, "bound_ms": bound, "bound_by": bound_by, "shape": list(ok.shape), **info}
+
+
 def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     """Mean device ms per call with CUDA events, after a warm-up call.
     ``flush`` (outside the timed window) evicts L2 before each call. A spin
@@ -724,23 +861,31 @@ def stats_route(soft_fn, binary_fn):
 def plain_routes(ms, wp):
     """Bind every kernel's plain version in the kernel's place."""
     import tti_torch.parallel.runtime as rt
+    import tti_torch.postprocess.nms as nms
+    from tti_torch.kernels import nms as nk
 
-    saved = rt.warp_pass1_decimated
+    saved = rt.warp_pass1_decimated, nms.greedy_keep
     rt.warp_pass1_decimated = wp.warp_pass1_decimated_plain
+    nms.greedy_keep = nk.greedy_keep_plain
     try:
         with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
             yield
     finally:
-        rt.warp_pass1_decimated = saved
+        rt.warp_pass1_decimated, nms.greedy_keep = saved
 
 
 def reset_launch_counts(ms, wp) -> None:
+    from tti_torch.kernels import nms as nk
+
     ms.reset_launch_counts()
     wp.reset_launch_counts()
+    nk.reset_launch_counts()
 
 
 def launch_counts(ms, wp) -> dict:
-    return {**ms.LAUNCHES, **wp.LAUNCHES}
+    from tti_torch.kernels import nms as nk
+
+    return {**ms.LAUNCHES, **wp.LAUNCHES, **nk.LAUNCHES}
 
 
 def capture_stats_inputs(ms, pipe, frames) -> tuple:
@@ -797,7 +942,7 @@ def bench_roi(frame_hw):
                      y_max=h - min(200, h // 5))
 
 
-def build_pipeline(torch, frame_hw, imgsz, ckpt, **kw):
+def build_pipeline(torch, frame_hw, imgsz, ckpt, dtype="bfloat16", **kw):
     from tti_torch.core.config import MeasureConfig, ModelConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
     from tti_torch.parallel.runtime import InspectionPipeline
@@ -805,7 +950,7 @@ def build_pipeline(torch, frame_hw, imgsz, ckpt, **kw):
     path = os.path.join(HERE, "checkpoints", ckpt)
     meta = checkpoint_metadata(path)
     cfg = ModelConfig(variant=meta.get("variant", "n"), num_classes=meta.get("num_classes", 2),
-                      image_size=imgsz, dtype="bfloat16",
+                      image_size=imgsz, dtype=dtype,
                       mask_stride=meta.get("mask_stride", 4),
                       proto_head=meta.get("proto_head", "deconv"))
     return InspectionPipeline(
@@ -850,8 +995,9 @@ def check_outputs(got, label, batch, max_det) -> None:
 
 def check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt, kernels, batch=4, **pipe_kw):
     """One configuration through ``process_batch``: every kernel in
-    ``kernels`` must launch once in that step, and the step must agree with
-    the same step run with the plain versions bound in the kernels' place."""
+    ``kernels`` and kernel D (NMS) must launch once in that step, and the
+    step must agree with the same step run with the plain versions bound in
+    the kernels' place."""
     t0 = time.perf_counter()
     pipe = build_pipeline(torch, frame_hw, imgsz, ckpt, **pipe_kw)
     setup_s = time.perf_counter() - t0
@@ -859,6 +1005,7 @@ def check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt, kernels, batch=4, **
     reset_launch_counts(ms, wp)
     got = pipe.process_batch(frames)
     launches = launch_counts(ms, wp)
+    kernels = (*kernels, "greedy_keep")
     for kernel in kernels:
         check(launches[kernel] == 1, f"{label}: one launch of {kernel} per step expected: {launches}")
     with plain_routes(ms, wp):
@@ -969,55 +1116,50 @@ def breakdown(torch, pipe, label, frames, step_ms, profile=True):
             "mask_stats_ms": soft_or_binary}
 
 
-def nms_sweeps(torch, pipe, frames) -> int:
-    """The sweeps one step's NMS takes to its fixed point, the last one
-    confirming it: the step's own candidates, swept one at a time with a
-    host check after each."""
+def capture_nms_inputs(pipe, frames) -> tuple:
+    """The (boxes, classes, ok, iou_thresh, class_aware) one step hands
+    kernel D."""
     import tti_torch.postprocess.nms as nms
 
-    seen, saved = [], nms.greedy_suppress
+    seen, saved = [], nms.greedy_keep
 
     def recorder(*args):
         seen.append(args)
         return saved(*args)
 
-    nms.greedy_suppress = recorder  # batched_nms looks it up at each call
+    nms.greedy_keep = recorder  # greedy_suppress looks it up at each call
     try:
         pipe.step(frames)
     finally:
-        nms.greedy_suppress = saved
+        nms.greedy_keep = saved
     check(len(seen) == 1, f"one NMS per step expected, got {len(seen)}")
-    boxes, _, classes, _, ok, iou_thresh, _, class_aware = seen[0]
-    blocked = nms.suppression_matrix(boxes, classes, iou_thresh, class_aware)
-    keep, sweeps = ok, 0
-    while True:
-        new = nms.sweep(blocked, ok, keep)
-        sweeps += 1
-        if torch.equal(new, keep):
-            return sweeps
-        keep = new
+    return seen[0]
 
 
 def check_step_syncs(torch, pipe, label, frames) -> dict:
-    """The synchronising calls in one step on device-resident frames (at
-    most one: the NMS block check) and the NMS sweep count."""
+    """The synchronising calls in one step on device-resident frames (none:
+    NMS runs on the card) and kernel D's launches in one step (one)."""
     from step_syncs_torch import count_step_syncs
 
-    import tti_torch.postprocess.nms as nms
+    from tti_torch.kernels import nms as nk
 
     n, where, first = count_step_syncs(torch, pipe, frames)
-    sweeps = nms_sweeps(torch, pipe, frames)
+    nk.reset_launch_counts()
+    pipe.step(frames)
+    d = nk.LAUNCHES["greedy_keep"]
     log(f"{label} batch {frames.shape[0]}: {n} synchronising call(s) per step {where}"
         + (f" (the first window: {first})" if first != where else "")
-        + f"; NMS reaches its fixed point in {sweeps} sweeps (blocks of {nms.SWEEPS_PER_CHECK})")
-    check(n <= 1, f"{label}: {n} synchronising calls in one step (at most 1): {where}")
-    return {"syncs": n, "where": where, "first_window": first, "nms_sweeps": sweeps}
+        + f"; kernel D launches per step: {d}")
+    check(n == 0, f"{label}: {n} synchronising calls in one step (none expected): {where}")
+    check(d == 1, f"{label}: kernel D launched {d} times in one step (once expected)")
+    return {"syncs": n, "where": where, "first_window": first, "greedy_keep_launches": d}
 
 
 def time_step(torch, ms, pipe, label, frame_hw, profile=True, iters=20, p50_iters=50):
     """Step timings and breakdowns, after the synchronising calls of one
     step at batch 128 and 1; also returns the mask-stats inputs of one
-    batch-128 step."""
+    batch-128 step and kernel D's inputs at batch 128 and 1 (held to the
+    plain version here: phase 3 on the step's own candidates)."""
     batch = BATCH
     frames = torch.from_numpy(textile(frame_hw, batch)).cuda()
     one = frames[:1].contiguous()
@@ -1044,8 +1186,11 @@ def time_step(torch, ms, pipe, label, frame_hw, profile=True, iters=20, p50_iter
     parts = breakdown(torch, pipe, label, frames, 1e3 * batch / fps, profile)
     one_parts = breakdown(torch, pipe, f"{label} batch-1", one, p50, profile)
     stats_args = capture_stats_inputs(ms, pipe, frames)
+    nms_args = {b: capture_nms_inputs(pipe, f) for b, f in ((batch, frames), (1, one))}
+    for b, args in nms_args.items():
+        check_nms_case(torch, f"{label}'s candidates at batch {b}", *args)
     return {"frames_per_s": fps, "batch": batch, "p50_ms": p50, "at_batch": parts,
-            "at_batch_1": one_parts, "syncs": syncs}, stats_args
+            "at_batch_1": one_parts, "syncs": syncs}, (stats_args, nms_args)
 
 
 def warp_in_f32(torch, warp, content):
@@ -1116,16 +1261,25 @@ def stage_ms(torch, fn, iters=10) -> float:
 
 def check_packed(torch, ms, wp, head, frame_hw, imgsz, ckpt) -> dict:
     """The headline geometry with remap="packed" at batch 128, against the
-    two-pass step."""
+    two-pass step; at this exact decimation the gather packs the decimated
+    bytes, bit-equal to the float resize it skips."""
     label = "packed-remap step (1080x1920, imgsz 640, gather remap)"
     pipe, _, got = check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt,
                               ("mask_stats_binary",), batch=BATCH, remap="packed")
+    from tti_torch.model.yolo import space_to_depth2
+    from tti_torch.preprocess.letterbox import letterbox_content
     from tti_torch.preprocess.remap import PackedRemap
 
     check(isinstance(pipe.warp, PackedRemap), "remap='packed' must build the gather")
     frames = torch.from_numpy(textile(frame_hw, BATCH)).cuda()
     with torch.inference_mode():
-        diff = (pipe.preprocess(frames).float() - head.preprocess(frames).float()).abs()
+        x = pipe.preprocess(frames)
+        resized = pipe.warp(letterbox_content(frames, pipe.spec, pipe.dtype))
+        resized = space_to_depth2(resized) if pipe.model.s2d_input else resized
+        u8_differ = int((x != resized).sum())
+        check(u8_differ == 0, f"packed route: the u8 pack and the float resize differ in "
+              f"{u8_differ} model-input values")
+        diff = (x.float() - head.preprocess(frames).float()).abs()
         mean, p99, worst = float(diff.mean()), float(diff.flatten()[::97].quantile(0.99)), float(diff.max())
     # The two routes differ by the interpolation kernel only (p99 positional
     # error under 0.01 px, larger only on the outermost columns), by the
@@ -1137,7 +1291,8 @@ def check_packed(torch, ms, wp, head, frame_hw, imgsz, ckpt) -> dict:
     pre = stage_ms(torch, lambda: pipe.preprocess(frames))
     pre_two = stage_ms(torch, lambda: head.preprocess(frames))
     fps = BATCH * 1e3 / stage_ms(torch, lambda: pipe.step(frames), iters=5)
-    log(f"packed-remap model input against the two-pass step's at batch {BATCH}: mean abs diff "
+    log(f"packed-remap model input: the u8 pack equal to the float resize's in all "
+        f"{x.numel()} values; against the two-pass step's at batch {BATCH}: mean abs diff "
         f"{mean:.4g} (limit 0.01), p99 {p99:.4g}, max {worst:.4g}; preprocess stage {pre:.3f} ms "
         f"(two-pass {pre_two:.3f} ms); step {fps:.1f} frames/s")
     return {"input_mean_abs_diff": mean, "input_max_abs_diff": worst, "preprocess_ms": pre,
@@ -1159,7 +1314,8 @@ def check_dual(torch, ms, wp, head, got_head, frame_hw, imgsz, ckpt_b) -> dict:
     reset_launch_counts(ms, wp)
     out_a, out_b = dual.process_batch(frames)
     launches = launch_counts(ms, wp)
-    check(launches["mask_stats_binary"] == 2, f"dual step: one kernel-B launch per model: {launches}")
+    check(launches["mask_stats_binary"] == 2 and launches["greedy_keep"] == 2,
+          f"dual step: one kernel-B and one kernel-D launch per model: {launches}")
     worst = {}
     for name, got, solo in (("primary", out_a, got_head), ("secondary", out_b, solo_b)):
         # The same model on the same preprocessed buffer: boxes within 1e-3
@@ -1180,7 +1336,168 @@ def check_dual(torch, ms, wp, head, got_head, frame_hw, imgsz, ckpt_b) -> dict:
         f"{BATCH}: secondary shares the primary's warp ({freed:.0f} MB of device memory freed); "
         f"max |dual - single| boxes/mm: primary {worst['primary']}, secondary "
         f"{worst['secondary']}; {fps:.1f} frames/s (both models' full chains per frame)")
-    return {"frames_per_s": fps, "warp_freed_mb": freed}
+    return {"frames_per_s": fps, "warp_freed_mb": freed,
+            "greedy_keep_launches": launches["greedy_keep"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the step's opt-in modes
+# ---------------------------------------------------------------------------
+
+CONFIGS = {  # name: (frame_hw, imgsz, checkpoint), as phases 4-5 run them
+    "deploy": ((960, 1280), 960, "yolov8n_textile_cam.msgpack"),
+    "headline": ((1080, 1920), 640, "yolov8n_textile.msgpack"),
+}
+# Each mode where tti applies it: (name, configuration, pipeline arguments);
+# each is held to the default step of its configuration.
+MODES = (
+    ("lazy_decode", "deploy", dict(lazy_decode=True)),
+    ("fused_head", "deploy", dict(fused_head=True)),
+    ("warp_block=64", "deploy", dict(warp_block=64)),
+    ("fold_bn=False", "deploy", dict(fold_bn=False)),
+    ("maskstats_logits=f32", "deploy", dict(maskstats_logits="f32")),
+    ("lazy_decode", "headline", dict(lazy_decode=True)),
+    ("fused_head", "headline", dict(fused_head=True)),
+    ("warp_block=64", "headline", dict(warp_block=64)),
+    ("warp_col_expand", "headline", dict(warp_col_expand=True)),
+)
+MODE_F32_BATCH = 8
+# bf16 against the reference bf16 step at batch 128: the share of frames
+# with the same detection count, and mm limits. The kernel route's (max
+# 0.25, median 0.05; one binary-mask cell flipped by a bf16 step moves a
+# reading by up to 0.24 mm here), with the share and the median tightened
+# from the readings of two H100 runs, which were equal: every frame's count
+# equal in every mode, mm max 0.225 and median 0.0013 (fold_bn=False; every
+# other mode at most 8.8e-05).
+MODE_NVALID_SHARE, MODE_MM_MAX, MODE_MM_MEDIAN = 0.99, 0.25, 0.01
+
+
+def time_pair(torch, ref, pipe, frames, one, steps=4, p50_iters=8) -> dict:
+    """``ref``'s and ``pipe``'s steps in turns (ref, pipe, pipe, ref), each
+    turn ``steps`` steps at the batch of ``frames`` (host clock around a
+    synchronise) and ``p50_iters`` steps on ``one``, after a warm step:
+    frames/s over both turns and the p50 of both turns' latencies."""
+    runs = {"ref": [0.0, []], "mode": [0.0, []]}
+    with torch.inference_mode():
+        for who, p in (("ref", ref), ("mode", pipe), ("mode", pipe), ("ref", ref)):
+            p.step(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                p.step(frames)
+            torch.cuda.synchronize()
+            runs[who][0] += time.perf_counter() - t0
+            p.step(one)
+            torch.cuda.synchronize()
+            for _ in range(p50_iters):
+                t = time.perf_counter()
+                p.step(one)
+                torch.cuda.synchronize()
+                runs[who][1].append(time.perf_counter() - t)
+    fps = lambda who: 2 * steps * frames.shape[0] / runs[who][0]
+    p50 = lambda who: 1e3 * float(np.median(runs[who][1]))
+    return {"frames_per_s": fps("mode"), "p50_ms": p50("mode"),
+            "ref_frames_per_s": fps("ref"), "ref_p50_ms": p50("ref")}
+
+
+def compare_f32(got, ref, label) -> tuple[float, float]:
+    """A mode's float32 step against its reference step's on the same
+    frames: detections equal, boxes within 1e-3 px, mm within 1e-3 and the
+    same readings present."""
+    np.testing.assert_array_equal(got.valid, ref.valid, err_msg=f"{label}: valid")
+    np.testing.assert_array_equal(got.classes, ref.classes, err_msg=f"{label}: classes")
+    box = float(np.abs(got.boxes_frame - ref.boxes_frame).max())
+    check(box <= 1e-3, f"{label}: float32 boxes differ by {box} px (limit 1e-3)")
+    for key in MM_KEYS:
+        a, r = getattr(got.measurements, key), getattr(ref.measurements, key)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(r), err_msg=f"{label}: {key}")
+    mm, n = mm_difference(got, ref)
+    check(n > 0, f"{label}: no float32 reading to compare")
+    check(mm <= 1e-3, f"{label}: float32 mm differ by {mm} (limit 1e-3)")
+    return box, mm
+
+
+def check_modes(torch, ms, wp) -> dict:
+    """Phase 5b: each mode's step at full width. Its kernels launch once per
+    step and it makes no synchronising call (batch 128 and 1); in float32
+    (batch 8) it agrees with its reference step within 1e-3 px and 1e-3 mm;
+    in bf16 (batch 128) the detection counts agree on most frames and the
+    mm within the kernel route's limits; frames/s at batch 128 and the
+    batch-1 p50 beside its reference step's."""
+    from step_syncs_torch import count_step_syncs
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    for config, (hw, imgsz, ckpt) in CONFIGS.items():
+        frames_np = textile(hw, BATCH)
+        frames = torch.from_numpy(frames_np).cuda()
+        one = frames[:1].contiguous()
+        small = textile(hw, MODE_F32_BATCH)
+        group = [(name, kw) for name, cfg, kw in MODES if cfg == config]
+        # The reference step: bf16 (kept for the timings in turns) and float32.
+        t0 = time.perf_counter()
+        ref = build_pipeline(torch, hw, imgsz, ckpt)
+        ref_out = ref.process_batch(frames_np)
+        ref32 = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32")
+        ref32_out = ref32.process_batch(small)
+        del ref32
+        torch.cuda.empty_cache()
+        ref_label = f"{config} default"
+        weight_mb = lambda p: getattr(p.warp, "weight_bytes", 0) / 1e6
+        log(f"  {ref_label}: the reference step built in bf16 and float32 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, kw in group:
+            label = f"{config} {name}"
+            t0 = time.perf_counter()
+            pipe = build_pipeline(torch, hw, imgsz, ckpt, **kw)
+            setup_s = time.perf_counter() - t0
+            reset_launch_counts(ms, wp)
+            got = pipe.process_batch(frames_np)
+            launches = launch_counts(ms, wp)
+            stats_kernel = ("mask_stats_soft" if pipe.measure_cfg.subcell_edge
+                            else "mask_stats_binary")
+            check(launches["greedy_keep"] == 1 and launches[stats_kernel] == 1,
+                  f"{label}: kernels D and {stats_kernel} once per step expected: {launches}")
+            syncs = {b: count_step_syncs(torch, pipe, f)[:2] for b, f in ((BATCH, frames),
+                                                                          (1, one))}
+            for b, (n, where) in syncs.items():
+                check(n == 0, f"{label} batch {b}: {n} synchronising calls per step: {where}")
+            t = time_pair(torch, ref, pipe, frames, one)
+            check_outputs(got, label, BATCH, pipe.model_cfg.max_detections)
+            warp_mb = (weight_mb(pipe), weight_mb(ref))
+            del pipe
+            same_n = float((got.valid.sum(1) == ref_out.valid.sum(1)).mean())
+            d = mm_differences(got, ref_out)
+            check(d.size > 0, f"{label}: no bf16 reading to compare")
+            mm_max, mm_med = float(d.max()), float(np.median(d))
+            check(same_n >= MODE_NVALID_SHARE,
+                  f"{label}: bf16 detection counts agree on {same_n:.1%} of frames")
+            check(mm_max <= MODE_MM_MAX and mm_med <= MODE_MM_MEDIAN,
+                  f"{label}: bf16 mm differ by max {mm_max}, median {mm_med}")
+            pipe32 = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32", **kw)
+            box32, mm32 = compare_f32(pipe32.process_batch(small), ref32_out, label)
+            del pipe32
+            torch.cuda.empty_cache()
+            log(f"  {label}: {t['frames_per_s']:.1f} frames/s at batch {BATCH} against "
+                f"{t['ref_frames_per_s']:.1f} ({t['frames_per_s'] / t['ref_frames_per_s'] - 1:+.1%}), "
+                f"batch-1 p50 {t['p50_ms']:.3f} ms against {t['ref_p50_ms']:.3f} "
+                f"({t['p50_ms'] / t['ref_p50_ms'] - 1:+.1%}) ({ref_label}, in turns); "
+                f"launches {launches}; 0 syncs per step at batch {BATCH} and 1; bf16 against "
+                f"the reference step: detection counts equal on {same_n:.1%} of frames, mm "
+                f"max {mm_max:.4g} median {mm_med:.4g} over {d.size} readings; float32 (batch "
+                f"{MODE_F32_BATCH}): boxes {box32:.3g} px, mm {mm32:.3g}; two-pass warp "
+                f"weights {warp_mb[0]:.0f} MB (reference {warp_mb[1]:.0f} MB); set-up "
+                f"{setup_s:.1f} s")
+            out[label] = {**t, "reference": ref_label, "bf16_nvalid_equal_share": same_n,
+                          "bf16_mm_max": mm_max, "bf16_mm_median": mm_med,
+                          "f32_box_max": box32, "f32_mm_max": mm32, "setup_s": setup_s,
+                          "warp_weight_mb": warp_mb[0], "ref_warp_weight_mb": warp_mb[1]}
+        del ref, frames, one
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"modes phase: {wall:.1f} s")
+    out["wall_s"] = wall
+    return out
 
 
 class FixedSource:
@@ -1999,11 +2316,12 @@ def check_application(torch, ms, wp, step_p50_ms) -> dict:
 
     blocking = run_loop(ms, wp, pipe, frames, "blocking")
     piped = run_loop(ms, wp, pipe, frames, "pipelined", pipelined=True)
-    with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
+    with plain_routes(ms, wp):
         plain = run_loop(ms, wp, pipe, frames, "plain")
     for tag, loop in (("blocking", blocking), ("pipelined", piped)):
-        check(loop["launches"]["mask_stats_soft"] == n and not loop["launches"]["mask_stats_binary"],
-              f"run {tag}: kernel A once per frame expected, launches {loop['launches']}")
+        check(loop["launches"]["mask_stats_soft"] == n and not loop["launches"]["mask_stats_binary"]
+              and loop["launches"]["greedy_keep"] == n,
+              f"run {tag}: kernels A and D once per frame expected, launches {loop['launches']}")
         check(loop["rows"] == loop["inserted"] + 1,
               f"run {tag}: {loop['rows']} rows for {loop['inserted']} inserts + the reset row")
     check(not any(plain["launches"].values()), f"run plain: launched {plain['launches']}")
@@ -2243,7 +2561,7 @@ def check_calibrate_measure(torch, ms, wp) -> dict:
             stats = {"edge": error_summary(edge, gt_edge), "width": error_summary(width, gt_width)}
             got[tag] = (edge, width)
             if tag == "true":
-                with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
+                with plain_routes(ms, wp):
                     plain = pipe.process_batch(frames).measurements
                 check(launch_counts(ms, wp) == launches, f"{label}: the plain step launched")
                 for key in MM_KEYS:
@@ -2296,6 +2614,7 @@ def main() -> int:
     from tti_torch import native
     from tti_torch.kernels import build as kbuild
     from tti_torch.kernels import maskstats as ms
+    from tti_torch.kernels import nms as nk
     from tti_torch.kernels import warp_p1 as wp
 
     # Phase 1: the card.
@@ -2310,10 +2629,12 @@ def main() -> int:
 
     # Phase 2: build, one nvcc per source, started together.
     t0 = time.perf_counter()
-    kbuild.compile_all(("maskstats", "warp_p1"))
+    kbuild.compile_all(("maskstats", "warp_p1", "nms"))
     ms.build()
     wp.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, maskstats.cu and warp_p1.cu)")
+    nk.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, maskstats.cu, warp_p1.cu and "
+        "nms.cu)")
     for name, text in sorted(kbuild.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2328,9 +2649,10 @@ def main() -> int:
         log(card)
         return 0
 
-    # Phase 3: the mask-stats kernels against their plain versions.
+    # Phase 3: the mask-stats kernels and kernel D against their plain versions.
     log("kernel checks against the plain versions:")
     errs = check_kernels(torch, ms)
+    check_nms(torch)
 
     # Phases 4-5: the configurations through process_batch; each step's own
     # kernel inputs at batch 128 are kept for phase 9.
@@ -2338,7 +2660,8 @@ def main() -> int:
     dep, dep_launches, _ = check_step(
         torch, ms, wp, "deploy step (960x1280, imgsz 960, stride-2 soft)", (960, 1280), 960,
         "yolov8n_textile_cam.msgpack", ("mask_stats_soft",))
-    dep_time, dep_args = time_step(torch, ms, dep, "deploy", (960, 1280), iters=10, p50_iters=30)
+    dep_time, (dep_args, dep_nms) = time_step(torch, ms, dep, "deploy", (960, 1280), iters=10,
+                                              p50_iters=30)
     del dep
     torch.cuda.empty_cache()
     head, head_launches, got_e = check_step(
@@ -2347,7 +2670,7 @@ def main() -> int:
     # Phase 3 again, for kernel C, with the headline warp's own weights.
     errs["warp_pass1_decimated"] = check_warp_p1(torch, wp, head.warp, head.spec)
     torch.cuda.empty_cache()
-    head_time, head_args = time_step(torch, ms, head, "headline", head_hw)
+    head_time, (head_args, head_nms) = time_step(torch, ms, head, "headline", head_hw)
 
     head_k, k_launches, got_k = check_step(
         torch, ms, wp, "headline step with warp_pass1='kernel'", head_hw, 640, head_ckpt,
@@ -2362,6 +2685,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     streams = check_streams(torch, head, head_hw)
     torch.cuda.empty_cache()
+
+    # Phase 5b: the step's opt-in modes at full width.
+    log("the step's modes (each against its reference step, bf16 and float32):")
+    modes = check_modes(torch, ms, wp)
 
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
@@ -2427,9 +2754,41 @@ def main() -> int:
         "batch_1": {k: c[1][k] for k in ("ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by",
                                          "pass2_from_ycbo_ms", "pass2_from_byoc_ms")},
     })
+    d_times = {}
+    for config, cands in (("deploy", dep_nms), ("headline", head_nms)):
+        for b, args in cands.items():
+            d_times[(config, b)] = t = time_nms(torch, args, flush)
+            log(f"  greedy_keep on the {config} step's candidates at batch {b}, (B, K) = "
+                f"{tuple(t['shape'])}: kernel {t['ms']:.4f} ms, plain sweep {t['plain_ms']:.4f} "
+                f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
+                f"{t['ops'] / 1e9:.4f} GFLOP; not counted: {t['serial_row_checks']} dependent "
+                f"row checks per frame)")
+    d = d_times[("headline", BATCH)]
+    errs["greedy_keep"] = nms_errors()
+    log(f"  greedy_keep against the plain version over this run's cases: "
+        f"{errs['greedy_keep']['mismatched_keep_bits']} of "
+        f"{errs['greedy_keep']['compared_keep_bits']} keep bits differ")
+    kernels.append({
+        "name": "greedy_keep", "route": "cuda", "source": "tti_torch/kernels/csrc/nms.cu",
+        "replaces": "tti/postprocess/nms.py:70",
+        "launches": head_launches["greedy_keep"],
+        "max_abs_err": errs["greedy_keep"]["max_abs_err"],
+        "max_rel_err": errs["greedy_keep"]["max_rel_err"],
+        "mismatched_keep_bits": errs["greedy_keep"]["mismatched_keep_bits"],
+        "compared_keep_bits": errs["greedy_keep"]["compared_keep_bits"],
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": None,
+        "timed_on": "the headline step's candidates", "timed_shape": d["shape"],
+        "dual_launches": dual["greedy_keep_launches"],
+        "other_inputs": {f"{c} batch {b}": {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "shape")}
+                         for (c, b), t in d_times.items() if (c, b) != ("headline", BATCH)},
+    })
+    del dep_nms, head_nms
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
-        "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams},
+        "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
+        "modes": modes},
         "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -4,6 +4,7 @@ same invalid settings raise the same ConfigError messages, and the
 calibration files are byte-equal."""
 
 import dataclasses
+import logging
 
 import numpy as np
 import pytest
@@ -33,6 +34,14 @@ ENVS = {
 }
 
 
+def _sections(cfg) -> dict:
+    """The port's tree as ``asdict`` without ``switches``, the section the
+    port adds (tti reads its runtime switches where it builds its step)."""
+    tree = dataclasses.asdict(cfg)
+    assert tree.pop("switches") == dataclasses.asdict(cfg.switches)
+    return tree
+
+
 @pytest.mark.parametrize("name", sorted(ENVS))
 def test_load_config_trees_equal(name, tmp_path):
     env, dotenv = ENVS[name]
@@ -40,7 +49,7 @@ def test_load_config_trees_equal(name, tmp_path):
     path.write_text(dotenv)
     got = tcfg.load_config(dotenv_path=str(path), env=env)
     want = jcfg.load_config(dotenv_path=str(path), env=env)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert _sections(got) == dataclasses.asdict(want)
     assert got.mqtt.topic == want.mqtt.topic
     assert got.measure.envelope_subcell == want.measure.envelope_subcell
     assert tcfg.load_dotenv_file(str(path)) == jcfg.load_dotenv_file(str(path))
@@ -60,7 +69,7 @@ def test_config_errors_equal(env):
         tcfg.load_config(dotenv_path=None, env=env)
     assert str(got.value) == str(want.value)
     # Unvalidated, both trees still build and agree.
-    assert dataclasses.asdict(tcfg.load_config(dotenv_path=None, env=env, validate=False)) == \
+    assert _sections(tcfg.load_config(dotenv_path=None, env=env, validate=False)) == \
         dataclasses.asdict(jcfg.load_config(dotenv_path=None, env=env, validate=False))
 
 
@@ -80,3 +89,99 @@ def test_calibration_files_byte_equal(tmp_path, ref_intrinsics, ref_extrinsics):
     np.testing.assert_array_equal(got.dist, dist)
     np.testing.assert_array_equal(got.tvec, tvec)
     assert got.image_size == (1280, 960) and got.rms == 0.31
+
+
+SWITCH_TABLE = [  # (environment, the fields it sets), as tti's runtime reads each name
+    ({}, {}),
+    ({"TTI_REMAP": "packed"}, {"remap": "packed"}),
+    ({"TTI_WARP_S2D": "0"}, {"warp_s2d": False}),
+    ({"TTI_WARP_S2D": "false"}, {}),  # only "0" turns it off
+    ({"TTI_WARP_BLOCKED": "0"}, {}),  # "0": dense
+    ({"TTI_WARP_BLOCKED": ""}, {}),
+    ({"TTI_WARP_BLOCKED": "64"}, {"warp_block": 64}),
+    ({"TTI_WARP_COLEXPAND": "1"}, {"warp_col_expand": True}),
+    ({"TTI_WARP_COLEXPAND": "true"}, {}),  # only "1" turns it on
+    ({"TTI_LAZY_DECODE": "1"}, {"lazy_decode": True}),
+    ({"TTI_FUSED_HEAD": "1"}, {"fused_head": True}),
+    ({"TTI_FOLDED_BN": "0"}, {"fold_bn": False}),
+    ({"TTI_FOLDED_BN": "no"}, {}),
+    ({"TTI_REMAP_U8_DECIMATE": "1"}, {"no_counterpart": ("TTI_REMAP_U8_DECIMATE",)}),
+    ({"TTI_MASKSTATS_LOGITS": "f32"}, {"maskstats_logits": "f32"}),
+    ({"TTI_MASKSTATS_LOGITS": "bf16"}, {"maskstats_logits": "bf16"}),
+    ({"TTI_MASKSTATS_LOGITS": "fp32"}, {}),  # anything else: the dtype policy
+    ({"TTI_APPROX_TOPK": "1"}, {"approx_topk": True}),
+    ({"TTI_QUANT": "int8s"}, {"quant": "int8s"}),
+    ({"TTI_INPUT_LAYOUT": "0", "TTI_MASKSTATS": "pallas2", "TTI_REMAP_SWAR": "0"},
+     {"no_counterpart": ("TTI_INPUT_LAYOUT", "TTI_MASKSTATS", "TTI_REMAP_SWAR")}),
+]
+
+
+@pytest.mark.parametrize("env,fields", SWITCH_TABLE,
+                         ids=[",".join(f"{k}={v}" for k, v in e.items()) or "defaults"
+                              for e, _ in SWITCH_TABLE])
+def test_runtime_switches_parse_as_tti(env, fields):
+    want = dataclasses.replace(tcfg.RuntimeSwitches(), **fields)
+    assert tcfg.RuntimeSwitches.from_env(env) == want
+    assert tcfg.load_config(dotenv_path=None, env=env, validate=False).switches == want
+
+
+def test_runtime_switches_from_dotenv_and_errors(tmp_path):
+    """``.env`` sets the switches (the environment wins), and the
+    pipeline's arguments are the switches that have one."""
+    path = tmp_path / ".env"
+    path.write_text("TTI_REMAP=packed\nTTI_LAZY_DECODE=1\nTTI_FOLDED_BN=0\n")
+    cfg = tcfg.load_config(dotenv_path=str(path), env={"TTI_FOLDED_BN": "1"})
+    assert cfg.switches.pipeline_kwargs() == dict(
+        remap="packed", warp_s2d=True, warp_block=None, warp_col_expand=False, lazy_decode=True,
+        fused_head=False, fold_bn=True, maskstats_logits="auto")
+    with pytest.raises(terr.ConfigError, match="TTI_WARP_BLOCKED"):
+        tcfg.RuntimeSwitches.from_env({"TTI_WARP_BLOCKED": "wide"})
+
+
+@pytest.mark.parametrize("env,said", [
+    ({"TTI_APPROX_TOPK": "1"}, "approximate top-k"),
+    ({"TTI_QUANT": "int4"}, "TTI_QUANT must be"),
+], ids=["approx_topk", "quant_other"])
+def test_cli_refuses_switches(env, said, tmp_path, monkeypatch, capsys):
+    from tti_torch.cli.__main__ import main as port_main
+
+    monkeypatch.chdir(tmp_path)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert port_main(["run", "--synthetic", "--device", "cpu"]) == 1
+    assert said in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def test_load_pipeline_builds_under_the_switches(tmp_path, monkeypatch):
+    """``load_pipeline`` hands the switches to the pipeline and logs each
+    set name that has no counterpart."""
+    import tti_torch.cli.__main__ as cli
+    import tti_torch.parallel.runtime as rt
+
+    seen = []
+    monkeypatch.setattr(rt, "InspectionPipeline", lambda *a, **kw: seen.append(kw))
+    monkeypatch.setattr(cli, "_random_variables", lambda model_cfg: {})
+    env = {"TTI_WARP_BLOCKED": "32", "TTI_FUSED_HEAD": "1", "TTI_MASKSTATS_LOGITS": "f32",
+           "TTI_INPUT_LAYOUT": "0", "TTI_REMAP_SKIP_PAD_ROWS": "0",
+           "TTI_WEIGHTS": str(tmp_path / "none.msgpack")}
+    cfg = tcfg.load_config(dotenv_path=None, env=env, validate=False)
+    logger, handler = logging.getLogger("tti_torch.cli"), _Records()
+    logger.addHandler(handler)
+    try:
+        cli.load_pipeline(cfg, (96, 128), device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    assert seen[0]["warp_block"] == 32 and seen[0]["fused_head"] and \
+        seen[0]["maskstats_logits"] == "f32" and seen[0]["fold_bn"]
+    told = [m for m in handler.messages if "no counterpart" in m]
+    assert len(told) == 2 and "TTI_INPUT_LAYOUT" in told[0] and "SKIP_PAD_ROWS" in told[1]

@@ -39,6 +39,19 @@ RVEC_VIEW = np.array([0.1, -0.15, 0.05])
 TVEC_VIEW = np.array([-0.03, -0.02, 0.25])
 
 
+@pytest.fixture(autouse=True)
+def cv2_one_thread():
+    """OpenCV on one thread for each test: with its thread pool,
+    calibrateCamera's sums run in another order from call to call (1e-6
+    relative apart on the same views), and both packages call it."""
+    threads = cv2.getNumThreads()
+    cv2.setNumThreads(1)
+    try:
+        yield
+    finally:
+        cv2.setNumThreads(threads)
+
+
 @pytest.fixture(scope="module")
 def boards():
     return tcharuco.create_charuco_board(), jcharuco.create_charuco_board(jcfg.BoardConfig())

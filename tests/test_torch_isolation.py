@@ -26,7 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(tti_torch.__path__, "tti_torch.")
 for name in names:
     importlib.import_module(name)
 for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
-             "tti_torch.kernels.warp_p1", "tti_torch.core.logging", "tti_torch.cli.__main__",
+             "tti_torch.kernels.warp_p1", "tti_torch.kernels.nms", "tti_torch.core.logging", "tti_torch.cli.__main__",
              *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
                                                "checkpoint", "loop", "eval")),
              *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
@@ -66,6 +66,14 @@ pipe = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_stri
                           device="cpu")
 out = pipe.process_batch(textile_frames(1, 96, 128))
 assert out.boxes_frame.shape == (1, 200, 4) and out.envelope.shape == (1, 64)
+modes = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_stride=2,
+                                       proto_head="subpixel"),
+                           load_flax_msgpack(path), (96, 128), calib,
+                           MeasureConfig().with_subcell_from(meta),
+                           RoiConfig(x_min=1, x_max=127, y_min=1, y_max=95), device="cpu",
+                           lazy_decode=True, fused_head=True, fold_bn=False, warp_block=32,
+                           maskstats_logits="f32")
+assert modes.process_batch(textile_frames(1, 96, 128)).boxes_frame.shape == (1, 200, 4)
 import os, random, tempfile
 from tti_torch.app.orchestrator import Orchestrator
 from tti_torch.app.sources import SyntheticSource
@@ -105,13 +113,15 @@ def test_port_sources_name_no_forbidden_module():
                          r"|tools\.measure_report|measure_report)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
     sources += [REPO / "chip_smoke.py", REPO / "tests" / "torch_scenes.py",
-                REPO / "tests" / "torch_synth.py", REPO / "tools" / "measure_report_torch.py"]
+                REPO / "tests" / "torch_synth.py"]
+    sources += sorted((REPO / "tools").glob("*_torch.py"))
     names = {p.name for p in sources}
-    assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "framering.cpp", "loop.py",
+    assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "nms.cu", "framering.cpp", "loop.py",
                                   "assigner.py", "augment.py", "__main__.py", "orchestrator.py",
                                   "predict.py", "eval.py", "database.py", "pnp.py",
                                   "charuco.py", "intrinsics.py", "torch_scenes.py",
-                                  "measure_report_torch.py"} <= names
+                                  "measure_report_torch.py", "step_syncs_torch.py",
+                                  "step_latency_torch.py", "fused_head_copies_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -8,6 +8,7 @@ import torch
 from tti.model.yolo import RawPredictions as JaxRaw
 from tti.postprocess import decode as jdec
 from tti.postprocess import nms as jnms
+from tti_torch.kernels import nms as knms
 from tti_torch.model.yolo import RawPredictions
 from tti_torch.postprocess import decode as tdec
 from tti_torch.postprocess import nms as tnms
@@ -75,7 +76,7 @@ def test_greedy_keep_set_matches_sequential_greedy():
     scores = probs[0].max(-1)
     order = np.argsort(-scores, kind="stable")
     order = order[scores[order] > 0.2]
-    iou = tnms.box_iou_matrix(torch.from_numpy(boxes[0])).numpy()
+    iou = knms.box_iou_matrix(torch.from_numpy(boxes[0])).numpy()
     kept = []
     for i in order:
         if all(iou[i, k] <= 0.3 for k in kept):
@@ -86,7 +87,7 @@ def test_greedy_keep_set_matches_sequential_greedy():
 
 def test_box_iou_matrix_matches():
     boxes = _nms_inputs(np.random.default_rng(3), b=1, a=50)[0][0]
-    np.testing.assert_allclose(tnms.box_iou_matrix(torch.from_numpy(boxes)).numpy(),
+    np.testing.assert_allclose(knms.box_iou_matrix(torch.from_numpy(boxes)).numpy(),
                                np.asarray(jnms.box_iou_matrix(jnp.asarray(boxes))), atol=1e-6)
 
 
@@ -103,23 +104,24 @@ def _chain(n, b=2):
 
 
 def test_nms_chain_longer_than_a_block_matches_tti():
-    """A suppression chain of 3 * SWEEPS_PER_CHECK boxes needs several blocks
-    of sweeps (counted with ``sweep`` alone); the keep set equals tti's
-    while_loop's exactly."""
-    n = 3 * tnms.SWEEPS_PER_CHECK
+    """A suppression chain of 48 boxes, longer than the four-sweep blocks the
+    step once read the host after, and than the sweeps a real frame takes:
+    the reference's sweep needs about one sweep per link (counted with
+    ``sweep`` alone); the keep set equals tti's while_loop's exactly."""
+    n = 48
     boxes, probs, coefs = _chain(n)
     kw = dict(conf_thresh=0.2, iou_thresh=0.25, max_det=n, pre_topk=n)
     t = [torch.from_numpy(a) for a in (boxes, probs, coefs)]
-    blocked = tnms.suppression_matrix(t[0], torch.zeros(2, n, dtype=torch.int32), 0.25)
+    blocked = knms.suppression_matrix(t[0], torch.zeros(2, n, dtype=torch.int32), 0.25)
     ok = torch.ones(2, n, dtype=torch.bool)
     keep, sweeps = ok, 0
     while True:
-        new = tnms.sweep(blocked, ok, keep)
+        new = knms.sweep(blocked, ok, keep)
         sweeps += 1
         if torch.equal(new, keep):
             break
         keep = new
-    assert sweeps > 2 * tnms.SWEEPS_PER_CHECK
+    assert sweeps > n // 2
     got = tnms.batched_nms(*t, **kw)
     ref = jnms.batched_nms(*(jnp.asarray(a) for a in (boxes, probs, coefs)), **kw)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))

@@ -89,3 +89,30 @@ def assert_outputs_match(got, ref, box_atol=1e-3, mm_atol=1e-3):
         sv = got.stitches.valid
         np.testing.assert_allclose(getattr(got.stitches, field)[sv],
                                    np.asarray(getattr(ref.stitches, field))[sv], atol=1e-3)
+
+
+# tti's runtime switches; a mode's test clears them all, then sets its own.
+SWITCHES = ("TTI_LAZY_DECODE", "TTI_FUSED_HEAD", "TTI_FOLDED_BN", "TTI_MASKSTATS_LOGITS",
+            "TTI_WARP_BLOCKED", "TTI_WARP_COLEXPAND", "TTI_REMAP", "TTI_REMAP_U8_DECIMATE",
+            "TTI_WARP_S2D", "TTI_APPROX_TOPK", "TTI_QUANT", "TTI_REMAP_SWAR",
+            "TTI_REMAP_SKIP_PAD_ROWS", "TTI_LETTERBOX_DECIMATE", "TTI_LETTERBOX_ROWSLICE")
+
+
+def mode_against_tti(geometry, env, port_kw, ref_intrinsics, monkeypatch, exact=True):
+    """One opt-in mode: tti's step with the switches ``env`` set (for the
+    whole test: tti reads some at construction, some at trace time) and the
+    port's with ``port_kw``, on the same frames, held to each other with
+    :func:`assert_outputs_match`; an ``exact`` mode's port step is also held
+    to the port's default step. Returns (port pipeline, port outputs)."""
+    for var in SWITCHES:
+        monkeypatch.delenv(var, raising=False)
+    default = pipelines(geometry, ref_intrinsics)[0] if exact else None
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    pipe, ref_pipe, frames = pipelines(geometry, ref_intrinsics, port_kw=port_kw)
+    got, ref = pipe.process_batch(frames), ref_pipe.process_batch(frames)
+    assert_outputs_match(got, ref)
+    assert got.valid.sum() >= 2 and np.isfinite(got.measurements.raw_width_mm).any()
+    if exact:
+        assert_outputs_match(got, default.process_batch(frames))
+    return pipe, got

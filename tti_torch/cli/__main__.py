@@ -17,9 +17,16 @@ a deploy checkpoint's params and batch stats). The calibration commands run
 on the host (numpy and OpenCV) and take no ``--device``. ``run`` on a camera
 first runs the startup calibration gate, as ``tti`` does, unless given
 ``--skip-calibration``. Configuration comes from the environment and ``.env``
-as in ``tti`` (:func:`tti_torch.core.config.load_config`). Refused, naming
-the ROADMAP item that ports them: ``train --host-aug`` and ``TTI_QUANT=int8``
-/ ``int8s`` (int8 inference).
+as in ``tti`` (:func:`tti_torch.core.config.load_config`); ``run`` and
+``check-model`` build their step under ``tti``'s runtime switches
+(``TTI_REMAP``, ``TTI_WARP_S2D``, ``TTI_WARP_BLOCKED``, ``TTI_WARP_COLEXPAND``,
+``TTI_LAZY_DECODE``, ``TTI_FUSED_HEAD``, ``TTI_FOLDED_BN``,
+``TTI_MASKSTATS_LOGITS``;
+:class:`tti_torch.core.config.RuntimeSwitches`), read from the environment
+and ``.env`` alike, and log once each switch of ``tti``'s that has no
+counterpart here. Refused, naming the reason or the ROADMAP item that ports
+them: ``train --host-aug``, ``TTI_QUANT`` (int8 inference) and
+``TTI_APPROX_TOPK=1``.
 """
 
 from __future__ import annotations
@@ -40,15 +47,44 @@ def _refuse(message: str) -> int:
     return 1
 
 
-def _refuses_quant() -> bool:
+def _refuses_quant(quant: str | None = None) -> bool:
     """``TTI_QUANT=int8``/``int8s`` asks for int8 inference, which the port
-    does not have: say so rather than serve bf16 in its place."""
-    quant = os.environ.get("TTI_QUANT", "")
+    does not have: say so rather than serve bf16 in its place (any other
+    value is an error in ``tti``). ``quant``: the value (None: the process
+    environment's, as ``eval`` reads it)."""
+    quant = os.environ.get("TTI_QUANT", "") if quant is None else quant
     if quant in ("int8", "int8s"):
         _refuse(f"TTI_QUANT={quant} is not ported: tti_torch has no int8 inference yet "
                 "(ROADMAP Queue 1 item 5, int8 inference). Unset TTI_QUANT.")
         return True
+    if quant:
+        _refuse(f"TTI_QUANT must be '', 'int8' or 'int8s', got {quant!r}")
+        return True
     return False
+
+
+def _refuses_switches(switches) -> bool:
+    """The runtime switches the port refuses: ``TTI_QUANT`` and
+    ``TTI_APPROX_TOPK=1``."""
+    if _refuses_quant(switches.quant):
+        return True
+    if switches.approx_topk:
+        _refuse("TTI_APPROX_TOPK=1 is not ported: it is the TPU's approximate top-k "
+                "(jax.lax.approx_max_k, a partial reduce at recall 0.99), which may miss "
+                "candidates; the card's exact stable top-k has no approximate form here. "
+                "Unset TTI_APPROX_TOPK.")
+        return True
+    return False
+
+
+def _log_no_counterpart(switches) -> None:
+    """Say that a set ``tti`` switch has no counterpart here (once per step
+    built: ``run`` and ``check-model`` build one)."""
+    from tti_torch.core.config import NO_COUNTERPART
+
+    for name in switches.no_counterpart:
+        log.info("%s has no counterpart in tti_torch and is not read: %s", name,
+                 NO_COUNTERPART[name])
 
 
 def _random_variables(model_cfg) -> dict:
@@ -79,7 +115,7 @@ def load_pipeline(cfg: AppConfig, frame_hw: tuple[int, int], calibration=None,
     """The inspection step for ``cfg`` (``tti``'s ``_load_pipeline``): the
     checkpoint ``cfg.model.weights`` with its sidecar's architecture and
     readout (``MeasureConfig.with_subcell_from``), or a random model when the
-    file does not exist."""
+    file does not exist, built under ``cfg.switches``."""
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
     from tti_torch.parallel.runtime import InspectionPipeline
 
@@ -96,9 +132,10 @@ def load_pipeline(cfg: AppConfig, frame_hw: tuple[int, int], calibration=None,
     else:
         log.warning("weights %r not found — using random init", weights)
         variables = _random_variables(cfg.model)
+    _log_no_counterpart(cfg.switches)
     return InspectionPipeline(cfg.model, variables, frame_hw, calibration=calibration,
                               measure_cfg=cfg.measure, roi=cfg.roi, device=device,
-                              return_masks=return_masks)
+                              return_masks=return_masks, **cfg.switches.pipeline_kwargs())
 
 
 def _load_calibration(cfg: AppConfig):
@@ -156,9 +193,9 @@ def cmd_run(args) -> int:
     from tti_torch.app.orchestrator import Orchestrator, run_startup_calibration
     from tti_torch.app.sources import DirectorySource, OpenCVCameraSource, SyntheticSource
 
-    if _refuses_quant():
-        return 1
     cfg = load_config(validate=not args.no_validate)
+    if _refuses_switches(cfg.switches):
+        return 1
     if args.cameras and args.cameras > 1:
         return _run_multistream(args, cfg)
     if args.images:
@@ -242,7 +279,8 @@ def _run_multistream(args, cfg: AppConfig) -> int:
 
 def cmd_check_model(args) -> int:
     """Headless segmentation check with annotated JPEG dumps."""
-    if _refuses_quant():
+    cfg = load_config(validate=False)
+    if _refuses_switches(cfg.switches):
         return 1
     try:
         import cv2
@@ -251,7 +289,6 @@ def cmd_check_model(args) -> int:
     from tti_torch.app.annotate import annotate_frame, overlay_masks
     from tti_torch.app.sources import DirectorySource, SyntheticSource
 
-    cfg = load_config(validate=False)
     if args.images:
         source = DirectorySource(args.images)
         frame_hw = _probe_hw(source)

@@ -4,9 +4,13 @@ the reference's environment names, a built-in ``.env`` parser, and
 validation as an explicit call. :func:`load_config` builds the tree from the
 process environment merged over a ``.env`` file (the file loses).
 
-Differences from the reference, both deliberate:
+Differences from the reference, all deliberate:
 - the runtime's switches (the reference's ``TTI_REMAP``, ``TTI_WARP_*`` and
-  the like) are ``InspectionPipeline`` arguments, and ``with_subcell_from``
+  the like), which the reference reads from the process environment where
+  it builds or traces its step, are parsed here by
+  :meth:`RuntimeSwitches.from_env`, from the same merged environment as
+  every other setting (so ``.env`` sets them too), carried by ``AppConfig``
+  and handed to ``InspectionPipeline`` as arguments; ``with_subcell_from``
   reads no environment;
 - the readout calibration offsets must be finite. The reference treats 0.0
   as "unset" and would carry a NaN offset from a sidecar into every
@@ -374,6 +378,73 @@ class RuntimeConfig:
     mesh_shape: tuple[int, ...] = ()  # the reference's device mesh; one card here
 
 
+# Reference switches with no counterpart in the port, and why; the CLI logs
+# each one that is set.
+NO_COUNTERPART = {
+    "TTI_INPUT_LAYOUT": "XLA's choice of the frames' device layout; PyTorch takes the frames "
+                        "as they are",
+    "TTI_MASKSTATS": "the choice among the TPU's mask-statistics routes; the port always runs "
+                     "kernels A and B",
+    "TTI_REMAP_SWAR": "the gather always blends with the SWAR integer lerp",
+    "TTI_REMAP_SKIP_PAD_ROWS": "the gather always skips the letterbox pad rows",
+    "TTI_LETTERBOX_DECIMATE": "the port's resize at an exact decimation gives the decimated "
+                              "pixels already",
+    "TTI_LETTERBOX_ROWSLICE": "a TPU layout choice of the resize; the values are the same",
+    "TTI_REMAP_U8_DECIMATE": "the gather always packs the decimated bytes at an exact "
+                             "decimation; the output is bit-identical to the float resize's",
+}
+
+
+@dataclass(frozen=True)
+class RuntimeSwitches:
+    """The reference's runtime switches, parsed as the reference parses them
+    (``tti/parallel/runtime.py``, ``tti/preprocess/remap.py``,
+    ``tti/kernels/maskstats.py``); :meth:`pipeline_kwargs` gives them to
+    ``InspectionPipeline``. ``approx_topk`` and ``quant`` have no port: the
+    CLI refuses them. ``no_counterpart`` lists the set names of
+    :data:`NO_COUNTERPART`."""
+
+    remap: str = "twopass"  # TTI_REMAP: twopass | packed
+    warp_s2d: bool = True  # TTI_WARP_S2D: on unless "0"
+    warp_block: int | None = None  # TTI_WARP_BLOCKED: "0" dense, else the block width
+    warp_col_expand: bool = False  # TTI_WARP_COLEXPAND=1
+    lazy_decode: bool = False  # TTI_LAZY_DECODE=1
+    fused_head: bool = False  # TTI_FUSED_HEAD=1
+    fold_bn: bool = True  # TTI_FOLDED_BN: on unless "0"
+    maskstats_logits: str = "auto"  # TTI_MASKSTATS_LOGITS: f32 | bf16, else auto
+    approx_topk: bool = False  # TTI_APPROX_TOPK=1
+    quant: str = ""  # TTI_QUANT
+    no_counterpart: tuple[str, ...] = ()
+
+    @staticmethod
+    def from_env(env: Mapping[str, str]) -> "RuntimeSwitches":
+        blocked = env.get("TTI_WARP_BLOCKED")
+        try:
+            block = (int(blocked) or None) if blocked else None
+        except ValueError:
+            raise ConfigError(f"TTI_WARP_BLOCKED must be an integer, got {blocked!r}") from None
+        logits = env.get("TTI_MASKSTATS_LOGITS")
+        return RuntimeSwitches(
+            remap=env.get("TTI_REMAP", "twopass"),
+            warp_s2d=env.get("TTI_WARP_S2D", "1") != "0",
+            warp_block=block,
+            warp_col_expand=env.get("TTI_WARP_COLEXPAND") == "1",
+            lazy_decode=env.get("TTI_LAZY_DECODE") == "1",
+            fused_head=env.get("TTI_FUSED_HEAD") == "1",
+            fold_bn=env.get("TTI_FOLDED_BN", "1") != "0",
+            maskstats_logits=logits if logits in ("f32", "bf16") else "auto",
+            approx_topk=env.get("TTI_APPROX_TOPK") == "1",
+            quant=env.get("TTI_QUANT", ""),
+            no_counterpart=tuple(name for name in NO_COUNTERPART if name in env),
+        )
+
+    def pipeline_kwargs(self) -> dict[str, Any]:
+        """The ``InspectionPipeline`` arguments these switches set."""
+        return {name: getattr(self, name) for name in (
+            "remap", "warp_s2d", "warp_block", "warp_col_expand", "lazy_decode", "fused_head",
+            "fold_bn", "maskstats_logits")}
+
+
 @dataclass(frozen=True)
 class AppConfig:
     """Top-level config tree."""
@@ -388,6 +459,7 @@ class AppConfig:
     database: DatabaseConfig = field(default_factory=DatabaseConfig)
     mqtt: MqttConfig = field(default_factory=MqttConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    switches: RuntimeSwitches = field(default_factory=RuntimeSwitches)
 
     def validate(self) -> "AppConfig":
         self.roi.validate(self.camera.width, self.camera.height)
@@ -416,5 +488,6 @@ def load_config(dotenv_path: str | None = ".env", env: Mapping[str, str] | None 
         serial=SerialConfig.from_env(merged),
         database=DatabaseConfig.from_env(merged),
         mqtt=MqttConfig.from_env(merged, device_id=merged.get("DB_TABLE")),
+        switches=RuntimeSwitches.from_env(merged),
     )
     return cfg.validate() if validate else cfg

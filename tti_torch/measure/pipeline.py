@@ -131,12 +131,14 @@ def prepare_frame_inputs(
     max_stats_dets: int = 64,
     subcell: bool = False,
     subcell_envelope: bool | None = None,
+    logits_dtype: torch.dtype | None = None,
 ) -> tuple[StitchSet, Tensor, Tensor, dict]:
     """Split classes, gate by ROI, reduce the mask statistics and build the
     stitch set and the fabric envelope, for (B, D) detections and (B, Hm, Wm,
     nm) protos. The top ``max_stats_dets`` rows (NMS emits them score-sorted)
     enter the statistics: kernel A (soft) when either readout is sub-cell,
-    else kernel B (binary). Returns (StitchSet (B, max_stitches),
+    else kernel B (binary), with mask logits in ``logits_dtype`` (None: the
+    reference's policy, bfloat16 soft and float32 binary). Returns (StitchSet (B, max_stitches),
     envelope (B, Wm) int32 rows, or float crossings when the envelope is
     sub-cell, fabric_any (B,), counts of (B,) int32 for budget telemetry)."""
     input_hw = (spec.dst_h, spec.dst_w)
@@ -160,8 +162,10 @@ def prepare_frame_inputs(
     env_subcell = subcell if subcell_envelope is None else subcell_envelope
     soft = subcell or env_subcell
     stats_fn = mask_stats_soft if soft else mask_stats_binary
+    if logits_dtype is None:
+        logits_dtype = torch.bfloat16 if soft else torch.float32
     stats = stats_fn(protos.contiguous(), dets.coefs.contiguous(), boxes_grid,
-                     in_roi.contiguous())
+                     in_roi.contiguous(), logits_dtype=logits_dtype)
     if env_subcell:
         envelope = torch.where(is_fabric[..., None], stats["bottom_sub"], -1.0).amax(1)
     else:

@@ -278,6 +278,39 @@ def stem_to_s2d(variables: Tree) -> Tree:
     return new_vars
 
 
+def fuse_head_entries(variables: Tree) -> Tree:
+    """Concatenate the three head branches' entry convs (``cv2_L_0``,
+    ``cv3_L_0``, ``cv4_L_0``, which read the same level feature map) into one
+    conv ``cvh_L`` with stacked output channels, kernels and BatchNorm
+    parameters and statistics alike (copy of the reference). Exact: three
+    convs on one input equal one conv with their filters stacked."""
+    params = dict(variables["params"])
+    stats = dict(variables["batch_stats"])
+    m22p = copy.deepcopy(dict(params["m22"]))
+    m22s = copy.deepcopy(dict(stats["m22"]))
+    for level in range(3):
+        branches = [f"cv2_{level}_0", f"cv3_{level}_0", f"cv4_{level}_0"]
+        cat = lambda tree, *keys: np.concatenate(
+            [np.asarray(_at(tree[b], keys)) for b in branches], axis=-1)
+        m22p[f"cvh_{level}"] = {
+            "conv": {"kernel": cat(m22p, "conv", "kernel")},
+            "bn": {key: cat(m22p, "bn", key) for key in ("scale", "bias")},
+        }
+        m22s[f"cvh_{level}"] = {"bn": {key: cat(m22s, "bn", key) for key in ("mean", "var")}}
+        for b in branches:
+            m22p.pop(b)
+            m22s.pop(b)
+    params["m22"] = m22p
+    stats["m22"] = m22s
+    return {"params": params, "batch_stats": stats}
+
+
+def _at(tree: Tree, keys: tuple[str, ...]) -> Any:
+    for key in keys:
+        tree = tree[key]
+    return tree
+
+
 def fold_batchnorm(variables: Tree) -> Tree:
     """Fold every Conv-block BatchNorm into its conv: W' = W*s/sqrt(v+eps),
     b' = beta - m*s/sqrt(v+eps), computed in float64 (copy of the

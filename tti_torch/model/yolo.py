@@ -72,40 +72,51 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class Segment(nn.Module):
-    """Decoupled Detect + mask-coefficient branches + shared Proto (m22)."""
+    """Decoupled Detect + mask-coefficient branches + shared Proto (m22).
+
+    ``fused_entry``: the three branches' first 3x3 convs, which read the
+    same level map, run as one conv ``cvh_{level}`` with their output
+    channels stacked (weights from
+    :func:`tti_torch.model.checkpoint.fuse_head_entries`), whose output is
+    sliced into the box, class and coefficient groups. Exact."""
 
     def __init__(self, nc: int = 2, nm: int = 32, npr: int = 64,
                  ch: tuple[int, int, int] = (64, 128, 256), mask_stride: int = 4,
-                 proto_head: str = "deconv", folded: bool = True) -> None:
+                 proto_head: str = "deconv", folded: bool = True,
+                 fused_entry: bool = False) -> None:
         super().__init__()
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
         c3 = max(ch[0], min(nc, 100))
         c4 = max(ch[0] // 4, nm)
+        self.split = (c2, c3, c4)
+        self.fused_entry = fused_entry
         f = folded
         self.proto = Proto(ch[0], npr, nm, ups={4: 1, 2: 2}[mask_stride],
                            subpixel=proto_head == "subpixel", folded=f)
         for level, c in enumerate(ch):
-            setattr(self, f"cv2_{level}_0", Conv(c, c2, 3, folded=f))
-            setattr(self, f"cv2_{level}_1", Conv(c2, c2, 3, folded=f))
-            setattr(self, f"cv2_{level}_2", Conv2d(c2, 4 * REG_MAX, 1))
-            setattr(self, f"cv3_{level}_0", Conv(c, c3, 3, folded=f))
-            setattr(self, f"cv3_{level}_1", Conv(c3, c3, 3, folded=f))
-            setattr(self, f"cv3_{level}_2", Conv2d(c3, nc, 1))
-            setattr(self, f"cv4_{level}_0", Conv(c, c4, 3, folded=f))
-            setattr(self, f"cv4_{level}_1", Conv(c4, c4, 3, folded=f))
-            setattr(self, f"cv4_{level}_2", Conv2d(c4, nm, 1))
+            if fused_entry:
+                setattr(self, f"cvh_{level}", Conv(c, c2 + c3 + c4, 3, folded=f))
+            for name, width, out in (("cv2", c2, 4 * REG_MAX), ("cv3", c3, nc), ("cv4", c4, nm)):
+                if not fused_entry:
+                    setattr(self, f"{name}_{level}_0", Conv(c, width, 3, folded=f))
+                setattr(self, f"{name}_{level}_1", Conv(width, width, 3, folded=f))
+                setattr(self, f"{name}_{level}_2", Conv2d(width, out, 1))
 
     def _branch(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
-        for j in range(3):
+        for j in (1, 2):
             x = getattr(self, f"{name}_{level}_{j}")(x)
         return _nhwc(x)
 
     def forward(self, feats: tuple[torch.Tensor, ...]) -> RawPredictions:
         box, cls, coef = [], [], []
         for level, x in enumerate(feats):
-            box.append(self._branch("cv2", level, x))
-            cls.append(self._branch("cv3", level, x))
-            coef.append(self._branch("cv4", level, x))
+            if self.fused_entry:  # channel slices of one conv (strided views)
+                entries = getattr(self, f"cvh_{level}")(x).split(self.split, dim=1)
+            else:
+                entries = [getattr(self, f"{name}_{level}_0")(x) for name in ("cv2", "cv3", "cv4")]
+            box.append(self._branch("cv2", level, entries[0]))
+            cls.append(self._branch("cv3", level, entries[1]))
+            coef.append(self._branch("cv4", level, entries[2]))
         return RawPredictions(box=tuple(box), cls=tuple(cls), mcoef=tuple(coef),
                               protos=_nhwc(self.proto(feats[0])))
 
@@ -134,14 +145,15 @@ class YOLOv8Seg(nn.Module):
     ``s2d_input``: with the s2d stem, the input is already (B, H/2, W/2, 12)
     blocked (the two-pass warp emits it that way); otherwise the model blocks
     it. ``folded_bn``: folded BatchNorm (inference) or BatchNorm with running
-    statistics (training). ``dtype``: the compute dtype the input is cast to
+    statistics (training). ``fused_head``: :class:`Segment`'s fused entry
+    convs. ``dtype``: the compute dtype the input is cast to
     (None: the parameters' dtype).
     """
 
     def __init__(self, variant: str = "n", nc: int = 2, nm: int = 32,
                  mask_stride: int = 4, proto_head: str = "deconv",
                  s2d_input: bool = True, s2d_stem: bool = True, folded_bn: bool = True,
-                 dtype: torch.dtype | None = None) -> None:
+                 dtype: torch.dtype | None = None, fused_head: bool = False) -> None:
         super().__init__()
         cc = model_channels(variant)
         n3, n6 = cc["depth3"], cc["depth6"]
@@ -169,7 +181,7 @@ class YOLOv8Seg(nn.Module):
         self.m19 = Conv(cc["c512"], cc["c512"], 3, 2, folded=f)
         self.m21 = C2f(cc["c512"] + cc["c1024"], cc["c1024"], n3, False, folded=f)
         self.m22 = Segment(nc, nm, cc["npr"], (cc["p3"], cc["p4"], cc["p5"]),
-                           mask_stride, proto_head, folded=f)
+                           mask_stride, proto_head, folded=f, fused_entry=fused_head)
 
     def forward(self, x: torch.Tensor) -> RawPredictions:
         dtype = self.dtype or next(self.parameters()).dtype
@@ -191,7 +203,8 @@ class YOLOv8Seg(nn.Module):
 
 def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int = 4,
                  proto_head: str = "deconv", s2d_input: bool = True, s2d_stem: bool = True,
-                 folded_bn: bool = True, dtype: torch.dtype | None = None) -> YOLOv8Seg:
+                 folded_bn: bool = True, dtype: torch.dtype | None = None,
+                 fused_head: bool = False) -> YOLOv8Seg:
     if variant not in SCALES:
         raise ValueError(f"unknown variant {variant!r}; choose from {sorted(SCALES)}")
     if mask_stride not in (2, 4):
@@ -199,7 +212,7 @@ def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int
     if proto_head not in ("deconv", "subpixel"):
         raise ValueError(f"proto_head must be 'deconv' or 'subpixel', got {proto_head!r}")
     return YOLOv8Seg(variant, nc, nm, mask_stride, proto_head, s2d_input, s2d_stem, folded_bn,
-                     dtype)
+                     dtype, fused_head)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

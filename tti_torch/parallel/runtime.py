@@ -6,14 +6,20 @@
     -> batched NMS -> mask statistics (CUDA kernels) -> envelope -> px->mm
 
 The reference's environment switches are constructor arguments here, at the
-reference's defaults: ``remap`` ("twopass"; "packed" is the gather, also the
-fallback for a vertically non-monotonic map), ``warp_s2d`` (the warp emits
-the blocked input and the model takes it) and ``warp_pass1`` ("einsum";
-"kernel" runs the fused CUDA pass-1 kernel at the point where the reference
-notes its parked TPU kernel). Fixed: s2d stem, folded BN, no fused head, no
-int8, no lazy decode, exact top-k, dense warp weights. When the frames are
-rectified, measurement runs with zero distortion and ``undistort_iters=0``:
-every pixel coordinate after the warp is already ideal.
+reference's defaults (:class:`tti_torch.core.config.RuntimeSwitches` parses
+them from the environment): ``remap`` ("twopass"; "packed" is the gather,
+also the fallback for a vertically non-monotonic map), ``warp_s2d`` (the
+warp emits the blocked input and the model takes it), ``warp_pass1``
+("einsum"; "kernel" runs the fused CUDA pass-1 kernel at the point where the
+reference notes its parked TPU kernel), ``warp_block`` and
+``warp_col_expand`` (the banded and the column-expanded two-pass warp),
+``lazy_decode``
+(DFL decode for the NMS candidates only), ``fused_head`` (one entry conv
+per head level), ``fold_bn`` and ``maskstats_logits`` (the mask-logit dtype
+of both readouts). Fixed: the s2d stem, no int8, exact top-k. When the
+frames are rectified, measurement runs with zero distortion and
+``undistort_iters=0``: every pixel coordinate after the warp is already
+ideal.
 
 Host-fed callers use ``process_batch_async`` + ``outputs_to_host``: the
 upload goes from a pinned buffer on a side stream, the step waits on the
@@ -32,25 +38,32 @@ import torch
 from tti_torch.calib.io import CalibrationData
 from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
 from tti_torch.core.errors import ConfigError
+from tti_torch.core.logging import get_logger
 from tti_torch.kernels.warp_p1 import warp_pass1_decimated
 from tti_torch.measure.pipeline import (
     CameraParams, FrameMeasurement, StitchSet, measure_frame, prepare_frame_inputs,
 )
-from tti_torch.model.checkpoint import fold_batchnorm, from_flax_variables, stem_to_s2d
+from tti_torch.model.checkpoint import (
+    fold_batchnorm, from_flax_variables, fuse_head_entries, stem_to_s2d,
+)
+from tti_torch.model.layers import BatchNorm
 from tti_torch.model.yolo import (
     RawPredictions, create_model, depth_to_space2, space_to_depth2,
 )
 from tti_torch.postprocess.decode import Detections, decode_predictions
 from tti_torch.postprocess.masks import assemble_masks
-from tti_torch.postprocess.nms import batched_nms
+from tti_torch.postprocess.nms import batched_nms, nms_from_raw, raw_candidate_counts
 from tti_torch.preprocess.letterbox import (
-    LetterboxSpec, decimation_stride, letterbox_content, letterbox_u8, make_letterbox_spec,
-    scale_boxes_to_frame,
+    LetterboxSpec, decimation_stride, letterbox_u8, make_letterbox_spec, scale_boxes_to_frame,
 )
 from tti_torch.preprocess.remap import (
     PackedRemap, build_small_undistort_map, letterbox_then_undistort,
 )
 from tti_torch.preprocess.warp2pass import TwoPassWarp
+
+log = get_logger("runtime")
+
+MASKSTATS_LOGITS = {"auto": None, "f32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclass
@@ -87,18 +100,30 @@ class PipelineOutputs:
 
 
 def inference_model(model_cfg: ModelConfig, variables: dict, device: torch.device,
-                    s2d_input: bool = True) -> torch.nn.Module:
+                    s2d_input: bool = True, fused_head: bool = False,
+                    fold_bn: bool = True) -> torch.nn.Module:
     """The checkpoint's flax tree (numpy leaves) -> the inference form the
-    port always runs: the space-to-depth stem and folded BatchNorm, in the
-    config's compute dtype, channels_last, on ``device``. ``s2d_input``: the
+    step serves: the space-to-depth stem, then (``fused_head``) the fused
+    head entries, then (``fold_bn``) folded BatchNorm, in the reference's
+    order; in the config's compute dtype, channels_last, on ``device``.
+    Unfolded, the BatchNorm layers keep float32 parameters and running
+    statistics and normalise with those (eval mode). ``s2d_input``: the
     model takes the (B, H/2, W/2, 12) blocked input (else it blocks itself)."""
-    state = from_flax_variables(fold_batchnorm(stem_to_s2d(variables)))
+    tree = stem_to_s2d(variables)
+    if fused_head:
+        tree = fuse_head_entries(tree)
+    if fold_bn:
+        tree = fold_batchnorm(tree)
+    state = from_flax_variables(tree)
     model = create_model(model_cfg.variant, nc=model_cfg.num_classes,
                          mask_stride=model_cfg.mask_stride, proto_head=model_cfg.proto_head,
-                         s2d_input=s2d_input)
+                         s2d_input=s2d_input, folded_bn=fold_bn, fused_head=fused_head)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
     model = model.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.float()
     return model.to(memory_format=torch.channels_last)
 
 
@@ -170,7 +195,19 @@ class InspectionPipeline:
     ``warp_s2d``: the two-pass warp emits the space-to-depth blocked input and
     the model skips its own blocking.
     ``warp_pass1``: "einsum" | "kernel" (the fused CUDA pass-1 kernel; needs
-    an exact decimation geometry and the two-pass warp).
+    an exact decimation geometry and the dense two-pass warp: kernel C reads
+    dense ``W1`` and decimates itself, so neither ``warp_block`` nor
+    ``warp_col_expand`` goes with it).
+    ``warp_block``: the two-pass warp's band width (None: dense weights).
+    ``warp_col_expand``: the two-pass warp resamples the columns of an exact
+    decimation in pass 1 and takes row-sliced frames; without an exact
+    decimation it has no effect (logged).
+    ``lazy_decode``: rank anchors by raw logit and decode DFL for the NMS
+    candidates only (:func:`nms_from_raw`).
+    ``fused_head``: one entry conv per head level. ``fold_bn``: serve folded
+    BatchNorm (False: BatchNorm with running statistics).
+    ``maskstats_logits``: "auto" (bf16 soft, f32 binary) | "f32" | "bf16",
+    the mask-logit dtype of both readouts.
     ``return_masks``: also return proto-resolution binary masks.
     """
 
@@ -180,11 +217,27 @@ class InspectionPipeline:
                  device: str | torch.device = "cuda", return_masks: bool = False,
                  undistort: bool = True, undistort_interp: str = "bilinear",
                  remap: str = "twopass", warp_s2d: bool = True,
-                 warp_pass1: str = "einsum") -> None:
+                 warp_pass1: str = "einsum", warp_block: int | None = None,
+                 warp_col_expand: bool = False, lazy_decode: bool = False,
+                 fused_head: bool = False, fold_bn: bool = True,
+                 maskstats_logits: str = "auto") -> None:
         if remap not in ("twopass", "packed"):
             raise ConfigError(f"remap must be 'twopass' or 'packed', got {remap!r}")
         if warp_pass1 not in ("einsum", "kernel"):
             raise ConfigError(f"warp_pass1 must be 'einsum' or 'kernel', got {warp_pass1!r}")
+        if maskstats_logits not in MASKSTATS_LOGITS:
+            raise ConfigError(f"maskstats_logits must be one of {sorted(MASKSTATS_LOGITS)}, "
+                              f"got {maskstats_logits!r}")
+        if warp_block is not None and warp_block < 1:
+            raise ConfigError(f"warp_block must be a positive width or None, got {warp_block}")
+        if warp_block is not None and warp_s2d and warp_block % 2:
+            # The reference's TwoPassWarp raises here and its runtime then
+            # serves the gather in its place; the port names the fault.
+            raise ConfigError(f"warp_block={warp_block}: the s2d-emitting warp needs an even "
+                              "block")
+        if warp_pass1 == "kernel" and (warp_block is not None or warp_col_expand):
+            raise ConfigError("warp_pass1='kernel' reads the dense pass-1 weights and decimates "
+                              "itself: it takes neither warp_block nor warp_col_expand")
         if undistort_interp not in ("bilinear", "nearest"):
             raise ConfigError(f"undistort_interp must be bilinear|nearest, got {undistort_interp!r}")
         self.device = torch.device(device)
@@ -193,11 +246,14 @@ class InspectionPipeline:
         self.frame_hw = frame_hw
         self.return_masks = return_masks
         self.warp_pass1 = warp_pass1
+        self.lazy_decode = lazy_decode
+        self.logits_dtype = MASKSTATS_LOGITS[maskstats_logits]
         self.spec: LetterboxSpec = make_letterbox_spec(
             frame_hw[0], frame_hw[1], model_cfg.image_size, model_cfg.letterbox)
         self.dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
 
-        self.model = inference_model(model_cfg, variables, self.device, s2d_input=warp_s2d)
+        self.model = inference_model(model_cfg, variables, self.device, s2d_input=warp_s2d,
+                                     fused_head=fused_head, fold_bn=fold_bn)
 
         self.roi_bounds: tuple[float, float, float, float] | None = None
         if roi is not None and roi.enabled:
@@ -213,7 +269,8 @@ class InspectionPipeline:
         if calibration is not None:
             self.cam = CameraParams.from_calibration(calibration, self.device)
             if undistort:
-                self.warp = self._build_warp(calibration, remap, undistort_interp, warp_s2d)
+                self.warp = self._build_warp(calibration, remap, undistort_interp, warp_s2d,
+                                             warp_block, warp_col_expand)
                 # Rectified frames: measure with zero distortion, no iterations.
                 self.cam = dataclasses.replace(self.cam, dist=torch.zeros_like(self.cam.dist))
                 self.measure_cfg = dataclasses.replace(self.measure_cfg, undistort_iters=0)
@@ -224,16 +281,29 @@ class InspectionPipeline:
                     f"{frame_hw} at imgsz {model_cfg.image_size} resizes by {self.spec.scale:g}")
             if not isinstance(self.warp, TwoPassWarp):
                 raise ConfigError("warp_pass1='kernel' needs a calibration and the two-pass warp")
+        two_pass = isinstance(self.warp, TwoPassWarp)
+        for name, asked, applies in (
+                ("warp_block", warp_block is not None, two_pass),
+                ("warp_col_expand", warp_col_expand,
+                 two_pass and decimation_stride(self.spec) is not None)):
+            if asked and not applies:
+                log.info("%s has no effect here: %s at imgsz %d runs %s", name, frame_hw,
+                         model_cfg.image_size, type(self.warp).__name__ if self.warp is not None
+                         else "no undistort warp")
         self._uploader: _Uploader | None = None
 
     def _build_warp(self, calibration: CalibrationData, remap: str, interp: str,
-                    warp_s2d: bool) -> TwoPassWarp | PackedRemap:
+                    warp_s2d: bool, block: int | None,
+                    col_expand: bool) -> TwoPassWarp | PackedRemap:
         small_map = build_small_undistort_map(calibration.K, calibration.dist, self.spec,
                                               unpadded_src=True)
         src_hw = (self.spec.new_h, self.spec.new_w)
         if remap == "twopass" and interp == "bilinear":
+            k = decimation_stride(self.spec)
+            col = (k, (k - 1) // 2, self.frame_hw[1]) if col_expand and k is not None else None
             try:
-                return TwoPassWarp(small_map, src_hw, s2d_out=warp_s2d, device=self.device)
+                return TwoPassWarp(small_map, src_hw, s2d_out=warp_s2d, device=self.device,
+                                   col_expand=col, block=block)
             except ValueError:  # non-monotonic vertical map: the gather takes it
                 pass
         return PackedRemap(small_map, src_hw, interp=interp, device=self.device)
@@ -252,7 +322,7 @@ class InspectionPipeline:
                                           pad_value=self.warp.pad_value)
                 out = self.warp.apply_pass2_ycbo(i1, self.dtype)
             else:
-                out = self.warp(letterbox_content(frames_u8, self.spec, self.dtype, decimate=True))
+                out = letterbox_then_undistort(frames_u8, self.spec, self.warp, self.dtype)
             return out  # blocked iff the model takes it so: both follow ``warp_s2d``
         if self.warp is not None:
             out = letterbox_then_undistort(frames_u8, self.spec, self.warp, self.dtype)
@@ -261,16 +331,20 @@ class InspectionPipeline:
         return space_to_depth2(out) if want_s2d else out
 
     def detect(self, raw: RawPredictions) -> tuple[Detections, dict]:
-        """Raw head outputs -> DFL decode -> NMS, with budget telemetry."""
+        """Raw head outputs -> DFL decode -> NMS (or, ``lazy_decode``, NMS on
+        raw logits with the candidates' decode), with budget telemetry."""
         mcfg = self.model_cfg
-        boxes, probs, coefs = decode_predictions(raw)
-        dets = batched_nms(boxes, probs, coefs, conf_thresh=mcfg.conf_thresh,
-                           iou_thresh=mcfg.iou_thresh, max_det=mcfg.max_detections,
-                           pre_topk=mcfg.nms_pre_topk)
-        telemetry = {
-            "n_candidates": (probs.amax(-1) > mcfg.conf_thresh).sum(-1).to(torch.int32),
-            "n_valid": dets.valid.sum(-1).to(torch.int32),
-        }
+        nms_kw = dict(conf_thresh=mcfg.conf_thresh, iou_thresh=mcfg.iou_thresh,
+                      max_det=mcfg.max_detections, pre_topk=mcfg.nms_pre_topk)
+        if self.lazy_decode:
+            dets = nms_from_raw(raw, **nms_kw)
+            n_candidates = raw_candidate_counts(raw, mcfg.conf_thresh)
+        else:
+            boxes, probs, coefs = decode_predictions(raw)
+            dets = batched_nms(boxes, probs, coefs, **nms_kw)
+            n_candidates = (probs.amax(-1) > mcfg.conf_thresh).sum(-1).to(torch.int32)
+        telemetry = {"n_candidates": n_candidates,
+                     "n_valid": dets.valid.sum(-1).to(torch.int32)}
         return dets, telemetry
 
     def measure(self, dets: Detections, protos: torch.Tensor) -> dict:
@@ -280,7 +354,8 @@ class InspectionPipeline:
         stitches, envelope, fabric_any, counts = prepare_frame_inputs(
             dets, protos, self.spec, mcfg.stitch_class_id, mcfg.fabric_class_id,
             self.roi_bounds, cfg.max_stitches, cfg.max_stats_dets,
-            subcell=bool(cfg.subcell_edge), subcell_envelope=cfg.envelope_subcell)
+            subcell=bool(cfg.subcell_edge), subcell_envelope=cfg.envelope_subcell,
+            logits_dtype=self.logits_dtype)
         return {"measurements": measure_frame(stitches, envelope, fabric_any, self.cam,
                                               self.spec, cfg),
                 "stitches": stitches, "envelope": envelope, "counts": counts}
@@ -373,9 +448,11 @@ class DualPipeline:
             # secondary's own geometry would then give wrong millimetres.
             raise ValueError("dual rectified pipelines must share one calibration (K/dist): "
                              "the undistorted batch is produced with the primary's warp")
+        mode = lambda w: (w.s2d_out, w.block, w.col_expand)
         if (isinstance(primary.warp, TwoPassWarp) and isinstance(secondary.warp, TwoPassWarp)
-                and primary.warp.s2d_out == secondary.warp.s2d_out):
-            # Same lens, geometry and blocking: identical weights. Only the
+                and mode(primary.warp) == mode(secondary.warp)):
+            # Same lens, geometry, blocking, bands and column expansion:
+            # identical weights. Only the
             # primary's preprocess runs here, so the secondary's copy is
             # dropped (and freed) and its standalone step shares this one.
             secondary.warp = primary.warp

@@ -2,11 +2,13 @@
 
 1. per-anchor best class; strict ``> conf_thresh`` candidate filter,
 2. top ``pre_topk`` candidates by score,
-3. one K x K class-masked IoU matrix,
-4. exact greedy suppression as a fixed-point sweep (the greedy keep-set is
-   the unique fixed point; chains are short, so few sweeps run), in blocks
-   of ``SWEEPS_PER_CHECK`` sweeps with one host read per block,
-5. the top ``max_det`` survivors, padded with valid=False rows.
+3. the exact greedy keep-set of the K score-sorted candidates
+   (:func:`tti_torch.kernels.nms.greedy_keep`, kernel D on the card: the
+   reference's device ``while_loop``, with no read back to the host),
+4. the top ``max_det`` survivors, padded with valid=False rows.
+
+:func:`nms_from_raw` is the reference's lazy decode: it ranks anchors by
+their raw class logit and decodes DFL boxes for the K candidates only.
 
 Every ranking is a stable descending sort, so ties keep the lower index
 first, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie order).
@@ -14,23 +16,16 @@ first, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie order).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from tti_torch.postprocess.decode import Detections
+from tti_torch.kernels.nms import greedy_keep
+from tti_torch.postprocess.decode import (
+    Detections, dfl_expectation, flatten_predictions, make_anchors,
+)
 
 Tensor = torch.Tensor
-
-
-def box_iou_matrix(boxes: Tensor) -> Tensor:
-    """Pairwise IoU of (..., K, 4) xyxy boxes -> (..., K, K)."""
-    area = (torch.clamp(boxes[..., 2] - boxes[..., 0], min=0.0)
-            * torch.clamp(boxes[..., 3] - boxes[..., 1], min=0.0))
-    lt = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
-    rb = torch.minimum(boxes[..., :, None, 2:], boxes[..., None, :, 2:])
-    wh = torch.clamp(rb - lt, min=0.0)
-    inter = wh[..., 0] * wh[..., 1]
-    union = area[..., :, None] + area[..., None, :] - inter
-    return inter / torch.clamp(union, min=1e-9)
 
 
 def stable_topk(values: Tensor, k: int) -> tuple[Tensor, Tensor]:
@@ -44,50 +39,12 @@ def _gather_rows(a: Tensor, idx: Tensor) -> Tensor:
     return a[torch.arange(a.shape[0], device=a.device)[:, None], idx]
 
 
-# Sweeps run in blocks of this many, with one host read after each block
-# (``torch.equal`` waits for the device): one read per step where a read per
-# sweep stalled the host at every sweep. A sweep applied to the fixed point
-# returns it unchanged, so a sweep past it costs only its few small kernels.
-# The seeded frames of the deploy and headline configurations reach the fixed
-# point in 2 sweeps (the confirming one included) at batch 1 and 128
-# (``chip_smoke.py`` prints the counts); 4 leaves room for chains twice as
-# long, so a step reads the host once.
-SWEEPS_PER_CHECK = 4
-
-
-def suppression_matrix(cand_boxes: Tensor, cand_classes: Tensor, iou_thresh: float,
-                       class_aware: bool = True) -> Tensor:
-    """(B, K, K) bool: [b, i, j] when candidate j outranks i and overlaps it."""
-    k = cand_boxes.shape[1]
-    iou = box_iou_matrix(cand_boxes)
-    if class_aware:
-        iou = torch.where(cand_classes[:, :, None] == cand_classes[:, None, :], iou, 0.0)
-    tri = torch.ones(k, k, dtype=torch.bool, device=iou.device).tril(-1)  # j < i
-    return (iou > iou_thresh) & tri
-
-
-def sweep(blocked_by: Tensor, cand_ok: Tensor, keep: Tensor) -> Tensor:
-    """keep_i <- ok_i & no kept higher-ranked box overlaps i."""
-    return cand_ok & ~(blocked_by & keep[:, None, :]).any(-1)
-
-
 def greedy_suppress(cand_boxes: Tensor, top_scores: Tensor, cand_classes: Tensor,
                     cand_coefs: Tensor, cand_ok: Tensor, iou_thresh: float,
                     max_det: int, class_aware: bool = True) -> Detections:
     """Greedy NMS over score-sorted (B, K) candidates -> (B, max_det) rows."""
     k = cand_boxes.shape[1]
-    blocked_by = suppression_matrix(cand_boxes, cand_classes, iou_thresh, class_aware)
-    # Sweep to the fixed point, at most k sweeps as tti's while_loop (position
-    # i is final after at most i sweeps); the block ends at a fixed point when
-    # its last sweep changed nothing.
-    keep, done = cand_ok, 0
-    while done < k:
-        for _ in range(min(SWEEPS_PER_CHECK, k - done)):
-            prev, keep = keep, sweep(blocked_by, cand_ok, keep)
-            done += 1
-        if torch.equal(prev, keep):
-            break
-
+    keep = greedy_keep(cand_boxes, cand_classes, cand_ok, iou_thresh, class_aware)
     k_out = min(max_det, k)
     out_scores, order = stable_topk(torch.where(keep, top_scores, -1.0), k_out)
     if k_out < max_det:
@@ -118,3 +75,45 @@ def batched_nms(boxes: Tensor, probs: Tensor, coefs: Tensor, conf_thresh: float 
         _gather_rows(boxes, top_idx), top_scores,
         _gather_rows(classes_all.to(torch.int32), top_idx),
         _gather_rows(coefs, top_idx), top_scores > 0.0, iou_thresh, max_det, class_aware)
+
+
+def _logit_threshold(conf_thresh: float) -> float:
+    """``logit(conf_thresh)``, +-inf outside (0, 1): sigmoid is strictly
+    monotonic, so ``logit > this`` selects what ``sigmoid(logit) >
+    conf_thresh`` selects."""
+    if 0.0 < conf_thresh < 1.0:
+        return math.log(conf_thresh / (1.0 - conf_thresh))
+    return -math.inf if conf_thresh <= 0.0 else math.inf
+
+
+def raw_candidate_counts(raw, conf_thresh: float) -> Tensor:
+    """(B,) int32: the anchors whose best class logit clears
+    ``logit(conf_thresh)``, the budget telemetry of the fixed ``pre_topk``."""
+    _, cls_l, _, _ = flatten_predictions(raw)
+    best = cls_l.float().amax(-1)
+    return (best > _logit_threshold(conf_thresh)).sum(-1).to(torch.int32)
+
+
+def nms_from_raw(raw, conf_thresh: float = 0.20, iou_thresh: float = 0.25, max_det: int = 200,
+                 pre_topk: int = 512, class_aware: bool = True) -> Detections:
+    """Lazy decode + NMS: rank anchors by their best raw class logit (in
+    float32, against ``logit(conf_thresh)``), take the stable top
+    ``pre_topk``, and decode DFL boxes only for those rows. Equal to
+    ``decode_predictions`` + :func:`batched_nms`: sigmoid is monotonic, and
+    the DFL expectation is per anchor."""
+    box_l, cls_l, coef_l, level_hw = flatten_predictions(raw)
+    anchors, stride_pa = make_anchors(level_hw, device=box_l.device)
+    best_logit = cls_l.amax(-1).float()
+    classes_all = cls_l.argmax(-1).to(torch.int32)
+    ranked = torch.where(best_logit > _logit_threshold(conf_thresh), best_logit, -math.inf)
+    k = min(pre_topk, ranked.shape[1])
+    top_logits, top_idx = stable_topk(ranked, k)
+    cand_ok = torch.isfinite(top_logits)
+    top_scores = torch.where(cand_ok, torch.sigmoid(top_logits), -1.0)
+    ltrb = dfl_expectation(_gather_rows(box_l, top_idx)) * stride_pa[top_idx][..., None]
+    cx, cy = anchors[top_idx, 0], anchors[top_idx, 1]
+    cand_boxes = torch.stack([cx - ltrb[..., 0], cy - ltrb[..., 1],
+                              cx + ltrb[..., 2], cy + ltrb[..., 3]], dim=-1)
+    return greedy_suppress(cand_boxes, top_scores, _gather_rows(classes_all, top_idx),
+                           _gather_rows(coef_l, top_idx).float(), cand_ok, iou_thresh,
+                           max_det, class_aware)

@@ -7,9 +7,12 @@ distortion model in float32, as the reference evaluates it, so that both
 packages sample at the same positions bit for bit. The runtime's
 default is the two-pass warp (``warp2pass.TwoPassWarp``); ``PackedRemap`` is
 the gather it falls back to when the vertical map is not monotonic, or on
-request. The reference's environment switches are fixed at its defaults:
-pad rows are skipped, the bilinear blend is the SWAR integer one, and the
-u8-decimating pack is not used by :func:`letterbox_then_undistort`.
+request. The reference's ``TTI_REMAP_SKIP_PAD_ROWS`` and ``TTI_REMAP_SWAR``
+are fixed at their defaults (pad rows are skipped, the bilinear blend is
+the SWAR integer one), and so is ``TTI_REMAP_U8_DECIMATE``, on here: at an
+exact decimation the gather packs the decimated bytes straight from the
+frames (:meth:`PackedRemap.pack_decimated_u8`), bit-identical to the float
+resize it skips.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from tti_torch.calib.geometry import distort_points
 from tti_torch.preprocess.letterbox import (
-    PAD_VALUE, LetterboxSpec, letterbox_content, letterbox_u8,
+    PAD_VALUE, LetterboxSpec, bgr_to_rgb, decimation_stride, letterbox_content, letterbox_u8,
+    normalize,
 )
 
 Tensor = torch.Tensor
@@ -207,16 +211,28 @@ class PackedRemap:
 def letterbox_then_undistort(frames_bgr_u8: Tensor, spec: LetterboxSpec, small_remap,
                              dtype: torch.dtype = torch.float32) -> Tensor:
     """Two-stage preprocess: flip + normalize + letterbox (with the exact
-    decimation), then the small-operand undistort: a ``TwoPassWarp``, a
-    ``PackedRemap`` (over the unpadded content when it was built with
-    ``unpadded_src=True``), or a raw map array through
-    :func:`remap_bilinear`."""
+    decimation), then the small-operand undistort: a ``TwoPassWarp`` (a
+    column-expanded one takes row-sliced full-width frames and resamples the
+    columns in pass 1), a ``PackedRemap`` (over the unpadded content when it
+    was built with ``unpadded_src=True``), or a raw map array through
+    :func:`remap_bilinear`. At an exact integer decimation the
+    ``PackedRemap`` packs the decimated bytes straight from the frames, with
+    no float resize (bit-identical)."""
     from tti_torch.preprocess.warp2pass import TwoPassWarp
 
     if isinstance(small_remap, TwoPassWarp):
+        if small_remap.col_expand is not None:
+            k, off, _ = small_remap.col_expand
+            rows = frames_bgr_u8[:, off::k, :, :][:, :spec.new_h]
+            return small_remap(normalize(bgr_to_rgb(rows), dtype))
         return small_remap(letterbox_content(frames_bgr_u8, spec, dtype, decimate=True))
     if isinstance(small_remap, PackedRemap):
         if small_remap.src_hw == (spec.new_h, spec.new_w):
+            k = decimation_stride(spec)
+            if k is not None:
+                off = (k - 1) // 2
+                return small_remap.apply_packed(
+                    small_remap.pack_decimated_u8(frames_bgr_u8, off, off, k), dtype)
             return small_remap(letterbox_content(frames_bgr_u8, spec, dtype))
         return small_remap(letterbox_u8(frames_bgr_u8, spec, dtype))
     return remap_bilinear(letterbox_u8(frames_bgr_u8, spec, dtype), small_remap)

@@ -1,5 +1,5 @@
-"""The undistort remap as two separable dense matmuls (port of
-``tti.preprocess.warp2pass.TwoPassWarp``, dense mode).
+"""The undistort remap as two separable matmuls (port of
+``tti.preprocess.warp2pass.TwoPassWarp``).
 
   pass 1 (horizontal): I1[y, xo]  = sum_w  src[y, w] * W1[y, w, xo]
   pass 2 (vertical):   out[v, xo] = sum_y  I1[y, xo] * W2[xo, v, y]
@@ -9,6 +9,13 @@ large products left to cuBLAS, as the reference left them to XLA. The input
 is shifted by the pad value so zero-weight rows resolve to the border color.
 ``s2d_out`` emits the frame space-to-depth blocked (B, H/2, W/2, 4C) with the
 letterbox row padding folded into zero weight rows.
+
+Two exact options of the reference: ``block`` slices both weight matrices
+into bands (per block of output columns, pass 1 keeps the source columns
+its kernels touch; per block of output rows, pass 2 keeps the source rows),
+so the zeros outside the band are neither stored nor read; ``col_expand``
+scatters pass 1's kernels onto the full-resolution columns of an exact
+integer decimation, so pass 1 takes row-sliced full-width frames.
 
 The shift back is part of pass 2, so that the result is rounded once, as the
 reference adds the pad to its float32 accumulator: ``W2`` carries
@@ -49,7 +56,13 @@ class TwoPassWarp:
     def __init__(self, map_xy: np.ndarray, src_hw: tuple[int, int],
                  pad_value: float = PAD_VALUE / 255.0, s2d_out: bool = False,
                  device: str | torch.device = "cuda",
-                 weight_dtype: torch.dtype | None = None) -> None:
+                 weight_dtype: torch.dtype | None = None,
+                 col_expand: tuple[int, int, int] | None = None,
+                 block: int | None = None) -> None:
+        """``col_expand=(k, off, full_w)``: pass 1 samples full-resolution
+        column ``off + k * c`` for content column c, from (B, hs, full_w, C)
+        row-sliced frames. ``block``: the band width in output columns
+        (pass 1) and output rows (pass 2); even with ``s2d_out``."""
         device = torch.device(device)
         if weight_dtype is None:
             # bf16 weights on the card (8 mantissa bits, as the reference's
@@ -104,54 +117,117 @@ class TwoPassWarp:
             ok = (tap >= 0) & (tap < hs) & ~sent
             np.add.at(w2, (vcols[ok], vrows[ok], tap[ok]), wgt[ok])
 
+        self.col_expand = col_expand
+        if col_expand is not None:
+            k, off, full_w = col_expand
+            w1_full = np.zeros((hs, full_w, wo), np.float32)
+            w1_full[:, off:off + k * ws:k, :] = w1
+            w1 = w1_full
+
         self.s2d_out = s2d_out
         if s2d_out:
             if dst_h % 2 or wo % 2:
                 raise ValueError("s2d_out requires even dst dims")
             w2_full = np.zeros((wo, dst_h, hs), np.float32)
             w2_full[:, self.row_start:self.row_stop] = w2
-            w2 = w2_full.reshape(wo // 2, 2, dst_h // 2, 2, hs)  # (o2, do, v2, dv, y)
-        self.w1 = torch.from_numpy(w1).to(device=device, dtype=weight_dtype)
-        # (..., hs + PAD_ROWS): the warp's weights, then the pad's terms on
-        # every output row (a zero-weight row resolves to the pad), then zeros.
-        self.w2 = torch.zeros((*w2.shape[:-1], hs + PAD_ROWS), dtype=weight_dtype, device=device)
-        self.w2[..., :hs] = torch.from_numpy(w2).to(device=device, dtype=weight_dtype)
-        for i, term in enumerate(split_exactly(self.pad_value, weight_dtype)):
-            self.w2[..., hs + i] = term
+            w2 = w2_full
+        self.block = block
+        self.pad_terms = split_exactly(self.pad_value, weight_dtype)
+        # Copied in float32, rounded to the weight type on the device.
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device).to(weight_dtype)
+        if block is not None:
+            if s2d_out and block % 2:
+                raise ValueError("s2d_out blocked mode needs an even block")
+            self.w1 = self.w2 = None
+            # Each band's window starts at a multiple of 16, as the reference's.
+            self.w1_blocks = []  # (first source column, (hs, columns, block))
+            for o0 in range(0, wo, block):
+                blk = w1[:, :, o0:o0 + block]
+                c0, c1 = _live_window(np.any(blk != 0.0, axis=(0, 2)))
+                self.w1_blocks.append((c0, to_dev(blk[:, c0:c1])))
+            self.w2_blocks = []  # (first source row, weights + PAD_ROWS pad columns)
+            for v0 in range(0, w2.shape[1], block):
+                blk = w2[:, v0:v0 + block, :]
+                y0, y1 = _live_window(np.any(blk != 0.0, axis=(0, 1)))
+                self.w2_blocks.append((y0, self._with_pad_terms(to_dev(blk[:, :, y0:y1]))))
+            return
+        self.w1 = to_dev(w1)
+        self.w2 = self._with_pad_terms(to_dev(w2))
+
+    def _with_pad_terms(self, w2: torch.Tensor) -> torch.Tensor:
+        """(..., y) pass-2 weights -> (..., y + PAD_ROWS): the warp's weights,
+        then the pad's terms on every output row (a zero-weight row resolves
+        to the pad), then zeros; in ``s2d_out`` mode reshaped to (o2, do,
+        v2, dv, y + PAD_ROWS)."""
+        out = w2.new_zeros((*w2.shape[:-1], w2.shape[-1] + PAD_ROWS))
+        out[..., :w2.shape[-1]] = w2
+        for i, term in enumerate(self.pad_terms):
+            out[..., w2.shape[-1] + i] = term
+        if self.s2d_out:
+            o, v, y = out.shape
+            out = out.reshape(o // 2, 2, v // 2, 2, y)
+        return out
+
+    @property
+    def weight_bytes(self) -> int:
+        """Bytes of warp weights one step reads."""
+        ws = ([self.w1, self.w2] if self.block is None
+              else [w for _, w in self.w1_blocks + self.w2_blocks])
+        return sum(w.numel() * w.element_size() for w in ws)
 
     def apply(self, content: torch.Tensor) -> torch.Tensor:
-        """(B, hs, ws, C) content -> (B, dst_h, dst_w, C) warped + padded, or
+        """(B, hs, ws, C) content (or (B, hs, full_w, C) rows with
+        ``col_expand``) -> (B, dst_h, dst_w, C) warped + padded, or
         (B, dst_h/2, dst_w/2, 4C) blocked in ``s2d_out`` mode."""
-        wdt = self.w1.dtype
+        wdt = (self.w1 if self.block is None else self.w1_blocks[0][1]).dtype
         x = content.to(wdt) - torch.tensor(self.pad_value, dtype=wdt)
         b, hs, ws, c = x.shape
-        # Pass 1 (the einsum "bywc,ywo->byoc" as the batched product it is)
-        # written straight above the rows of ones: (hs + PAD_ROWS, b, c, wo).
+        # Pass 1 is the einsum "bywc,ywo->byoc" as the batched product it is.
+        xr = x.permute(1, 0, 3, 2).reshape(hs, b * c, ws)
+        if self.block is not None:
+            i1 = torch.cat([torch.bmm(xr[..., c0:c0 + w.shape[1]], w)
+                            for c0, w in self.w1_blocks], dim=-1)
+            return self._pass2_blocked(i1.view(hs, b, c, -1).permute(1, 0, 3, 2), content.dtype)
+        # Written straight above the rows of ones: (hs + PAD_ROWS, b, c, wo).
         buf = x.new_empty(hs + PAD_ROWS, b, c, self.w1.shape[2])
         buf[hs:] = 1.0
-        torch.bmm(x.permute(1, 0, 3, 2).reshape(hs, b * c, ws), self.w1,
-                  out=buf[:hs].view(hs, b * c, -1))
+        torch.bmm(xr, self.w1, out=buf[:hs].view(hs, b * c, -1))
         return self._pass2(buf.permute(1, 0, 3, 2), content.dtype)
 
     def apply_pass2(self, i1: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
         """Pass 2 over the pass-1 intermediate in (b, y, o, c) layout."""
+        if self.block is not None:
+            return self._pass2_blocked(i1, out_dtype)
         return self._pass2(_with_ones(i1, 1), out_dtype)
 
-    def _pass2(self, i1: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-        """Pass 2 over (b, hs + PAD_ROWS, o, c): the intermediate, then ones."""
+    def _pass2(self, i1: torch.Tensor, out_dtype: torch.dtype, w2: torch.Tensor | None = None,
+               finish: bool = True) -> torch.Tensor:
+        """Pass 2 over (b, y + PAD_ROWS, o, c): the intermediate, then ones."""
+        w2 = self.w2 if w2 is None else w2
         if self.s2d_out:
             i1 = i1.reshape(i1.shape[0], i1.shape[1], -1, 2, i1.shape[3])
-            out = torch.einsum("byodc,odvey->bvoedc", i1, self.w2)
+            out = torch.einsum("byodc,odvey->bvoedc", i1, w2)
         else:
-            out = torch.einsum("byoc,ovy->bvoc", i1, self.w2)
-        return self._finish(out, out_dtype)
+            out = torch.einsum("byoc,ovy->bvoc", i1, w2)
+        return self._finish(out, out_dtype) if finish else out
+
+    def _pass2_blocked(self, i1: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        """Pass 2 band by band over (b, hs, o, c): each band's source-row
+        window, then the rows of ones, against the band's weights."""
+        ones = i1.new_ones((i1.shape[0], PAD_ROWS, *i1.shape[2:]))
+        outs = [self._pass2(torch.cat([i1[:, y0:y0 + w.shape[-1] - PAD_ROWS], ones], dim=1),
+                            out_dtype, w, finish=False)
+                for y0, w in self.w2_blocks]
+        return self._finish(torch.cat(outs, dim=1), out_dtype)
 
     def apply_pass2_ycbo(self, i1: torch.Tensor, out_dtype: torch.dtype | None = None
                          ) -> torch.Tensor:
         """Pass 2 over a pass-1 intermediate in (y, c, b, o) layout, which is
         what :func:`tti_torch.kernels.warp_p1.warp_pass1_decimated` emits:
         the same product as :meth:`apply_pass2` with the free dimensions
-        (c, b) in place of (b, c)."""
+        (c, b) in place of (b, c). Dense weights only, as the reference."""
+        if self.block is not None:
+            raise NotImplementedError("pass-2-from-i1 requires dense weights")
         out_dtype = out_dtype or i1.dtype
         i1 = _with_ones(i1.to(self.w2.dtype), 0)
         if self.s2d_out:
@@ -173,6 +249,15 @@ class TwoPassWarp:
             out, (0, 0, 0, 0, self.row_start, dst_h - self.row_stop), value=self.pad_value)
 
     __call__ = apply
+
+
+def _live_window(live: np.ndarray) -> tuple[int, int]:
+    """[start, stop) of the True entries of ``live``, the start rounded down
+    to a multiple of 16; (0, 16) (clipped) when there are none."""
+    idx = np.nonzero(live)[0]
+    if idx.size == 0:
+        return 0, min(16, live.size)
+    return (int(idx.min()) // 16) * 16, int(idx.max()) + 1
 
 
 def _with_ones(i1: torch.Tensor, dim: int) -> torch.Tensor:
