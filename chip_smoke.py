@@ -16,7 +16,8 @@ exits non-zero without printing the final result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tti_torch/kernels/csrc`` (mask statistics,
-   warp pass 1, greedy NMS) into ``build/``, one nvcc process each, started
+   warp pass 1, greedy NMS, the int8 convolution and activation scale) into
+   ``build/``, one nvcc process each, started
    together, and the C++ frame ring (g++), with the build time and ptxas'
    register report;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -64,6 +65,35 @@ exits non-zero without printing the final result line:
    detection counts equal on most frames and mm within the kernel route's
    limits, frames/s and batch-1 p50 beside the reference step's; the
    phase's wall time;
+5c. int8 inference (``TTI_QUANT``; kernels E and F, ``csrc/int8conv.cu``):
+   ``tools/calibrate_int8_torch.py --synth 16`` for both checkpoints (imgsz
+   960 and 640) in subprocesses, while E and F are held to their plain
+   versions on synthetic cases (the plain stem, ci 3; the s2d stem, ci 12;
+   3x3 and 1x1 shapes; K = 2304; a C2f channel slice whose other channels F
+   must not see; an all-zero input, F's 1e-12 floor; an accumulator above
+   2^24; the codes alone through identity 1x1 weights; bf16 and float32;
+   per-sample and static scales): F bit-equal, E bit-equal before SiLU and
+   within 1 ulp after, every call launched twice with equal outputs. Then
+   the deploy and headline steps under ``quant="int8"`` and ``"int8s"`` at
+   batch 128: E 66 launches per step, F 66 (int8) or 0 (int8s), A or B and
+   D once; no synchronising call at batch 128 and 1; equal to the same step
+   with the plain versions bound (detections equal, mm within 0.01);
+   ``tti``'s detection contract (``tests/test_quantize.py``: every float
+   detection with score > 0.4 has an int8 one of its class at IoU > 0.9),
+   against the bf16 step and in float32 at batch 8: every detection kept at
+   IoU > 0.8 and at most 10% of them below 0.9, the lowest printed
+   (``tti``'s own int8 misses 0.9 for 2 of 46 at the headline; see
+   ``INT8_IOU_FLOOR``); E and F against their plain versions on the input
+   of every block of one batch-128 int8 forward and of the headline int8s
+   forward on the batch's 8 distinct frames; frames/s and batch-1 p50 in
+   turns with the bf16 step; the mm report's first 16 scenes through the deploy int8 and int8s steps
+   under phase 8's gate; E's time on the deploy step's largest blocks
+   beside its bound, cuDNN's bf16 convolution and (1x1) ``torch._int_mm``,
+   F's beside its bound; the contract exactly (every detection at IoU >
+   0.9) on ``tti``'s own scene (the test's: the mm report's seed-7 scene,
+   imgsz 640, float32), int8 and int8s; ``TTI_QUANT=int8 python -m tti_torch.cli run
+   --synthetic --max-frames 2 --skip-calibration`` in a subprocess (exit 0,
+   two records); the phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -860,32 +890,41 @@ def stats_route(soft_fn, binary_fn):
 @contextlib.contextmanager
 def plain_routes(ms, wp):
     """Bind every kernel's plain version in the kernel's place."""
+    import tti_torch.model.layers as layers
     import tti_torch.parallel.runtime as rt
     import tti_torch.postprocess.nms as nms
+    from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import nms as nk
 
-    saved = rt.warp_pass1_decimated, nms.greedy_keep
+    saved = (rt.warp_pass1_decimated, nms.greedy_keep, layers.int8_conv2d,
+             layers.act_scale_per_sample)
     rt.warp_pass1_decimated = wp.warp_pass1_decimated_plain
     nms.greedy_keep = nk.greedy_keep_plain
+    layers.int8_conv2d = ik.int8_conv2d_plain
+    layers.act_scale_per_sample = ik.act_scale_per_sample_plain
     try:
         with stats_route(ms.mask_stats_soft_plain, ms.mask_stats_binary_plain):
             yield
     finally:
-        rt.warp_pass1_decimated, nms.greedy_keep = saved
+        (rt.warp_pass1_decimated, nms.greedy_keep, layers.int8_conv2d,
+         layers.act_scale_per_sample) = saved
 
 
 def reset_launch_counts(ms, wp) -> None:
+    from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import nms as nk
 
     ms.reset_launch_counts()
     wp.reset_launch_counts()
     nk.reset_launch_counts()
+    ik.reset_launch_counts()
 
 
 def launch_counts(ms, wp) -> dict:
+    from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import nms as nk
 
-    return {**ms.LAUNCHES, **wp.LAUNCHES, **nk.LAUNCHES}
+    return {**ms.LAUNCHES, **wp.LAUNCHES, **nk.LAUNCHES, **ik.LAUNCHES}
 
 
 def capture_stats_inputs(ms, pipe, frames) -> tuple:
@@ -942,7 +981,7 @@ def bench_roi(frame_hw):
                      y_max=h - min(200, h // 5))
 
 
-def build_pipeline(torch, frame_hw, imgsz, ckpt, dtype="bfloat16", **kw):
+def build_pipeline(torch, frame_hw, imgsz, ckpt, dtype="bfloat16", device="cuda", **kw):
     from tti_torch.core.config import MeasureConfig, ModelConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
     from tti_torch.parallel.runtime import InspectionPipeline
@@ -956,7 +995,7 @@ def build_pipeline(torch, frame_hw, imgsz, ckpt, dtype="bfloat16", **kw):
     return InspectionPipeline(
         cfg, load_flax_msgpack(path), frame_hw, calibration=bench_calibration(frame_hw),
         measure_cfg=MeasureConfig().with_subcell_from(meta), roi=bench_roi(frame_hw),
-        device="cuda", **kw)
+        device=device, **kw)
 
 
 MM_KEYS = ("raw_edge_mm", "raw_width_mm")
@@ -1497,6 +1536,583 @@ def check_modes(torch, ms, wp) -> dict:
     wall = time.perf_counter() - t_phase
     log(f"modes phase: {wall:.1f} s")
     out["wall_s"] = wall
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: int8 inference (kernels E and F)
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor core operations per second
+INT8_BLOCKS = 66  # quantized Conv blocks per forward, both checkpoints
+# tti's detection contract against the float step (tests/test_quantize.py:123-170):
+# every float detection with score > 0.4 has an int8 detection of its class at
+# IoU > 0.9. Held exactly on tti's own scene (the test's: seed 7 of the mm
+# report's scenes, 960x1280, imgsz 640, float32). On the configurations' 8
+# textile frames W8A8 itself misses it for a few stitches: tti's own int8 on
+# the CPU in float32 keeps 61 of 61 at deploy but 44 of 46 at the headline
+# (tests/torch_int8_contract.py). There the confident detections below IoU 0.9
+# are held to a share of INT8_BELOW_SHARE and each to IoU > INT8_IOU_FLOOR;
+# the limits are the readings with margin (at most 48 of 736 below 0.9,
+# headline int8 against bf16; the lowest IoU printed was 0.837).
+INT8_SCORE, INT8_IOU, INT8_IOU_FLOOR, INT8_BELOW_SHARE = 0.4, 0.9, 0.8, 0.10
+# Kernels E and F against their plain versions over every call checked in
+# this run: calls, the largest SiLU difference in ulps and the largest
+# |kernel - plain| of the activated outputs.
+# F's own: calls, scales compared and the largest |kernel - plain|.
+INT8_TALLY = {"calls": 0, "max_ulp": 0, "max_abs_err": 0.0, "f_calls": 0, "f_values": 0,
+              "f_max_abs_err": 0.0}
+
+
+def ulp_distance(torch, a, b) -> int:
+    """The largest distance in units of the last place between two tensors
+    of one float dtype: bit patterns mapped to ordered integers."""
+    if a.dtype == torch.bfloat16:
+        ia, ib, top = a.view(torch.int16).long(), b.view(torch.int16).long(), -(1 << 15)
+    else:
+        ia, ib, top = a.view(torch.int32).long(), b.view(torch.int32).long(), -(1 << 31)
+    order = lambda i: torch.where(i < 0, top - i, i)
+    return int((order(ia) - order(ib)).abs().max()) if a.numel() else 0
+
+
+def check_int8_call(torch, ik, label, x, qpacked, wscale, bias, k, stride, pad, xscale=None,
+                    act=True):
+    """One quantized block through kernels F (``xscale`` None: per sample)
+    and E against the plain versions on the same inputs, each kernel
+    launched twice: F bit-equal; E's output before SiLU bit-equal (the
+    codes, the int32 accumulators and the epilogue, read through the
+    output); after SiLU within 1 ulp (the two toolkits' expf). Returns
+    the largest |kernel - plain| after SiLU."""
+    if xscale is None:
+        s1, s2 = ik.act_scale_per_sample(x), ik.act_scale_per_sample(x)
+        check(torch.equal(s1, s2), f"{label}: two launches of F differ")
+        plain_s = ik.act_scale_per_sample_plain(x)
+        f_err = float((s1 - plain_s).abs().max())
+        INT8_TALLY["f_calls"] += 1
+        INT8_TALLY["f_values"] += s1.numel()
+        INT8_TALLY["f_max_abs_err"] = max(INT8_TALLY["f_max_abs_err"], f_err)
+        check(torch.equal(s1, plain_s), f"{label}: F differs from its plain version (max "
+              f"|diff| {f_err})")
+        xscale = s1
+    args = (x, qpacked, wscale, bias, xscale, k, stride, pad)
+    lin = [ik.int8_conv2d(*args, act=False) for _ in range(2)]
+    check(torch.equal(lin[0], lin[1]), f"{label}: two launches of E differ")
+    plain = ik.int8_conv2d_plain(*args, act=False)
+    if not torch.equal(lin[0], plain):
+        d = (lin[0].float() - plain.float()).abs()
+        raise AssertionError(f"{label}: E before SiLU differs from its plain version in "
+                             f"{int((d > 0).sum())} of {d.numel()} values, max {float(d.max())}")
+    if not act:
+        INT8_TALLY["calls"] += 1
+        return 0.0
+    got = [ik.int8_conv2d(*args) for _ in range(2)]
+    check(torch.equal(got[0], got[1]), f"{label}: two launches of E differ")
+    ref = torch.nn.functional.silu(plain)  # the plain version's own last step
+    ulp = ulp_distance(torch, got[0], ref)
+    err = float((got[0].float() - ref.float()).abs().max())
+    check(ulp <= 1, f"{label}: E's SiLU differs from PyTorch's by {ulp} ulp (limit 1)")
+    INT8_TALLY["calls"] += 1
+    INT8_TALLY["max_ulp"] = max(INT8_TALLY["max_ulp"], ulp)
+    INT8_TALLY["max_abs_err"] = max(INT8_TALLY["max_abs_err"], err)
+    return err
+
+
+def check_int8_kernels(torch, ik) -> dict:
+    """Kernels E and F on synthetic cases beside the steps' own inputs: the
+    plain stem (ci 3), the s2d stem (ci 12), the 3x3 and 1x1 shapes, K =
+    2304, a C2f channel slice (F must not see the other channels), an
+    all-zero input (F's 1e-12 floor), an accumulator above 2^24 and the
+    codes alone (identity 1x1 weights), in bf16 and float32, per-sample
+    and static scales."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cl = torch.channels_last
+
+    def weights(co, k, ci, lo=-127, hi=128):
+        qw = torch.randint(lo, hi, (co, k, k, ci), generator=g, device="cuda").to(torch.int8)
+        wscale = torch.rand(co, generator=g, device="cuda") * 0.02 + 1e-3
+        bias = torch.randn(co, generator=g, device="cuda") * 0.5
+        return ik.pack_qweight(qw), wscale, bias
+
+    def act(shape, dtype=torch.bfloat16, scale=2.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype).contiguous(
+            memory_format=cl)
+
+    out = {}
+    cases = [
+        ("plain stem ci 3, k3 s2", torch.rand((4, 3, 96, 128), generator=g, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=cl), weights(16, 3, 3), 3, 2, 1),
+        ("s2d stem ci 12, k2 s1 p0", act((4, 12, 49, 65)), weights(16, 2, 12), 2, 1, 0),
+        ("3x3 ci 16 -> 32, s2", act((4, 16, 48, 64)), weights(32, 3, 16), 3, 2, 1),
+        ("1x1 ci 48 -> 32", act((4, 48, 24, 32)), weights(32, 1, 48), 1, 1, 0),
+        ("3x3 ci 256 -> 256 (K 2304)", act((2, 256, 12, 16)), weights(256, 3, 256), 3, 1, 1),
+        ("3x3 ci 16 -> 16, float32", act((4, 16, 40, 48), torch.float32), weights(16, 3, 16),
+         3, 1, 1),
+        ("plain stem ci 3, float32", torch.rand((2, 3, 64, 80), generator=g, device="cuda"
+                                                ).contiguous(memory_format=cl),
+         weights(16, 3, 3), 3, 2, 1),
+    ]
+    for label, x, (qp, ws, b), k, s, p in cases:
+        check_int8_call(torch, ik, label, x, qp, ws, b, k, s, p)
+        static = (x.float().abs().max() / 127.0).reshape(())
+        check_int8_call(torch, ik, label + ", static scale", x, qp, ws, b, k, s, p, static)
+    # A C2f bottleneck's input: channels 32-63 of a channels_last tensor,
+    # read in place; the other channels hold values F must not see.
+    base = act((4, 64, 24, 32))
+    base[:, :32] = 1e4
+    sl = base[:, 32:]
+    check(not sl.is_contiguous(memory_format=cl) and sl.stride(1) == 1, "the slice is strided")
+    qp, ws, b = weights(32, 3, 32)
+    check_int8_call(torch, ik, "C2f channel slice", sl, qp, ws, b, 3, 1, 1)
+    check(float(ik.act_scale_per_sample(sl).max()) < 1e3 / 127, "F read outside the slice")
+    # Loads narrower than 16 bytes (a slice 8 bytes off alignment) take E's
+    # direct route, as the stems do.
+    base = act((4, 24, 20, 24))
+    sl = base[:, 4:20]
+    check(sl.data_ptr() % 16 == 8, "the slice is 8 bytes off alignment")
+    qp, ws, b = weights(32, 3, 16)
+    check_int8_call(torch, ik, "3x3 ci 16, direct route (8-byte loads)", sl, qp, ws, b, 3, 2, 1)
+    # All zeros: F's floor, and E gives SiLU(bias).
+    zero = torch.zeros((2, 16, 20, 24), dtype=torch.bfloat16, device="cuda").contiguous(
+        memory_format=cl)
+    check(torch.equal(ik.act_scale_per_sample(zero), torch.full((2,), 1e-12, device="cuda")
+                      / torch.full((2,), 127.0, device="cuda")), "F's floor on zeros")
+    qp, ws, b = weights(16, 3, 16)
+    check_int8_call(torch, ik, "all-zero input", zero, qp, ws, b, 3, 1, 1)
+    # Accumulators above 2^24: codes 126-127, weights 100-127, 2304 terms,
+    # scales 1 and bias 0, so the output is float(acc) itself.
+    big = (127.0 - (torch.rand((1, 256, 6, 8), generator=g, device="cuda") < 0.1).float()
+           ).contiguous(memory_format=cl)
+    qp, _, _ = weights(64, 3, 256, 100, 128)
+    ones, zeros = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    check_int8_call(torch, ik, "accumulator above 2^24", big, qp, ones, zeros, 3, 1, 1,
+                    torch.ones((), device="cuda"), act=False)
+    acc = ik.int8_conv2d(big, qp, ones, zeros, torch.ones((), device="cuda"), 3, 1, 1, act=False)
+    out["largest_accumulator"] = float(acc.max())
+    check(out["largest_accumulator"] > 2 ** 24, "the accumulator case stays below 2^24")
+    # The codes alone: identity 1x1 weights and wscale 1, bias 0: the output
+    # is code * xscale, one value per code.
+    eye = torch.eye(32, device="cuda").to(torch.int8).view(32, 1, 1, 32)
+    check_int8_call(torch, ik, "the codes (identity 1x1)", act((4, 32, 24, 32), scale=5.0),
+                    ik.pack_qweight(eye), torch.ones(32, device="cuda"),
+                    torch.zeros(32, device="cuda"), 1, 1, 0, act=False)
+    torch.cuda.synchronize()
+    log(f"  kernels E and F against their plain versions on {INT8_TALLY['calls']} synthetic "
+        f"calls: F bit-equal, E bit-equal before SiLU, SiLU within "
+        f"{INT8_TALLY['max_ulp']} ulp; largest accumulator {out['largest_accumulator']:.0f}")
+    return out
+
+
+def check_int8_layers(torch, ik, pipe, frames, label) -> int:
+    """Kernels E and F against their plain versions on the input of every
+    quantized block of one forward of ``pipe``'s model (forward pre-hooks);
+    returns the number of blocks."""
+    from tti_torch.model.layers import Conv
+
+    blocks = [(n, m) for n, m in pipe.model.named_modules() if isinstance(m, Conv) and m.qmode]
+
+    def hook(name):
+        def run(m, args):
+            check_int8_call(torch, ik, f"{label} {name}", args[0], m.qpacked, m.qscale, m.bias,
+                            m.k, m.s, m.p, m.ascale if m.qmode == "int8s" else None)
+        return run
+
+    handles = [m.register_forward_pre_hook(hook(n)) for n, m in blocks]
+    try:
+        with torch.inference_mode():
+            pipe.model(pipe.preprocess(frames))
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return len(blocks)
+
+
+def box_ious(box, boxes) -> np.ndarray:
+    lt = np.maximum(box[:2], boxes[:, :2])
+    rb = np.minimum(box[2:], boxes[:, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[:, 0] * wh[:, 1]
+    area = (box[2] - box[0]) * (box[3] - box[1]) + (boxes[:, 2] - boxes[:, 0]) * (
+        boxes[:, 3] - boxes[:, 1])
+    return inter / np.maximum(area - inter, 1e-9)
+
+
+def int8_contract(got, ref) -> tuple[int, list]:
+    """tti's detection contract, frame by frame: the float detections with
+    score > 0.4, and those of them with no int8 detection of the same class
+    at IoU > 0.9 (frame, class, score, best IoU of its class)."""
+    n, lost = 0, []
+    for b in range(ref.valid.shape[0]):
+        keep = ref.valid[b] & (ref.scores[b] > INT8_SCORE)
+        qb, qc = got.boxes_frame[b][got.valid[b]], got.classes[b][got.valid[b]]
+        for box, cls, score in zip(ref.boxes_frame[b][keep], ref.classes[b][keep],
+                                   ref.scores[b][keep]):
+            n += 1
+            same = qc == cls
+            best = float(box_ious(box, qb[same]).max()) if same.any() else 0.0
+            if best <= INT8_IOU:
+                lost.append((b, int(cls), round(float(score), 4), round(best, 4)))
+    return n, lost
+
+
+def check_contract(got, ref, label) -> tuple[int, list]:
+    """The contract on the configurations' frames (see INT8_IOU_FLOOR): the
+    float detections and those below IoU 0.9, lowest IoU first."""
+    n, lost = int8_contract(got, ref)
+    check(n > 0, f"{label}: no float detection with score > {INT8_SCORE}")
+    lost.sort(key=lambda d: d[3])
+    worst = [d for d in lost if d[3] <= INT8_IOU_FLOOR]
+    check(not worst, f"{label}: {len(worst)} of {n} float detections with score > "
+          f"{INT8_SCORE} lack an int8 detection of their class at IoU > {INT8_IOU_FLOOR} "
+          f"(frame, class, score, best IoU): {worst[:8]}")
+    check(len(lost) <= INT8_BELOW_SHARE * n,
+          f"{label}: {len(lost)} of {n} float detections with score > {INT8_SCORE} lack an "
+          f"int8 detection of their class at IoU > {INT8_IOU} (limit {INT8_BELOW_SHARE:.0%}): "
+          f"{lost[:8]}")
+    return n, lost
+
+
+def check_tti_scene(torch, quant) -> dict:
+    """tests/test_quantize.py's own case on the card: the mm report's seed-7
+    scene (960x1280), imgsz 640, the stride-4 checkpoint, float32, no
+    undistortion; ``int8s`` calibrated on that frame by the plain-stem float
+    model, as the test does. Every float detection with score > 0.4 keeps an
+    int8 detection of its class at IoU > 0.9."""
+    import measure_report_torch as mr
+
+    from tti_torch.core.config import ModelConfig
+    from tti_torch.model.checkpoint import load_flax_msgpack
+    from tti_torch.model.quantize import calibrate_act_scales
+    from tti_torch.parallel.runtime import InspectionPipeline, inference_model
+    from tti_torch.preprocess.letterbox import letterbox_u8, make_letterbox_spec
+
+    frame, _ = mr.make_measure_scene(mr.PlaneMapper(), np.random.default_rng(7))
+    frames = frame[None]
+    path = os.path.join(HERE, "checkpoints", "yolov8n_textile.msgpack")
+    cfg = ModelConfig(variant="n", num_classes=2, image_size=640, dtype="float32")
+    build = lambda **kw: InspectionPipeline(cfg, load_flax_msgpack(path), mr.FRAME_HW,
+                                            undistort=False, device="cuda", **kw)
+    ref = build().process_batch(frames)
+    kw = {"quant": quant}
+    if quant == "int8s":
+        calib = inference_model(cfg, load_flax_msgpack(path), torch.device("cuda"),
+                                s2d_input=False, s2d_stem=False)
+        spec = make_letterbox_spec(*mr.FRAME_HW, 640, "square")
+        x = letterbox_u8(torch.from_numpy(frames).cuda(), spec, torch.float32)
+        scales = calibrate_act_scales(calib, [x])
+        kw["quant_scales"] = os.path.join(INT8_DIR, "scales_tti_scene.json")
+        with open(kw["quant_scales"], "w") as f:
+            json.dump({"scales": scales}, f)
+    n, lost = int8_contract(build(**kw).process_batch(frames), ref)
+    check(n > 0 and not lost, f"tti's scene, {quant}: {len(lost)} of {n} float detections "
+          f"with score > {INT8_SCORE} lack an int8 detection of their class at IoU > "
+          f"{INT8_IOU}: {lost}")
+    return {"detections": n, "lost": lost}
+
+
+_REPORT: dict = {}
+
+
+def report_scenes():
+    """The first REPORT_SCENES seed-0 scenes of the mm report: frames and
+    truth (edge, width, stitch count), rendered once."""
+    import measure_report_torch as mr
+
+    if not _REPORT:
+        mapper = mr.PlaneMapper()
+        rng = np.random.default_rng(0)
+        scenes = [mr.make_measure_scene(mapper, rng) for _ in range(REPORT_SCENES)]
+        _REPORT.update(frames=np.stack([f for f, _ in scenes]),
+                       edge=np.array([t.frame_edge for _, t in scenes]),
+                       width=np.array([t.frame_width for _, t in scenes]),
+                       n=np.array([t.n_stitches for _, t in scenes]))
+    return _REPORT
+
+
+def report_gate(out, label) -> dict:
+    """Phase 8's per-frame gate (tests/test_measure_report.py's): every
+    width finite, stitches >= min(truth, 3), an edge on most frames, edge
+    error < 1.0 mm, width error < 0.8 mm; the error summary."""
+    truth = report_scenes()
+    edge, width = out.raw_edge_mm.astype(float), out.raw_width_mm.astype(float)
+    fin = np.isfinite(edge)
+    check(np.isfinite(width).all(), f"{label}: a frame without a width: {width}")
+    check((out.n_stitches >= np.minimum(truth["n"], 3)).all(),
+          f"{label}: stitches {out.n_stitches.tolist()} against {truth['n'].tolist()}")
+    check(fin.sum() > len(edge) / 2, f"{label}: the edge on a minority of frames")
+    check((np.abs(edge[fin] - truth["edge"][fin]) < 1.0).all(), f"{label}: edge error >= 1 mm")
+    check((np.abs(width - truth["width"]) < 0.8).all(), f"{label}: width error >= 0.8 mm")
+    return {"edge": error_summary(edge, truth["edge"]),
+            "width": error_summary(width, truth["width"])}
+
+
+def int8_bound_ms(x, qpacked, k, stride, pad) -> tuple[float, str, dict]:
+    """Kernel E's least time on this input: the bytes it must move (the
+    input's elements read once, the int8 weights, scales and bias, the
+    output written once) over 3.35 TB/s, against 2*M*N*K over the dense
+    int8 rate."""
+    b, c, h, w = x.shape
+    co = qpacked.shape[0]
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    m, kk = b * ho * wo, k * k * c
+    nbytes = x.numel() * x.element_size() + co * kk + 8 * co + m * co * x.element_size()
+    ops = 2.0 * m * co * kk
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+    info = {"bytes": nbytes, "ops": ops, "M": m, "N": co, "K": kk}
+    return (t_bytes, "bytes", info) if t_bytes >= t_ops else (t_ops, "operations", info)
+
+
+def capture_block_inputs(torch, pipe, frames) -> list:
+    """(name, block, input) of every quantized block of one forward."""
+    from tti_torch.model.layers import Conv
+
+    seen = []
+    handles = [m.register_forward_pre_hook(
+        lambda m, args, n=n: seen.append((n, m, args[0])))
+        for n, m in pipe.model.named_modules() if isinstance(m, Conv) and m.qmode]
+    try:
+        with torch.inference_mode():
+            pipe.model(pipe.preprocess(frames))
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def time_int8_layers(torch, ik, pipe, frames, flush, n_largest=4) -> dict:
+    """Kernel E per call on the ``n_largest`` blocks of one batch-128
+    forward by bytes moved, and on the largest 1x1 block: CUDA events, L2
+    flushed; beside it its bound, the plain version, cuDNN's bf16
+    convolution of the same layer (weights and scales dequantized) and, for
+    a 1x1 block, ``torch._int_mm`` on the same integer product. Kernel F on
+    the largest block input: its time, bound and plain version."""
+    import torch.nn.functional as F
+
+    blocks = capture_block_inputs(torch, pipe, frames)
+    size = lambda e: int8_bound_ms(e[2], e[1].qpacked, e[1].k, e[1].s, e[1].p)[2]["bytes"]
+    ranked = sorted(blocks, key=size, reverse=True)
+    chosen = ranked[:n_largest]
+    one_by_one = [e for e in ranked if e[1].k == 1]
+    if one_by_one and one_by_one[0] not in chosen:
+        chosen.append(one_by_one[0])
+    rows = []
+    with torch.inference_mode():
+        for name, m, x in chosen:
+            xscale = ik.act_scale_per_sample(x) if m.qmode == "int8" else m.ascale
+            args = (x, m.qpacked, m.qscale, m.bias, xscale, m.k, m.s, m.p)
+            t = {"block": name, "shape": list(x.shape), "k": m.k, "stride": m.s,
+                 "ms": time_ms(torch, lambda: ik.int8_conv2d(*args), flush=flush),
+                 "plain_ms": time_ms(torch, lambda: ik.int8_conv2d_plain(*args), iters=3,
+                                     flush=flush)}
+            bound, bound_by, info = int8_bound_ms(x, m.qpacked, m.k, m.s, m.p)
+            t.update(bound_ms=bound, bound_by=bound_by, **info)
+            co, ci = m.qpacked.shape[0], x.shape[1]
+            w = (m.qpacked[:, :info["K"]].reshape(co, m.k, m.k, ci).permute(0, 3, 1, 2).float()
+                 * m.qscale.view(-1, 1, 1, 1)).to(x.dtype).contiguous(
+                     memory_format=torch.channels_last)
+            bias = m.bias.to(x.dtype)
+            t["cudnn_bf16_ms"] = time_ms(torch, lambda: F.conv2d(x, w, bias, m.s, m.p),
+                                         flush=flush)
+            t["int_mm_ms"] = None
+            if m.k == 1 and m.s == 1 and ci % 8 == 0 and co % 8 == 0:
+                a = ik.quantize_act_plain(x, xscale).to(torch.int8).permute(0, 2, 3, 1).reshape(
+                    -1, ci)
+                bmat = m.qpacked[:, :ci].contiguous().t()  # (K, N), column-major
+                try:
+                    t["int_mm_ms"] = time_ms(torch, lambda: torch._int_mm(a, bmat),
+                                             flush=flush)
+                except RuntimeError as e:
+                    t["int_mm_error"] = str(e)[:200]
+                del a
+            rows.append(t)
+            log(f"  E on {name} {tuple(x.shape)} k{m.k} s{m.s} -> {co}: {t['ms']:.4f} ms "
+                f"({t['ms'] / bound:.2f}x its bound {bound:.4f} ms, {bound_by}; "
+                f"{info['bytes'] / 1e6:.1f} MB, {info['ops'] / 1e9:.1f} GOP), plain "
+                f"{t['plain_ms']:.3f} ms, cuDNN bf16 conv {t['cudnn_bf16_ms']:.4f} ms"
+                + (f", torch._int_mm {t['int_mm_ms']:.4f} ms" if t["int_mm_ms"] else "")
+                + (f", torch._int_mm refused: {t['int_mm_error']}" if "int_mm_error" in t
+                   else ""))
+            del w
+        name, m, x = ranked[0]
+        fb = x.numel() * x.element_size() + 4 * x.shape[0]
+        f = {"block": name, "shape": list(x.shape),
+             "ms": time_ms(torch, lambda: ik.act_scale_per_sample(x), flush=flush),
+             "plain_ms": time_ms(torch, lambda: ik.act_scale_per_sample_plain(x), flush=flush),
+             "bound_ms": fb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": fb,
+             "absmax_norm_ms": time_ms(torch, lambda: torch.linalg.vector_norm(
+                 x, float("inf"), dim=(1, 2, 3)), flush=flush)}
+        log(f"  F on {name} {tuple(x.shape)}: {f['ms']:.4f} ms ({f['ms'] / f['bound_ms']:.2f}x "
+            f"its bound {f['bound_ms']:.4f} ms, {fb / 1e6:.1f} MB), plain {f['plain_ms']:.4f} "
+            f"ms, torch.linalg.vector_norm(inf) (the absmax alone) {f['absmax_norm_ms']:.4f} ms")
+    # The kernels line's row: the largest 1x1 block, which torch._int_mm
+    # can time beside it.
+    row_block = (one_by_one or ranked)[0][0]
+    del blocks, ranked, chosen, one_by_one
+    torch.cuda.empty_cache()
+    return {"layers": rows, "row": next(t for t in rows if t["block"] == row_block), "f": f}
+
+
+def start_calibration(ckpt, imgsz, out_path):
+    """``tools/calibrate_int8_torch.py --synth 16`` for a checkpoint at the
+    configuration's imgsz, in a subprocess started now."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "tools", "calibrate_int8_torch.py"), "--weights",
+         os.path.join(HERE, "checkpoints", ckpt), "--synth", "16", "--imgsz", str(imgsz),
+         "--out", out_path], env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+INT8_DIR = os.path.join(HERE, "build", "int8_smoke")
+
+
+def check_int8(torch, ms, wp, ik, flush) -> dict:
+    """Phase 5c (see the module docstring)."""
+    from step_syncs_torch import count_step_syncs
+
+    t_phase = time.perf_counter()
+    os.makedirs(INT8_DIR, exist_ok=True)
+    scales = {c: os.path.join(INT8_DIR, f"scales_{c}.json") for c in CONFIGS}
+    # The calibrations and `run` under TTI_QUANT=int8 run beside the
+    # synthetic checks and are waited for before anything is timed.
+    procs = {c: start_calibration(ckpt, imgsz, scales[c])
+             for c, (_, imgsz, ckpt) in CONFIGS.items()}
+    cli = start_cli(cli_workdir(), ["--skip-calibration"], {"TTI_QUANT": "int8"})
+    out: dict = {}
+    try:
+        out["synthetic"] = check_int8_kernels(torch, ik)
+        for c, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"calibrate_int8_torch.py ({c}): exit "
+                  f"{proc.returncode}\n{stderr[-2000:]}")
+            log(f"  {c}: {stdout.strip()}")
+        secs, msgs = finish_cli(cli, "TTI_QUANT=int8 run")
+    finally:
+        for proc in (*procs.values(), cli[0]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    n = sum(m == "measurement" for m in msgs)
+    check(n == 2, f"cli TTI_QUANT=int8 run: {n} measurement records, expected 2")
+    out["cli"] = {"seconds": secs, "records": n}
+    log(f"  cli `TTI_QUANT=int8 python -m tti_torch.cli run --synthetic --max-frames 2`: exit 0 "
+        f"in {secs:.1f} s, {n} records")
+    for config, (hw, imgsz, ckpt) in CONFIGS.items():
+        frames_np = textile(hw, BATCH)
+        frames = torch.from_numpy(frames_np).cuda()
+        one = frames[:1].contiguous()
+        ref = build_pipeline(torch, hw, imgsz, ckpt)
+        ref_out = ref.process_batch(frames_np)
+        small = textile(hw, MODE_F32_BATCH)
+        ref32 = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32")
+        ref32_out = ref32.process_batch(small)
+        del ref32
+        for quant in ("int8", "int8s"):
+            label = f"{config} {quant}"
+            t0 = time.perf_counter()
+            pipe = build_pipeline(torch, hw, imgsz, ckpt, quant=quant,
+                                  quant_scales=scales[config] if quant == "int8s" else None)
+            setup_s = time.perf_counter() - t0
+            reset_launch_counts(ms, wp)
+            got = pipe.process_batch(frames_np)
+            launches = launch_counts(ms, wp)
+            stats_kernel = ("mask_stats_soft" if pipe.measure_cfg.subcell_edge
+                            else "mask_stats_binary")
+            want_f = INT8_BLOCKS if quant == "int8" else 0
+            check(launches["int8_conv2d"] == INT8_BLOCKS
+                  and launches["act_scale_per_sample"] == want_f
+                  and launches[stats_kernel] == 1 and launches["greedy_keep"] == 1,
+                  f"{label}: E {INT8_BLOCKS}, F {want_f}, D and {stats_kernel} once per step "
+                  f"expected: {launches}")
+            check_outputs(got, label, BATCH, pipe.model_cfg.max_detections)
+            with plain_routes(ms, wp):
+                plain = pipe.process_batch(frames_np)
+            check(launch_counts(ms, wp) == launches, f"{label}: the plain step launched")
+            syncs = {b: count_step_syncs(torch, pipe, f)[:2] for b, f in ((BATCH, frames),
+                                                                          (1, one))}
+            for b, (n, where) in syncs.items():
+                check(n == 0, f"{label} batch {b}: {n} synchronising calls per step: {where}")
+            for key in ("boxes_frame", "scores", "classes", "valid"):
+                np.testing.assert_array_equal(getattr(got, key), getattr(plain, key),
+                                              err_msg=f"{label}: {key} against the plain step")
+            plain_mm, _ = mm_difference(got, plain)
+            check(plain_mm <= 1e-2, f"{label}: mm differ from the plain step by {plain_mm}")
+            n, lost = check_contract(got, ref_out, f"{label} against bf16")
+            pipe32 = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32", quant=quant,
+                                    quant_scales=scales[config] if quant == "int8s" else None)
+            n32, lost32 = check_contract(pipe32.process_batch(small), ref32_out,
+                                         f"{label} float32 (batch {MODE_F32_BATCH})")
+            del pipe32
+            d = mm_differences(got, ref_out)
+            # Every block's own input under int8, and under int8s at the
+            # headline on the batch's 8 distinct frames (the deploy's int8s
+            # blocks run the same code with their static scales; left out
+            # for the phase's time).
+            blocks = (check_int8_layers(torch, ik, pipe, frames, label) if quant == "int8"
+                      else check_int8_layers(torch, ik, pipe, frames[:MODE_F32_BATCH], label)
+                      if config == "headline" else 0)
+            t = time_pair(torch, ref, pipe, frames, one)
+            res = {**t, "launches": {k: launches[k] for k in (
+                "int8_conv2d", "act_scale_per_sample", stats_kernel, "greedy_keep")},
+                "syncs": {b: n for b, (n, _) in syncs.items()}, "plain_mm_max": plain_mm,
+                "contract_detections": n, "contract_below": lost,
+                "contract_f32_detections": n32, "contract_f32_below": lost32,
+                "mm_vs_bf16_median": float(np.median(d)),
+                "mm_vs_bf16_max": float(d.max()), "blocks_checked": blocks, "setup_s": setup_s}
+            if config == "deploy":
+                import measure_report_torch as mr
+
+                mpipe = mr.build_pipeline(CAM_CKPT, undistort=False, dtype="bfloat16",
+                                          device="cuda", quant=quant,
+                                          quant_scales=scales[config] if quant == "int8s"
+                                          else None)
+                reset_launch_counts(ms, wp)
+                meas = mpipe.process_batch(report_scenes()["frames"]).measurements
+                check(launch_counts(ms, wp)["int8_conv2d"] == INT8_BLOCKS,
+                      f"{label}: the mm report's step did not run kernel E")
+                res["report"] = report_gate(meas, f"{label} mm report")
+                del mpipe
+            if config == "deploy" and quant == "int8":
+                parts, busy, _ = device_time(torch, lambda: pipe.step(frames), 2)
+                res["device_ms_per_step"] = busy
+                res["e_ms_per_step"] = sum(v for k, v in parts.items() if "int8_conv" in k)
+                res["f_ms_per_step"] = sum(v for k, v in parts.items() if "act_absmax" in k)
+                out["timing"] = time_int8_layers(torch, ik, pipe, frames, flush)
+            out[label] = res
+            log(f"  {label}: {t['frames_per_s']:.1f} frames/s at batch {BATCH} against bf16 "
+                f"{t['ref_frames_per_s']:.1f} ({t['frames_per_s'] / t['ref_frames_per_s'] - 1:+.1%}), "
+                f"batch-1 p50 {t['p50_ms']:.3f} ms against {t['ref_p50_ms']:.3f} (in turns); "
+                f"launches {res['launches']}; 0 syncs per step at batch {BATCH} and 1; equal to "
+                f"the plain step (mm {plain_mm:.2g}); tti's contract, detections > "
+                f"{INT8_SCORE} kept at IoU > {INT8_IOU}: float32 {n32 - len(lost32)} of {n32} "
+                f"{lost32[:2]}, bf16 {n - len(lost)} of {n} {lost[:2]} (lowest first; all at "
+                f"IoU > {INT8_IOU_FLOOR}, at most {INT8_BELOW_SHARE:.0%} below {INT8_IOU}); mm against bf16 median {res['mm_vs_bf16_median']:.4g} "
+                f"max {res['mm_vs_bf16_max']:.4g}; "
+                + (f"E and F held to the plain versions on all {blocks} blocks' inputs; "
+                   if blocks else "")
+                + f"set-up {setup_s:.1f} s"
+                + (f"; E {res['e_ms_per_step']:.3f} and F {res['f_ms_per_step']:.3f} of "
+                   f"{res['device_ms_per_step']:.3f} device ms per step"
+                   if "e_ms_per_step" in res else "")
+                + ("; mm report (16 scenes): " + "; ".join(
+                    f"{k} {v['coverage']} p50 {v['p50']:.4f} p95 {v['p95']:.4f}"
+                    for k, v in res["report"].items()) if "report" in res else ""))
+            del pipe
+            torch.cuda.empty_cache()
+        del ref, frames, one
+        torch.cuda.empty_cache()
+    for quant in ("int8", "int8s"):
+        out[f"tti scene {quant}"] = r = check_tti_scene(torch, quant)
+        log(f"  tti's own scene (tests/test_quantize.py: seed 7, 960x1280, imgsz 640, float32), "
+            f"{quant}: {r['detections']} float detections > {INT8_SCORE}, every one kept at IoU "
+            f"> {INT8_IOU}")
+    torch.cuda.empty_cache()
+    out["tally"] = dict(INT8_TALLY)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"int8 phase: {out['wall_s']:.1f} s; E and F against their plain versions in "
+        f"{INT8_TALLY['calls']} calls: before SiLU bit-equal, SiLU within "
+        f"{INT8_TALLY['max_ulp']} ulp (max |diff| {INT8_TALLY['max_abs_err']:.3g}); F in "
+        f"{INT8_TALLY['f_calls']} calls, {INT8_TALLY['f_values']} scales, max |diff| "
+        f"{INT8_TALLY['f_max_abs_err']:.3g}")
     return out
 
 
@@ -2144,12 +2760,10 @@ def opencv_version() -> str | None:
     return cv2.__version__
 
 
-def check_cli() -> dict:
-    """``python -m tti_torch.cli run`` in a subprocess, from a working
-    directory that holds a .env (the cam checkpoint, a sqlite path, the
-    geometry) and the calibration files written by ``tti_torch.calib.io``:
-    two frames of the single-camera loop at the reference's 2 s cadence,
-    then four synthetic cameras through ``MultiStreamRunner``."""
+def cli_workdir() -> str:
+    """A working directory for the CLI: a .env (the cam checkpoint, a sqlite
+    path, the geometry) and the calibration files written by
+    ``tti_torch.calib.io``."""
     from tti_torch.calib.io import save_extrinsics, save_intrinsics
 
     d = os.path.join(APP_DIR, "cli")
@@ -2163,20 +2777,52 @@ def check_cli() -> dict:
         f.write(f"TTI_WEIGHTS={CAM_CKPT}\nTTI_SQLITE_PATH=line.db\nCALIB_W={w}\nCALIB_H={h}\n"
                 f"TTI_IMAGE_SIZE={APP['imgsz']}\nROI_X_MIN={roi.x_min}\nROI_X_MAX={roi.x_max}\n"
                 f"ROI_Y_MIN={roi.y_min}\nROI_Y_MAX={roi.y_max}\n")
-    env = dict(os.environ, PYTHONPATH=HERE, TTI_LOG_JSON="1")
+    return d
+
+
+def start_cli(d: str, extra: list, env_extra: dict | None = None):
+    """``python -m tti_torch.cli run --synthetic --max-frames 2`` in ``d``,
+    started now: (the process, its start time)."""
+    env = dict(os.environ, PYTHONPATH=HERE, TTI_LOG_JSON="1", **(env_extra or {}))
+    return subprocess.Popen([sys.executable, "-m", "tti_torch.cli", "run", "--synthetic",
+                             "--max-frames", "2", "--device", APP["device"], *extra], cwd=d,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def finish_cli(started, label: str) -> tuple:
+    """Wait for :func:`start_cli`'s process (exit 0 required): the seconds it
+    took and the messages of its JSON log records."""
+    proc, t0 = started
+    try:
+        _, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli {label}: exit {proc.returncode}\n{stderr[-3000:]}")
+    records = []
+    for line in stderr.splitlines():
+        with contextlib.suppress(ValueError):
+            records.append(json.loads(line))
+    return secs, [r.get("msg", "") for r in records]
+
+
+def run_cli(d: str, label: str, extra: list, env_extra: dict | None = None) -> tuple:
+    """:func:`start_cli`, then :func:`finish_cli`."""
+    return finish_cli(start_cli(d, extra, env_extra), label)
+
+
+def check_cli() -> dict:
+    """``python -m tti_torch.cli run`` in a subprocess, from
+    :func:`cli_workdir`: two frames of the single-camera loop at the
+    reference's 2 s cadence, then four synthetic cameras through
+    ``MultiStreamRunner``."""
+    d = cli_workdir()
     out = {}
     for label, extra in (("run", ["--skip-calibration"]), ("run --cameras 4", ["--cameras", "4"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "tti_torch.cli", "run", "--synthetic",
-                               "--max-frames", "2", "--device", APP["device"], *extra],
-                              cwd=d, env=env, capture_output=True, text=True, timeout=300)
-        secs = time.perf_counter() - t0
-        check(proc.returncode == 0, f"cli {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
-        records = []
-        for line in proc.stderr.splitlines():
-            with contextlib.suppress(ValueError):
-                records.append(json.loads(line))
-        msgs = [r.get("msg", "") for r in records]
+        secs, msgs = run_cli(d, label, extra)
         if label == "run":
             n = sum(m == "measurement" for m in msgs)
             check(n == 2, f"cli {label}: {n} measurement records, expected 2")
@@ -2613,6 +3259,7 @@ def main() -> int:
     sys.path.append(os.path.join(HERE, "tools"))
     from tti_torch import native
     from tti_torch.kernels import build as kbuild
+    from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import maskstats as ms
     from tti_torch.kernels import nms as nk
     from tti_torch.kernels import warp_p1 as wp
@@ -2629,12 +3276,13 @@ def main() -> int:
 
     # Phase 2: build, one nvcc per source, started together.
     t0 = time.perf_counter()
-    kbuild.compile_all(("maskstats", "warp_p1", "nms"))
+    kbuild.compile_all(("maskstats", "warp_p1", "nms", "int8conv"))
     ms.build()
     wp.build()
     nk.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, maskstats.cu, warp_p1.cu and "
-        "nms.cu)")
+    ik.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, maskstats.cu, warp_p1.cu, "
+        "nms.cu and int8conv.cu)")
     for name, text in sorted(kbuild.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2690,6 +3338,12 @@ def main() -> int:
     log("the step's modes (each against its reference step, bf16 and float32):")
     modes = check_modes(torch, ms, wp)
 
+    # Phase 5c: int8 inference at full width (kernels E and F).
+    log("int8 inference (kernels E and F; CUDA events, L2 flushed before each timed call):")
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: flush_buf.zero_()
+    int8 = check_int8(torch, ms, wp, ik, flush)
+
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
 
@@ -2704,8 +3358,6 @@ def main() -> int:
     # and, for the mask statistics, on a synthetic input whose first box
     # covers the whole grid.
     log("kernel timings (CUDA events, L2 flushed before each call):")
-    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    flush = lambda: flush_buf.zero_()
     launches = {"mask_stats_soft": dep_launches["mask_stats_soft"],
                 "mask_stats_binary": head_launches["mask_stats_binary"]}
     replaces = {"mask_stats_soft": "tti/kernels/maskstats.py:454",
@@ -2785,10 +3437,40 @@ def main() -> int:
                          for (c, b), t in d_times.items() if (c, b) != ("headline", BATCH)},
     })
     del dep_nms, head_nms
+    e, f, dep8 = int8["timing"]["row"], int8["timing"]["f"], int8["deploy int8"]
+    kernels.append({
+        "name": "int8_conv2d", "route": "cuda", "source": "tti_torch/kernels/csrc/int8conv.cu",
+        "replaces": "tti/model/layers.py:106", "launches": dep8["launches"]["int8_conv2d"],
+        "max_abs_err": INT8_TALLY["max_abs_err"], "max_ulp_after_silu": INT8_TALLY["max_ulp"],
+        "calls_compared": INT8_TALLY["calls"],
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": e["int_mm_ms"],
+        "library": "torch._int_mm, the integer product alone", "cudnn_bf16_ms": e["cudnn_bf16_ms"],
+        "timed_on": f"the deploy int8 step's block {e['block']} at batch {BATCH}",
+        "timed_shape": e["shape"], "ms_per_step": dep8["e_ms_per_step"],
+        "launches_per_step": {k: v["launches"]["int8_conv2d"] for k, v in int8.items()
+                              if isinstance(v, dict) and "launches" in v},
+        "other_blocks": [{k: t[k] for k in ("block", "shape", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "cudnn_bf16_ms", "int_mm_ms")}
+                         for t in int8["timing"]["layers"] if t is not e],
+    })
+    kernels.append({
+        "name": "act_scale_per_sample", "route": "cuda",
+        "source": "tti_torch/kernels/csrc/int8conv.cu", "replaces": "tti/model/layers.py:26",
+        "launches": dep8["launches"]["act_scale_per_sample"],
+        "max_abs_err": INT8_TALLY["f_max_abs_err"], "calls_compared": INT8_TALLY["f_calls"],
+        "scales_compared": INT8_TALLY["f_values"],
+        "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+        "bound_by": f["bound_by"], "library_ms": None, "absmax_norm_ms": f["absmax_norm_ms"],
+        "timed_on": f"the deploy int8 step's block {f['block']} input at batch {BATCH}",
+        "timed_shape": f["shape"], "ms_per_step": dep8["f_ms_per_step"],
+        "launches_per_step": {k: v["launches"]["act_scale_per_sample"]
+                              for k, v in int8.items() if isinstance(v, dict) and "launches" in v},
+    })
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
-        "modes": modes},
+        "modes": modes, "int8": int8},
         "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -133,7 +133,7 @@ def test_runtime_switches_from_dotenv_and_errors(tmp_path):
     cfg = tcfg.load_config(dotenv_path=str(path), env={"TTI_FOLDED_BN": "1"})
     assert cfg.switches.pipeline_kwargs() == dict(
         remap="packed", warp_s2d=True, warp_block=None, warp_col_expand=False, lazy_decode=True,
-        fused_head=False, fold_bn=True, maskstats_logits="auto")
+        fused_head=False, fold_bn=True, maskstats_logits="auto", quant="", quant_scales=None)
     with pytest.raises(terr.ConfigError, match="TTI_WARP_BLOCKED"):
         tcfg.RuntimeSwitches.from_env({"TTI_WARP_BLOCKED": "wide"})
 

@@ -11,7 +11,9 @@
   to the scanline fill both packages share without cv2).
 - ``run --synthetic --max-frames 2 --device cpu --skip-calibration`` exits 0
   and logs two measurements; ``check-model`` writes its JPEGs.
-- The refusals: ``TTI_QUANT=int8`` / ``int8s`` name their ROADMAP item;
+- The refusals: a ``TTI_QUANT`` that cannot apply (unfolded BN, the fused
+  head, ``int8s`` without its scales file) stops ``run``, ``eval`` and
+  ``check-model`` with ``tti``'s message before anything is opened;
   ``run`` on a camera without ``--skip-calibration`` runs the startup
   calibration gate, which stops the run when neither intrinsics nor
   extrinsics are on disk.
@@ -191,10 +193,12 @@ def test_check_model_cli_writes_jpegs(tmp_path, ref_intrinsics, ref_extrinsics, 
 
 @pytest.mark.parametrize("argv,env,item", [
     (["run", "--device", "cpu"], {}, "cannot load intrinsics"),
-    (["run", "--synthetic", "--device", "cpu"], {"TTI_QUANT": "int8"}, "Queue 1 item 5"),
+    (["run", "--synthetic", "--device", "cpu"], {"TTI_QUANT": "int8", "TTI_FOLDED_BN": "0"},
+     "TTI_QUANT=int8 requires folded BN"),
     (["eval", "--images", "none", "--imgsz", "64", "--device", "cpu"], {"TTI_QUANT": "int8s"},
-     "Queue 1 item 5"),
-    (["check-model", "--device", "cpu"], {"TTI_QUANT": "int8"}, "Queue 1 item 5"),
+     "TTI_QUANT=int8s needs TTI_QUANT_SCALES"),
+    (["check-model", "--device", "cpu"], {"TTI_QUANT": "int8", "TTI_FUSED_HEAD": "1"},
+     "TTI_FUSED_HEAD=1 is unsupported"),
 ], ids=["camera_without_calibration", "run_int8", "eval_int8s", "check_model_int8"])
 def test_cli_refusals(argv, env, item, tmp_path, monkeypatch, capsys):
     import tti_torch.app.sources as sources

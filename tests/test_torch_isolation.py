@@ -3,8 +3,8 @@ nor anything of tti, and a tiny CPU inspection step, one frame of the
 measurement loop and a training step run with all of them blocked, and with
 the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too.
 The calibration modules import without OpenCV (it is imported where it is
-used), and ``tools/measure_report_torch.py`` imports neither tti nor
-``tools.measure_report``."""
+used), and ``tools/measure_report_torch.py`` and ``tools/calibrate_int8_torch.py``
+import neither tti nor the tools they stand beside."""
 
 import os
 import re
@@ -26,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(tti_torch.__path__, "tti_torch.")
 for name in names:
     importlib.import_module(name)
 for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
-             "tti_torch.kernels.warp_p1", "tti_torch.kernels.nms", "tti_torch.core.logging", "tti_torch.cli.__main__",
+             "tti_torch.kernels.warp_p1", "tti_torch.kernels.nms", "tti_torch.kernels.int8conv",
+             "tti_torch.model.quantize", "tti_torch.core.logging", "tti_torch.cli.__main__",
              *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
                                                "checkpoint", "loop", "eval")),
              *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
@@ -37,7 +38,9 @@ for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.st
     assert name in names and name in sys.modules, name
 sys.path.insert(0, "tools")
 import measure_report_torch
+import calibrate_int8_torch
 assert "measure_report" not in sys.modules and "tools.measure_report" not in sys.modules
+assert "calibrate_int8" not in sys.modules
 from tti_torch.calib.charuco import create_charuco_board
 from tti_torch.core.errors import CalibrationError
 try:
@@ -74,6 +77,13 @@ modes = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_str
                            lazy_decode=True, fused_head=True, fold_bn=False, warp_block=32,
                            maskstats_logits="f32")
 assert modes.process_batch(textile_frames(1, 96, 128)).boxes_frame.shape == (1, 200, 4)
+int8 = InspectionPipeline(ModelConfig(image_size=128, dtype="float32", mask_stride=2,
+                                      proto_head="subpixel"),
+                          load_flax_msgpack(path), (96, 128), calib,
+                          MeasureConfig().with_subcell_from(meta),
+                          RoiConfig(x_min=1, x_max=127, y_min=1, y_max=95), device="cpu",
+                          quant="int8")
+assert int8.process_batch(textile_frames(1, 96, 128)).boxes_frame.shape == (1, 200, 4)
 import os, random, tempfile
 from tti_torch.app.orchestrator import Orchestrator
 from tti_torch.app.sources import SyntheticSource
@@ -121,7 +131,9 @@ def test_port_sources_name_no_forbidden_module():
                                   "predict.py", "eval.py", "database.py", "pnp.py",
                                   "charuco.py", "intrinsics.py", "torch_scenes.py",
                                   "measure_report_torch.py", "step_syncs_torch.py",
-                                  "step_latency_torch.py", "fused_head_copies_torch.py"} <= names
+                                  "step_latency_torch.py", "fused_head_copies_torch.py",
+                                  "int8conv.cu", "int8conv.py", "quantize.py",
+                                  "calibrate_int8_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

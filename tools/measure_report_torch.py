@@ -366,11 +366,12 @@ def make_measure_scene(mapper: PlaneMapper, rng: np.random.Generator,
 
 def build_pipeline(weights: str, *, undistort: bool, dtype: str, imgsz: int = 960,
                    device: str = "cuda", rvec: np.ndarray = REF_RVEC,
-                   tvec: np.ndarray = REF_TVEC):
+                   tvec: np.ndarray = REF_TVEC, **pipe_kw):
     """The port's inspection step as deployed: the architecture and the
     boundary readout from the checkpoint's sidecar, the deployment camera
     (extrinsics ``rvec``/``tvec``, the deployment's by default) and ROI
-    (reference config.py:91-95), 1280x960 frames."""
+    (reference config.py:91-95), 1280x960 frames. ``pipe_kw``: more
+    ``InspectionPipeline`` arguments (e.g. ``quant``, ``quant_scales``)."""
     from tti_torch.calib.io import CalibrationData
     from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
@@ -386,7 +387,7 @@ def build_pipeline(weights: str, *, undistort: bool, dtype: str, imgsz: int = 96
         measure_cfg=MeasureConfig.from_env(os.environ).with_subcell_from(meta),
         roi=RoiConfig(enabled=True, x_min=10, x_max=FRAME_HW[1] - 10,
                       y_min=300, y_max=FRAME_HW[0] - 200),
-        device=device, undistort=undistort)
+        device=device, undistort=undistort, **pipe_kw)
 
 
 def run_pipeline(frames: np.ndarray, weights: str, *, undistort: bool, dtype: str,

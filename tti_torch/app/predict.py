@@ -73,18 +73,23 @@ class Predictor:
     """The full predict chain for one model on one device. ``variables``
     is the checkpoint's flax tree with numpy leaves
     (:func:`tti_torch.model.checkpoint.load_flax_msgpack`); the compute
-    dtype is ``model_cfg.dtype``."""
+    dtype is ``model_cfg.dtype``. ``quant`` "int8" | "int8s" (with the
+    calibration file ``quant_scales``) serves the W8A8 model as ``tti eval``
+    does: the plain k3/s2 stem, folded BatchNorm, quantized."""
 
     def __init__(self, model_cfg: ModelConfig, variables: dict, frame_hw: tuple[int, int],
                  mask_topk: int = 64, proto_masks: bool = False,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda", quant: str = "",
+                 quant_scales: str | None = None) -> None:
         self.model_cfg = model_cfg
         self.frame_hw = frame_hw
         self.device = torch.device(device)
         self.spec = make_letterbox_spec(frame_hw[0], frame_hw[1], model_cfg.image_size,
                                         model_cfg.letterbox)
         self.dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
-        self.model = inference_model(model_cfg, variables, self.device, s2d_input=False)
+        self.model = inference_model(
+            model_cfg, variables, self.device, s2d_input=False, quant=quant,
+            quant_scales=quant_scales, s2d_stem=not quant)
         self.mask_topk = min(mask_topk, model_cfg.max_detections)
         self.proto_masks = proto_masks
 

@@ -21,11 +21,14 @@ as in ``tti`` (:func:`tti_torch.core.config.load_config`); ``run`` and
 ``check-model`` build their step under ``tti``'s runtime switches
 (``TTI_REMAP``, ``TTI_WARP_S2D``, ``TTI_WARP_BLOCKED``, ``TTI_WARP_COLEXPAND``,
 ``TTI_LAZY_DECODE``, ``TTI_FUSED_HEAD``, ``TTI_FOLDED_BN``,
-``TTI_MASKSTATS_LOGITS``;
+``TTI_MASKSTATS_LOGITS``, ``TTI_QUANT``, ``TTI_QUANT_SCALES``;
 :class:`tti_torch.core.config.RuntimeSwitches`), read from the environment
 and ``.env`` alike, and log once each switch of ``tti``'s that has no
-counterpart here. Refused, naming the reason or the ROADMAP item that ports
-them: ``train --host-aug``, ``TTI_QUANT`` (int8 inference) and
+counterpart here. ``eval`` serves ``TTI_QUANT=int8`` / ``int8s`` as ``tti``
+does (the plain-stem folded model, quantized). A ``TTI_QUANT`` that cannot
+apply is refused with ``tti``'s message (another value, unfolded BN, the
+fused head, ``int8s`` without its scales file). Refused, naming the reason
+or the ROADMAP item that ports them: ``train --host-aug`` and
 ``TTI_APPROX_TOPK=1``.
 """
 
@@ -37,6 +40,7 @@ import os
 import sys
 
 from tti_torch.core.config import AppConfig, load_config
+from tti_torch.core.errors import ConfigError
 from tti_torch.core.logging import get_logger
 
 log = get_logger("cli")
@@ -47,27 +51,10 @@ def _refuse(message: str) -> int:
     return 1
 
 
-def _refuses_quant(quant: str | None = None) -> bool:
-    """``TTI_QUANT=int8``/``int8s`` asks for int8 inference, which the port
-    does not have: say so rather than serve bf16 in its place (any other
-    value is an error in ``tti``). ``quant``: the value (None: the process
-    environment's, as ``eval`` reads it)."""
-    quant = os.environ.get("TTI_QUANT", "") if quant is None else quant
-    if quant in ("int8", "int8s"):
-        _refuse(f"TTI_QUANT={quant} is not ported: tti_torch has no int8 inference yet "
-                "(ROADMAP Queue 1 item 5, int8 inference). Unset TTI_QUANT.")
-        return True
-    if quant:
-        _refuse(f"TTI_QUANT must be '', 'int8' or 'int8s', got {quant!r}")
-        return True
-    return False
-
-
 def _refuses_switches(switches) -> bool:
-    """The runtime switches the port refuses: ``TTI_QUANT`` and
-    ``TTI_APPROX_TOPK=1``."""
-    if _refuses_quant(switches.quant):
-        return True
+    """``TTI_APPROX_TOPK=1``, refused before anything is built (a
+    ``TTI_QUANT`` that cannot apply is refused where the step is built:
+    :func:`main`)."""
     if switches.approx_topk:
         _refuse("TTI_APPROX_TOPK=1 is not ported: it is the TPU's approximate top-k "
                 "(jax.lax.approx_max_k, a partial reduce at recall 0.99), which may miss "
@@ -331,16 +318,14 @@ def cmd_eval(args) -> int:
         # The rect letterbox rounds a non-stride size up while the GT
         # rasterises at args.imgsz: the mask grids would not match.
         raise SystemExit(f"--imgsz must be a multiple of 32, got {args.imgsz}")
-    if _refuses_quant():
-        return 1
     cfg = load_config(validate=False)
+    quant = cfg.switches.quant
     model_cfg = dataclasses.replace(cfg.model, image_size=args.imgsz,
                                     mask_stride=args.mask_stride, proto_head=args.proto_head,
                                     **({"weights": args.weights} if args.weights else {}))
     have_weights = model_cfg.weights and os.path.exists(model_cfg.weights)
     if have_weights:
         model_cfg = _adopt_architecture(model_cfg, checkpoint_metadata(model_cfg.weights))
-    samples = discover_dataset(args.images)
     if have_weights:
         variables = load_flax_msgpack(model_cfg.weights)
         log.info("loaded weights from %s", model_cfg.weights)
@@ -348,7 +333,11 @@ def cmd_eval(args) -> int:
         log.warning("weights %r not found — using random init", model_cfg.weights)
         variables = _random_variables(model_cfg)
     predictor = Predictor(model_cfg, variables, (args.imgsz, args.imgsz), mask_topk=64,
-                          proto_masks=True, device=args.device)
+                          proto_masks=True, device=args.device, quant=quant,
+                          quant_scales=cfg.switches.quant_scales)
+    if quant:
+        log.info("evaluating with TTI_QUANT=%s (W8A8 PTQ)", quant)
+    samples = discover_dataset(args.images)
     res = evaluate_samples(samples, predictor, args.imgsz, model_cfg.num_classes,
                            model_cfg.mask_stride, progress=lambda line: print(line, flush=True))
     for label, key in (("box", "box"), ("mask(proto-res)", "mask_proto"),
@@ -490,7 +479,10 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(func=cmd_eval)
 
     args = parser.parse_args(argv)
-    return args.func(args)
+    try:
+        return args.func(args)
+    except ConfigError as e:  # a setting that cannot apply (a TTI_QUANT, ...): its reason
+        return _refuse(str(e))
 
 
 if __name__ == "__main__":

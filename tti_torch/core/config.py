@@ -400,9 +400,8 @@ class RuntimeSwitches:
     """The reference's runtime switches, parsed as the reference parses them
     (``tti/parallel/runtime.py``, ``tti/preprocess/remap.py``,
     ``tti/kernels/maskstats.py``); :meth:`pipeline_kwargs` gives them to
-    ``InspectionPipeline``. ``approx_topk`` and ``quant`` have no port: the
-    CLI refuses them. ``no_counterpart`` lists the set names of
-    :data:`NO_COUNTERPART`."""
+    ``InspectionPipeline``. ``approx_topk`` has no port: the CLI refuses it.
+    ``no_counterpart`` lists the set names of :data:`NO_COUNTERPART`."""
 
     remap: str = "twopass"  # TTI_REMAP: twopass | packed
     warp_s2d: bool = True  # TTI_WARP_S2D: on unless "0"
@@ -413,7 +412,8 @@ class RuntimeSwitches:
     fold_bn: bool = True  # TTI_FOLDED_BN: on unless "0"
     maskstats_logits: str = "auto"  # TTI_MASKSTATS_LOGITS: f32 | bf16, else auto
     approx_topk: bool = False  # TTI_APPROX_TOPK=1
-    quant: str = ""  # TTI_QUANT
+    quant: str = ""  # TTI_QUANT: "" | int8 | int8s (anything else raises in the step)
+    quant_scales: str | None = None  # TTI_QUANT_SCALES: the int8s calibration file
     no_counterpart: tuple[str, ...] = ()
 
     @staticmethod
@@ -435,6 +435,7 @@ class RuntimeSwitches:
             maskstats_logits=logits if logits in ("f32", "bf16") else "auto",
             approx_topk=env.get("TTI_APPROX_TOPK") == "1",
             quant=env.get("TTI_QUANT", ""),
+            quant_scales=env.get("TTI_QUANT_SCALES") or None,
             no_counterpart=tuple(name for name in NO_COUNTERPART if name in env),
         )
 
@@ -442,7 +443,7 @@ class RuntimeSwitches:
         """The ``InspectionPipeline`` arguments these switches set."""
         return {name: getattr(self, name) for name in (
             "remap", "warp_s2d", "warp_block", "warp_col_expand", "lazy_decode", "fused_head",
-            "fold_bn", "maskstats_logits")}
+            "fold_bn", "maskstats_logits", "quant", "quant_scales")}
 
 
 @dataclass(frozen=True)

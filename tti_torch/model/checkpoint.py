@@ -353,9 +353,13 @@ _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
     """Flax variables (numpy leaves) -> a state dict for
-    :class:`tti_torch.model.yolo.YOLOv8Seg` (numpy float32 values). A folded
-    tree ({'params': ...}) fits the ``folded_bn=True`` model; an unfolded one
-    ({'params', 'batch_stats'}, ``bn`` nodes) the ``folded_bn=False`` model."""
+    :class:`tti_torch.model.yolo.YOLOv8Seg` (numpy values: float leaves as
+    float32, other leaves as they are). A folded tree ({'params': ...}) fits
+    the ``folded_bn=True`` model; an unfolded one ({'params', 'batch_stats'},
+    ``bn`` nodes) the ``folded_bn=False`` model; a quantized one
+    (:func:`tti_torch.model.quantize.quantize_weights`: ``qkernel`` int8,
+    ``qscale``, ``bias``, ``ascale``) the ``qmode`` model, ``qkernel``
+    (kh, kw, I, O) becoming ``qweight`` (O, kh, kw, I)."""
     out: dict[str, np.ndarray] = {}
     stats_root = variables_np.get("batch_stats")
 
@@ -373,14 +377,19 @@ def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
             if isinstance(child, dict):
                 walk(child, None if stats is None else stats.get(key), path + [key])
                 continue
-            arr = np.asarray(child, np.float32)
+            arr = np.asarray(child)
+            if arr.dtype.kind == "f":
+                arr = arr.astype(np.float32, copy=False)
+            if key == "qkernel":  # (kh, kw, I, O) int8 -> (O, kh, kw, I), kernel E's K order
+                out[".".join(path + ["qweight"])] = np.ascontiguousarray(arr.transpose(3, 0, 1, 2))
+                continue
             name = ".".join(path + ["weight" if key == "kernel" else key])
             if key == "kernel":
                 if path[-1].startswith("upsample"):
                     arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
                 else:
                     arr = arr.transpose(3, 2, 0, 1)
-            out[name] = np.ascontiguousarray(arr)
+            out[name] = np.ascontiguousarray(arr) if arr.ndim else arr.copy()  # keeps 0-d
 
     walk(variables_np["params"], stats_root, [])
     return out
@@ -389,8 +398,8 @@ def from_flax_variables(variables_np: Tree) -> dict[str, np.ndarray]:
 def to_flax_variables(state_dict: dict[str, Any]) -> Tree:
     """Inverse of :func:`from_flax_variables`: a ``YOLOv8Seg`` state dict
     (tensors or arrays) -> the flax tree under flax's names, numpy float32
-    leaves: {'params'} for a folded model, {'params', 'batch_stats'} for an
-    unfolded one."""
+    leaves (int8 ``qweight`` -> ``qkernel``, int8): {'params'} for a folded or
+    quantized model, {'params', 'batch_stats'} for an unfolded one."""
     params: Tree = {}
     stats: Tree = {}
 
@@ -400,8 +409,13 @@ def to_flax_variables(state_dict: dict[str, Any]) -> Tree:
         tree[path[-1]] = value
 
     for name, value in state_dict.items():
-        arr = np.asarray(value.detach().cpu().float() if hasattr(value, "detach") else value,
-                         np.float32)
+        if hasattr(value, "detach"):  # a tensor: int8 as it is, every other dtype as float32
+            value = value.detach().cpu()
+            arr = value.numpy() if str(value.dtype) == "torch.int8" else value.float().numpy()
+        else:
+            arr = np.asarray(value)
+        if arr.dtype != np.int8:
+            arr = arr.astype(np.float32, copy=False)
         *path, leaf = name.split(".")
         if path and path[-1] == "bn":
             if leaf in _BN_STATS.values():
@@ -410,11 +424,14 @@ def to_flax_variables(state_dict: dict[str, Any]) -> Tree:
             else:
                 put(params, path + [{v: k for k, v in _BN_PARAMS.items()}[leaf]], arr)
             continue
+        if leaf == "qweight":
+            put(params, path + ["qkernel"], np.ascontiguousarray(arr.transpose(1, 2, 3, 0)))
+            continue
         if leaf == "weight":
             if path[-1].startswith("upsample"):
                 arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 arr = arr.transpose(2, 3, 1, 0)
             leaf = "kernel"
-        put(params, path + [leaf], np.ascontiguousarray(arr))
+        put(params, path + [leaf], np.ascontiguousarray(arr) if arr.ndim else arr)
     return {"params": params, "batch_stats": stats} if stats else {"params": params}

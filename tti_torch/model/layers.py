@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tti_torch.kernels.int8conv import act_scale_per_sample, int8_conv2d, pack_qweight
+
 
 def make_divisible(x: float, divisor: int = 8) -> int:
     return int(math.ceil(x / divisor) * divisor)
@@ -85,21 +87,60 @@ class BatchNorm(nn.Module):
         return y
 
 
+QMODES = ("", "int8", "int8s")
+
+
 class Conv(nn.Module):
     """Conv2d + BN + SiLU. ``folded``: BN folded into the conv's weights and
     bias; otherwise Conv2d without bias, then :class:`BatchNorm`. ``pad=None``
     is 'same' padding for odd kernels; 0 is VALID (the caller pre-pads, as
-    the s2d stem does)."""
+    the s2d stem does).
+
+    ``qmode`` "int8" / "int8s" (requires ``folded``): the W8A8 block of
+    :mod:`tti_torch.model.quantize`, one launch of kernel E
+    (:func:`tti_torch.kernels.int8conv.int8_conv2d`). Buffers: ``qweight``
+    (co, kh, kw, ci) int8 as the checkpoint holds it, ``qscale`` (co,) and
+    ``bias`` (co,) float32, for "int8s" ``ascale`` (0-d float32, the
+    calibrated input scale; "int8" takes each sample's scale from kernel F),
+    and ``qpacked``, the (co, Kp) layout kernel E reads, packed once when
+    the state dict is loaded (not saved). The float32 buffers stay float32
+    when the model is cast (:func:`tti_torch.parallel.runtime.inference_model`).
+    """
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
-                 pad: int | None = None, act: bool = True, folded: bool = True) -> None:
+                 pad: int | None = None, act: bool = True, folded: bool = True,
+                 qmode: str = "") -> None:
         super().__init__()
-        self.conv = Conv2d(c1, c2, k, s, autopad(k) if pad is None else pad, bias=folded)
+        if qmode not in QMODES:
+            raise ValueError(f"qmode must be one of {QMODES}, got {qmode!r}")
+        self.act = act
+        self.qmode = qmode
+        p = autopad(k) if pad is None else pad
+        if qmode:
+            if not folded:
+                raise ValueError(f"qmode={qmode!r} requires folded BatchNorm")
+            self.k, self.s, self.p = k, s, p
+            self.register_buffer("qweight", torch.zeros(c2, k, k, c1, dtype=torch.int8))
+            self.register_buffer("qscale", torch.ones(c2))
+            self.register_buffer("bias", torch.zeros(c2))
+            if qmode == "int8s":
+                self.register_buffer("ascale", torch.ones(()))
+            self.register_buffer("qpacked", pack_qweight(self.qweight), persistent=False)
+            return
+        self.conv = Conv2d(c1, c2, k, s, p, bias=folded)
         if not folded:
             self.bn = BatchNorm(c2)
-        self.act = act
+
+    def _load_from_state_dict(self, *args, **kwargs) -> None:
+        super()._load_from_state_dict(*args, **kwargs)
+        if self.qmode:
+            self.qpacked = pack_qweight(self.qweight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qmode:
+            xscale = self.ascale if self.qmode == "int8s" else act_scale_per_sample(x)
+            return int8_conv2d(x, self.qpacked, self.qscale, self.bias, xscale, self.k,
+                               self.s, self.p, self.act)
         x = self.conv(x)
         if hasattr(self, "bn"):
             x = self.bn(x)
@@ -107,12 +148,14 @@ class Conv(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Two 3x3 Convs with optional residual (C2f inner block, e=1.0)."""
+    """Two 3x3 Convs with optional residual (C2f inner block, e=1.0).
+    ``qmode`` here and in the blocks below goes to every :class:`Conv`."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True, folded: bool = True) -> None:
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, folded: bool = True,
+                 qmode: str = "") -> None:
         super().__init__()
-        self.cv1 = Conv(c1, c2, 3, folded=folded)
-        self.cv2 = Conv(c2, c2, 3, folded=folded)
+        self.cv1 = Conv(c1, c2, 3, folded=folded, qmode=qmode)
+        self.cv2 = Conv(c2, c2, 3, folded=folded, qmode=qmode)
         self.add = shortcut and c1 == c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,14 +168,14 @@ class C2f(nn.Module):
     Bottlenecks are attributes m0, m1, ... as in the flax tree."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
-                 e: float = 0.5, folded: bool = True) -> None:
+                 e: float = 0.5, folded: bool = True, qmode: str = "") -> None:
         super().__init__()
         self.c = int(c2 * e)
         self.n = n
-        self.cv1 = Conv(c1, 2 * self.c, 1, folded=folded)
+        self.cv1 = Conv(c1, 2 * self.c, 1, folded=folded, qmode=qmode)
         for i in range(n):
-            setattr(self, f"m{i}", Bottleneck(self.c, self.c, shortcut, folded))
-        self.cv2 = Conv((2 + n) * self.c, c2, 1, folded=folded)
+            setattr(self, f"m{i}", Bottleneck(self.c, self.c, shortcut, folded, qmode))
+        self.cv2 = Conv((2 + n) * self.c, c2, 1, folded=folded, qmode=qmode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = list(self.cv1(x).split(self.c, dim=1))
@@ -144,10 +187,11 @@ class C2f(nn.Module):
 class SPPF(nn.Module):
     """Spatial pyramid pooling (fast): 3 chained k-pools, concat, project."""
 
-    def __init__(self, c1: int, c2: int, k: int = 5, folded: bool = True) -> None:
+    def __init__(self, c1: int, c2: int, k: int = 5, folded: bool = True,
+                 qmode: str = "") -> None:
         super().__init__()
-        self.cv1 = Conv(c1, c1 // 2, 1, folded=folded)
-        self.cv2 = Conv(c1 // 2 * 4, c2, 1, folded=folded)
+        self.cv1 = Conv(c1, c1 // 2, 1, folded=folded, qmode=qmode)
+        self.cv2 = Conv(c1 // 2 * 4, c2, 1, folded=folded, qmode=qmode)
         self.k = k
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -174,21 +218,22 @@ class Proto(nn.Module):
     """
 
     def __init__(self, c1: int, c_hidden: int, nm: int = 32, ups: int = 1,
-                 subpixel: bool = False, folded: bool = True) -> None:
+                 subpixel: bool = False, folded: bool = True, qmode: str = "") -> None:
         super().__init__()
         self.nm = nm
         self.ups = ups
         self.subpixel = subpixel
-        self.cv1 = Conv(c1, c_hidden, 3, folded=folded)
+        q = dict(folded=folded, qmode=qmode)
+        self.cv1 = Conv(c1, c_hidden, 3, **q)
         self.upsample = ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
-        self.cv2 = Conv(c_hidden, c_hidden, 3, folded=folded)
+        self.cv2 = Conv(c_hidden, c_hidden, 3, **q)
         if ups == 2 and subpixel:
-            self.cv3sp = Conv(c_hidden, 4 * nm, 1, folded=folded)
+            self.cv3sp = Conv(c_hidden, 4 * nm, 1, **q)
             return
         if ups == 2:
             self.upsample2 = ConvTranspose2d(c_hidden, c_hidden, 2, 2, bias=True)
-            self.cv2b = Conv(c_hidden, c_hidden, 3, folded=folded)
-        self.cv3 = Conv(c_hidden, nm, 1, folded=folded)
+            self.cv2b = Conv(c_hidden, c_hidden, 3, **q)
+        self.cv3 = Conv(c_hidden, nm, 1, **q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cv2(self.upsample(self.cv1(x)))

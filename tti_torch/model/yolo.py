@@ -78,28 +78,30 @@ class Segment(nn.Module):
     same level map, run as one conv ``cvh_{level}`` with their output
     channels stacked (weights from
     :func:`tti_torch.model.checkpoint.fuse_head_entries`), whose output is
-    sliced into the box, class and coefficient groups. Exact."""
+    sliced into the box, class and coefficient groups. Exact. ``qmode``
+    quantizes every ``Conv`` block; the exit 1x1 convs ``*_{level}_2`` and
+    the proto head's upsamples stay float, as in the reference."""
 
     def __init__(self, nc: int = 2, nm: int = 32, npr: int = 64,
                  ch: tuple[int, int, int] = (64, 128, 256), mask_stride: int = 4,
                  proto_head: str = "deconv", folded: bool = True,
-                 fused_entry: bool = False) -> None:
+                 fused_entry: bool = False, qmode: str = "") -> None:
         super().__init__()
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
         c3 = max(ch[0], min(nc, 100))
         c4 = max(ch[0] // 4, nm)
         self.split = (c2, c3, c4)
         self.fused_entry = fused_entry
-        f = folded
+        q = dict(folded=folded, qmode=qmode)
         self.proto = Proto(ch[0], npr, nm, ups={4: 1, 2: 2}[mask_stride],
-                           subpixel=proto_head == "subpixel", folded=f)
+                           subpixel=proto_head == "subpixel", **q)
         for level, c in enumerate(ch):
             if fused_entry:
-                setattr(self, f"cvh_{level}", Conv(c, c2 + c3 + c4, 3, folded=f))
+                setattr(self, f"cvh_{level}", Conv(c, c2 + c3 + c4, 3, **q))
             for name, width, out in (("cv2", c2, 4 * REG_MAX), ("cv3", c3, nc), ("cv4", c4, nm)):
                 if not fused_entry:
-                    setattr(self, f"{name}_{level}_0", Conv(c, width, 3, folded=f))
-                setattr(self, f"{name}_{level}_1", Conv(width, width, 3, folded=f))
+                    setattr(self, f"{name}_{level}_0", Conv(c, width, 3, **q))
+                setattr(self, f"{name}_{level}_1", Conv(width, width, 3, **q))
                 setattr(self, f"{name}_{level}_2", Conv2d(width, out, 1))
 
     def _branch(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
@@ -147,41 +149,44 @@ class YOLOv8Seg(nn.Module):
     it. ``folded_bn``: folded BatchNorm (inference) or BatchNorm with running
     statistics (training). ``fused_head``: :class:`Segment`'s fused entry
     convs. ``dtype``: the compute dtype the input is cast to
-    (None: the parameters' dtype).
+    (None: the parameters' dtype). ``qmode``: "" (float) | "int8" | "int8s",
+    the W8A8 ``Conv`` blocks of :mod:`tti_torch.model.quantize` (folded BN
+    only).
     """
 
     def __init__(self, variant: str = "n", nc: int = 2, nm: int = 32,
                  mask_stride: int = 4, proto_head: str = "deconv",
                  s2d_input: bool = True, s2d_stem: bool = True, folded_bn: bool = True,
-                 dtype: torch.dtype | None = None, fused_head: bool = False) -> None:
+                 dtype: torch.dtype | None = None, fused_head: bool = False,
+                 qmode: str = "") -> None:
         super().__init__()
         cc = model_channels(variant)
         n3, n6 = cc["depth3"], cc["depth6"]
-        f = folded_bn
+        q = dict(folded=folded_bn, qmode=qmode)
         self.s2d_stem = s2d_stem
         self.s2d_input = s2d_input and s2d_stem
         self.dtype = dtype
         if s2d_stem:
-            self.m0s2d = Conv(12, cc["c64"], 2, 1, pad=0, folded=f)
+            self.m0s2d = Conv(12, cc["c64"], 2, 1, pad=0, **q)
         else:
-            self.m0 = Conv(3, cc["c64"], 3, 2, folded=f)
-        self.m1 = Conv(cc["c64"], cc["c128"], 3, 2, folded=f)
-        self.m2 = C2f(cc["c128"], cc["c128"], n3, True, folded=f)
-        self.m3 = Conv(cc["c128"], cc["c256"], 3, 2, folded=f)
-        self.m4 = C2f(cc["c256"], cc["c256"], n6, True, folded=f)
-        self.m5 = Conv(cc["c256"], cc["c512"], 3, 2, folded=f)
-        self.m6 = C2f(cc["c512"], cc["c512"], n6, True, folded=f)
-        self.m7 = Conv(cc["c512"], cc["c1024"], 3, 2, folded=f)
-        self.m8 = C2f(cc["c1024"], cc["c1024"], n3, True, folded=f)
-        self.m9 = SPPF(cc["c1024"], cc["c1024"], 5, folded=f)
-        self.m12 = C2f(cc["c1024"] + cc["c512"], cc["c512"], n3, False, folded=f)
-        self.m15 = C2f(cc["c512"] + cc["c256"], cc["c256"], n3, False, folded=f)
-        self.m16 = Conv(cc["c256"], cc["c256"], 3, 2, folded=f)
-        self.m18 = C2f(cc["c256"] + cc["c512"], cc["c512"], n3, False, folded=f)
-        self.m19 = Conv(cc["c512"], cc["c512"], 3, 2, folded=f)
-        self.m21 = C2f(cc["c512"] + cc["c1024"], cc["c1024"], n3, False, folded=f)
+            self.m0 = Conv(3, cc["c64"], 3, 2, **q)
+        self.m1 = Conv(cc["c64"], cc["c128"], 3, 2, **q)
+        self.m2 = C2f(cc["c128"], cc["c128"], n3, True, **q)
+        self.m3 = Conv(cc["c128"], cc["c256"], 3, 2, **q)
+        self.m4 = C2f(cc["c256"], cc["c256"], n6, True, **q)
+        self.m5 = Conv(cc["c256"], cc["c512"], 3, 2, **q)
+        self.m6 = C2f(cc["c512"], cc["c512"], n6, True, **q)
+        self.m7 = Conv(cc["c512"], cc["c1024"], 3, 2, **q)
+        self.m8 = C2f(cc["c1024"], cc["c1024"], n3, True, **q)
+        self.m9 = SPPF(cc["c1024"], cc["c1024"], 5, **q)
+        self.m12 = C2f(cc["c1024"] + cc["c512"], cc["c512"], n3, False, **q)
+        self.m15 = C2f(cc["c512"] + cc["c256"], cc["c256"], n3, False, **q)
+        self.m16 = Conv(cc["c256"], cc["c256"], 3, 2, **q)
+        self.m18 = C2f(cc["c256"] + cc["c512"], cc["c512"], n3, False, **q)
+        self.m19 = Conv(cc["c512"], cc["c512"], 3, 2, **q)
+        self.m21 = C2f(cc["c512"] + cc["c1024"], cc["c1024"], n3, False, **q)
         self.m22 = Segment(nc, nm, cc["npr"], (cc["p3"], cc["p4"], cc["p5"]),
-                           mask_stride, proto_head, folded=f, fused_entry=fused_head)
+                           mask_stride, proto_head, fused_entry=fused_head, **q)
 
     def forward(self, x: torch.Tensor) -> RawPredictions:
         dtype = self.dtype or next(self.parameters()).dtype
@@ -204,7 +209,7 @@ class YOLOv8Seg(nn.Module):
 def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int = 4,
                  proto_head: str = "deconv", s2d_input: bool = True, s2d_stem: bool = True,
                  folded_bn: bool = True, dtype: torch.dtype | None = None,
-                 fused_head: bool = False) -> YOLOv8Seg:
+                 fused_head: bool = False, qmode: str = "") -> YOLOv8Seg:
     if variant not in SCALES:
         raise ValueError(f"unknown variant {variant!r}; choose from {sorted(SCALES)}")
     if mask_stride not in (2, 4):
@@ -212,7 +217,7 @@ def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int
     if proto_head not in ("deconv", "subpixel"):
         raise ValueError(f"proto_head must be 'deconv' or 'subpixel', got {proto_head!r}")
     return YOLOv8Seg(variant, nc, nm, mask_stride, proto_head, s2d_input, s2d_stem, folded_bn,
-                     dtype, fused_head)
+                     dtype, fused_head, qmode)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -15,9 +15,11 @@ reference notes its parked TPU kernel), ``warp_block`` and
 ``warp_col_expand`` (the banded and the column-expanded two-pass warp),
 ``lazy_decode``
 (DFL decode for the NMS candidates only), ``fused_head`` (one entry conv
-per head level), ``fold_bn`` and ``maskstats_logits`` (the mask-logit dtype
-of both readouts). Fixed: the s2d stem, no int8, exact top-k. When the
-frames are rectified, measurement runs with zero distortion and
+per head level), ``fold_bn``, ``maskstats_logits`` (the mask-logit dtype
+of both readouts) and ``quant`` / ``quant_scales`` (``TTI_QUANT``: int8
+W8A8 ``Conv`` blocks through kernels E and F, dynamic per-sample or
+calibrated static activation scales). Fixed: the s2d stem, exact top-k.
+When the frames are rectified, measurement runs with zero distortion and
 ``undistort_iters=0``: every pixel coordinate after the warp is already
 ideal.
 
@@ -46,7 +48,8 @@ from tti_torch.measure.pipeline import (
 from tti_torch.model.checkpoint import (
     fold_batchnorm, from_flax_variables, fuse_head_entries, stem_to_s2d,
 )
-from tti_torch.model.layers import BatchNorm
+from tti_torch.model.layers import BatchNorm, Conv
+from tti_torch.model.quantize import check_quant, load_act_scales, quantize_weights
 from tti_torch.model.yolo import (
     RawPredictions, create_model, depth_to_space2, space_to_depth2,
 )
@@ -101,26 +104,50 @@ class PipelineOutputs:
 
 def inference_model(model_cfg: ModelConfig, variables: dict, device: torch.device,
                     s2d_input: bool = True, fused_head: bool = False,
-                    fold_bn: bool = True) -> torch.nn.Module:
+                    fold_bn: bool = True, quant: str = "", quant_scales: str | None = None,
+                    s2d_stem: bool = True) -> torch.nn.Module:
     """The checkpoint's flax tree (numpy leaves) -> the inference form the
     step serves: the space-to-depth stem, then (``fused_head``) the fused
-    head entries, then (``fold_bn``) folded BatchNorm, in the reference's
-    order; in the config's compute dtype, channels_last, on ``device``.
-    Unfolded, the BatchNorm layers keep float32 parameters and running
-    statistics and normalise with those (eval mode). ``s2d_input``: the
-    model takes the (B, H/2, W/2, 12) blocked input (else it blocks itself)."""
-    tree = stem_to_s2d(variables)
+    head entries, then (``fold_bn``) folded BatchNorm, then (``quant``
+    "int8" | "int8s") the int8 weights, in the reference's order; in the
+    config's compute dtype, channels_last, on ``device``. Unfolded, the
+    BatchNorm layers keep float32 parameters and running statistics and
+    normalise with those (eval mode); quantized, the blocks' scales and
+    bias stay float32. ``s2d_input``: the model takes the (B, H/2, W/2, 12)
+    blocked input (else it blocks itself). ``quant_scales``: the
+    calibration file of the block scales ``int8s`` needs
+    (:func:`load_act_scales`); a file made on the plain-stem model names the
+    stem ``m0``, which the s2d stem serves as ``m0s2d`` (the same weights,
+    relabelled). A ``quant`` that cannot apply raises ``ConfigError`` with
+    the reference's message (:func:`check_quant`, :func:`load_act_scales`).
+    ``s2d_stem=False`` keeps the plain k3/s2 stem (``eval``'s int8 model,
+    as the reference serves it)."""
+    check_quant(quant, fold_bn, fused_head)
+    scales = load_act_scales(quant_scales) if quant == "int8s" else None
+    tree = stem_to_s2d(variables) if s2d_stem else variables
     if fused_head:
         tree = fuse_head_entries(tree)
     if fold_bn:
         tree = fold_batchnorm(tree)
+    if quant:
+        if scales is not None and s2d_stem and "m0" in scales and "m0s2d" not in scales:
+            scales["m0s2d"] = scales.pop("m0")
+        tree = quantize_weights(tree, act_scales=scales)
     state = from_flax_variables(tree)
     model = create_model(model_cfg.variant, nc=model_cfg.num_classes,
                          mask_stride=model_cfg.mask_stride, proto_head=model_cfg.proto_head,
-                         s2d_input=s2d_input, folded_bn=fold_bn, fused_head=fused_head)
+                         s2d_input=s2d_input, s2d_stem=s2d_stem, folded_bn=fold_bn,
+                         fused_head=fused_head, qmode=quant)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
-    model = model.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    model = model.to(device=device).eval().requires_grad_(False)
+    # The quantized blocks' float32 buffers, put back after the cast.
+    keep = [(m, name, getattr(m, name)) for m in model.modules()
+            if isinstance(m, Conv) and m.qmode
+            for name in ("qscale", "bias", "ascale") if hasattr(m, name)]
+    model = model.to(dtype=dtype)
+    for m, name, buf in keep:
+        setattr(m, name, buf)
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.float()
@@ -206,6 +233,10 @@ class InspectionPipeline:
     candidates only (:func:`nms_from_raw`).
     ``fused_head``: one entry conv per head level. ``fold_bn``: serve folded
     BatchNorm (False: BatchNorm with running statistics).
+    ``quant``: "" | "int8" (W8A8, each sample's activation scale from
+    kernel F) | "int8s" (W8A8, the static scales of the JSON file
+    ``quant_scales`` from ``tools/calibrate_int8_torch.py`` or
+    ``tools/calibrate_int8.py``); needs folded BatchNorm and no fused head.
     ``maskstats_logits``: "auto" (bf16 soft, f32 binary) | "f32" | "bf16",
     the mask-logit dtype of both readouts.
     ``return_masks``: also return proto-resolution binary masks.
@@ -220,7 +251,8 @@ class InspectionPipeline:
                  warp_pass1: str = "einsum", warp_block: int | None = None,
                  warp_col_expand: bool = False, lazy_decode: bool = False,
                  fused_head: bool = False, fold_bn: bool = True,
-                 maskstats_logits: str = "auto") -> None:
+                 maskstats_logits: str = "auto", quant: str = "",
+                 quant_scales: str | None = None) -> None:
         if remap not in ("twopass", "packed"):
             raise ConfigError(f"remap must be 'twopass' or 'packed', got {remap!r}")
         if warp_pass1 not in ("einsum", "kernel"):
@@ -252,8 +284,10 @@ class InspectionPipeline:
             frame_hw[0], frame_hw[1], model_cfg.image_size, model_cfg.letterbox)
         self.dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
 
+        self.quant = quant
         self.model = inference_model(model_cfg, variables, self.device, s2d_input=warp_s2d,
-                                     fused_head=fused_head, fold_bn=fold_bn)
+                                     fused_head=fused_head, fold_bn=fold_bn, quant=quant,
+                                     quant_scales=quant_scales)
 
         self.roi_bounds: tuple[float, float, float, float] | None = None
         if roi is not None and roi.enabled:
@@ -428,7 +462,10 @@ class InspectionPipeline:
 class DualPipeline:
     """Two models on one preprocessed batch: the primary's preprocess runs
     once, then both models run their full chain (forward, NMS, telemetry and,
-    where calibrated, measurement) on the same device buffer."""
+    where calibrated, measurement) on the same device buffer. Each model's
+    step is built by its caller; under ``tti``'s switches both take the same
+    arguments (``RuntimeSwitches.pipeline_kwargs``), ``quant`` and
+    ``quant_scales`` included, as ``tti``'s environment gives both."""
 
     def __init__(self, primary: InspectionPipeline, secondary: InspectionPipeline) -> None:
         if primary.spec != secondary.spec:
