@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``tti_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--first-design PATH] [--ablate]
+    python3 chip_smoke.py [--first-design PATH] [--first-design-int8 PATH] [--ablate]
 
 ``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
 file as the commit that added the port's measurement path had it); it is
 built beside the current kernels and timed on the same inputs in phase 9,
-before and after them. Nothing else uses it. ``--ablate`` runs phases 1-2
+before and after them. ``--first-design-int8`` names a copy of kernel E's
+first design (``git show 7a2104c:tti_torch/kernels/csrc/int8conv.cu``):
+phase 5c builds it, holds its
+output equal to E's on every block input of the deploy int8 forward and
+times it beside E there and, bound in E's place, on the whole deploy int8
+step (E, then it, then E again). Nothing else uses either. ``--ablate`` runs phases 1-2
 and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
 part of the design out or tune it otherwise, timed on synthetic inputs
 shaped like the steps' (what each part costs or buys).
@@ -72,7 +77,10 @@ exits non-zero without printing the final result line:
    3x3 and 1x1 shapes; K = 2304; a C2f channel slice whose other channels F
    must not see; an all-zero input, F's 1e-12 floor; an accumulator above
    2^24; the codes alone through identity 1x1 weights; bf16 and float32;
-   per-sample and static scales): F bit-equal, E bit-equal before SiLU and
+   per-sample and static scales; outputs that are not a multiple of E's
+   tile, batch 1 at the smallest deploy block, co 128 and 256, two TMA
+   boxes, NCHW inputs, a walk across 33 samples with scales 1e-3 to 1e3
+   apart, C2f slices at channels 16, 32, 64 and 128): F bit-equal, E bit-equal before SiLU and
    within 1 ulp after, every call launched twice with equal outputs. Then
    the deploy and headline steps under ``quant="int8"`` and ``"int8s"`` at
    batch 128: E 66 launches per step, F 66 (int8) or 0 (int8s), A or B and
@@ -89,7 +97,10 @@ exits non-zero without printing the final result line:
    turns with the bf16 step; the mm report's first 16 scenes through the deploy int8 and int8s steps
    under phase 8's gate; E's time on the deploy step's largest blocks
    beside its bound, cuDNN's bf16 convolution and (1x1) ``torch._int_mm``,
-   F's beside its bound; the contract exactly (every detection at IoU >
+   F's beside its bound; E on every one of the 66 block inputs of the
+   deploy int8 forward at batch 128, a table sorted by ms - bound ms and
+   the sums, E's time per step against its bound per step (the headline's
+   bound per step too); the contract exactly (every detection at IoU >
    0.9) on ``tti``'s own scene (the test's: the mm report's seed-7 scene,
    imgsz 640, float32), int8 and int8s; ``TTI_QUANT=int8 python -m tti_torch.cli run
    --synthetic --max-frames 2 --skip-calibration`` in a subprocess (exit 0,
@@ -1623,7 +1634,9 @@ def check_int8_kernels(torch, ik) -> dict:
     2304, a C2f channel slice (F must not see the other channels), an
     all-zero input (F's 1e-12 floor), an accumulator above 2^24 and the
     codes alone (identity 1x1 weights), in bf16 and float32, per-sample
-    and static scales."""
+    and static scales; then E's tiles, walk and routes (ragged tiles, batch
+    1, channel groups, two TMA boxes, NCHW inputs, a walk across samples,
+    C2f slices at channels 16, 32, 64 and 128)."""
     g = torch.Generator(device="cuda").manual_seed(8)
     cl = torch.channels_last
 
@@ -1664,13 +1677,13 @@ def check_int8_kernels(torch, ik) -> dict:
     qp, ws, b = weights(32, 3, 32)
     check_int8_call(torch, ik, "C2f channel slice", sl, qp, ws, b, 3, 1, 1)
     check(float(ik.act_scale_per_sample(sl).max()) < 1e3 / 127, "F read outside the slice")
-    # Loads narrower than 16 bytes (a slice 8 bytes off alignment) take E's
-    # direct route, as the stems do.
+    # A slice 8 bytes off alignment: TMA refuses it, E takes its ring route
+    # (8-byte cp.async copies), as the s2d stem does.
     base = act((4, 24, 20, 24))
     sl = base[:, 4:20]
     check(sl.data_ptr() % 16 == 8, "the slice is 8 bytes off alignment")
     qp, ws, b = weights(32, 3, 16)
-    check_int8_call(torch, ik, "3x3 ci 16, direct route (8-byte loads)", sl, qp, ws, b, 3, 2, 1)
+    check_int8_call(torch, ik, "3x3 ci 16, the ring route (8-byte copies)", sl, qp, ws, b, 3, 2, 1)
     # All zeros: F's floor, and E gives SiLU(bias).
     zero = torch.zeros((2, 16, 20, 24), dtype=torch.bfloat16, device="cuda").contiguous(
         memory_format=cl)
@@ -1695,6 +1708,40 @@ def check_int8_kernels(torch, ik) -> dict:
     check_int8_call(torch, ik, "the codes (identity 1x1)", act((4, 32, 24, 32), scale=5.0),
                     ik.pack_qweight(eye), torch.ones(32, device="cuda"),
                     torch.zeros(32, device="cuda"), 1, 1, 0, act=False)
+    # The redesign's tiles, walk and routes: outputs that are not a multiple
+    # of the tile (rows and 64 columns), batch 1 at the smallest deploy
+    # block, co 128 and 256 (channel groups at s2), two TMA boxes (ci 384
+    # and 512), inputs in NCHW order (the ring, one element per copy), a
+    # walk across 33 samples whose scales lie 1e-3 to 1e3 apart, and C2f
+    # slices at every channel offset the model uses.
+    cases = [
+        ("ragged tiles 70x150 -> 64", act((3, 32, 70, 150)), weights(64, 3, 32), 3, 1, 1),
+        ("batch 1, P5 ci 256 -> 32", act((1, 256, 23, 30)), weights(32, 3, 256), 3, 1, 1),
+        ("batch 1, P5 ci 256 -> 64", act((1, 256, 23, 30)), weights(64, 3, 256), 3, 1, 1),
+        ("1x1 ci 64 -> 128", act((2, 64, 46, 60)), weights(128, 1, 64), 1, 1, 0),
+        ("1x1 ci 512 -> 256, two boxes", act((2, 512, 12, 20)), weights(256, 1, 512), 1, 1, 0),
+        ("1x1 ci 384 -> 128, two boxes", act((2, 384, 12, 20)), weights(128, 1, 384), 1, 1, 0),
+        ("3x3 ci 128 -> 256, s2", act((2, 128, 46, 60)), weights(256, 3, 128), 3, 2, 1),
+        ("NCHW ci 16, bf16", act((2, 16, 20, 24)).contiguous(), weights(16, 3, 16), 3, 1, 1),
+        ("NCHW ci 16, float32", act((2, 16, 20, 24), torch.float32).contiguous(),
+         weights(32, 3, 16), 3, 2, 1),
+        ("float32 ci 64 -> 128, s2 (32-column tiles)", act((2, 64, 92, 120), torch.float32),
+         weights(128, 3, 64), 3, 2, 1),
+    ]
+    for label, x, (qp, ws, b), k, s, p in cases:
+        check_int8_call(torch, ik, label, x, qp, ws, b, k, s, p)
+        static = (x.float().abs().max() / 127.0).reshape(())
+        check_int8_call(torch, ik, label + ", static scale", x, qp, ws, b, k, s, p, static)
+    spread = torch.logspace(-3, 3, 33, device="cuda").view(-1, 1, 1, 1)
+    walk = (act((33, 32, 9, 70), torch.float32) * spread).to(torch.bfloat16).contiguous(
+        memory_format=cl)
+    qp, ws, b = weights(32, 3, 32)
+    check_int8_call(torch, ik, "a walk across 33 samples", walk, qp, ws, b, 3, 1, 1)
+    for c in (16, 32, 64, 128):
+        base = act((2, 2 * c, 20, 24))
+        base[:, :c] = 1e4
+        qp, ws, b = weights(c, 3, c)
+        check_int8_call(torch, ik, f"C2f slice at channel {c}", base[:, c:], qp, ws, b, 3, 1, 1)
     torch.cuda.synchronize()
     log(f"  kernels E and F against their plain versions on {INT8_TALLY['calls']} synthetic "
         f"calls: F bit-equal, E bit-equal before SiLU, SiLU within "
@@ -1952,6 +1999,106 @@ def time_int8_layers(torch, ik, pipe, frames, flush, n_largest=4) -> dict:
     return {"layers": rows, "row": next(t for t in rows if t["block"] == row_block), "f": f}
 
 
+def _first_int8_route(x, c, k, stride, bn):
+    """The first design's choice of route (its wrapper's): the halo
+    route's bytes per window pixel, or 0 for the direct route."""
+    from tti_torch.kernels import int8conv as ik
+
+    load_bytes = ik._vec_width(x, c) * x.element_size()
+    cp = (c if c % 32 == 16 else c + 16) if stride == 1 else c + 8
+    hh, hw = 7 * stride + k, 15 * stride + k
+    smem = (hh * hw * cp + 15) // 16 * 16 + 2 * bn * 48
+    return cp if c % 16 == 0 and load_bytes == 16 and smem <= 100 * 1024 else 0
+
+
+def load_first_int8(torch, path):
+    """Build kernel E's first design (its ``int8conv.cu``, from ``path``)
+    into its own library and return ``call(x, qpacked, wscale, bias,
+    xscale, k, stride, pad, act=True)``, which launches it as its own
+    wrapper did (its C interface and route choice; not counted)."""
+    import ctypes
+
+    from tti_torch.kernels import build as kbuild
+    from tti_torch.kernels import int8conv as ik
+
+    out = kbuild.BUILD_DIR / "libtti_int8conv_first_design.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out), path], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tti_int8_conv2d.argtypes = [p, ll, ll, ll, ll, i, i, i, i, p, i, i, i, i, i, p, p, p, i,
+                                    p, i, i, i, i, i, i, i, p]
+    lib.tti_int8_conv2d.restype = i
+
+    def call(x, qpacked, wscale, bias, xscale, k, stride, pad, act=True):
+        b, c, h, w = x.shape
+        co, kp = qpacked.shape
+        bn = next(n for n in (64, 32, 16) if co % n == 0)
+        ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        y = torch.empty((b, co, ho, wo), dtype=x.dtype, device=x.device,
+                        memory_format=torch.channels_last)
+        err = lib.tti_int8_conv2d(
+            x.data_ptr(), *x.stride(), b, c, h, w, qpacked.data_ptr(), kp, co, k, stride, pad,
+            wscale.data_ptr(), bias.data_ptr(), xscale.data_ptr(), int(xscale.dim() == 1),
+            y.data_ptr(), ho, wo, int(act), int(x.dtype == torch.bfloat16),
+            ik._vec_width(x, c), bn, _first_int8_route(x, c, k, stride, bn),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"first design of kernel E: cudaError {err}")
+        return y
+
+    return call
+
+
+@contextlib.contextmanager
+def int8_conv_bound(call):
+    """The model's ``Conv`` blocks call ``call`` in kernel E's place."""
+    import tti_torch.model.layers as layers
+
+    saved = layers.int8_conv2d
+    layers.int8_conv2d = call
+    try:
+        yield
+    finally:
+        layers.int8_conv2d = saved
+
+
+def time_int8_blocks(torch, ik, blocks, flush, first=None) -> dict:
+    """Kernel E once on the input of every quantized block of one forward
+    (CUDA events, L2 flushed; 10 calls each) beside the block's bound and,
+    with ``first``, the first design on the same input, its output held equal
+    to E's. Prints the table sorted by ms - bound_ms and the sums over the
+    forward: E's time per step against its bound per step."""
+    rows = []
+    with torch.inference_mode():
+        for name, m, x in blocks:
+            xscale = ik.act_scale_per_sample(x) if m.qmode == "int8" else m.ascale
+            args = (x, m.qpacked, m.qscale, m.bias, xscale, m.k, m.s, m.p)
+            bound, bound_by, _ = int8_bound_ms(x, m.qpacked, m.k, m.s, m.p)
+            t = {"block": name, "shape": list(x.shape), "k": m.k, "stride": m.s,
+                 "co": m.qpacked.shape[0], "bound_ms": bound, "bound_by": bound_by,
+                 "ms": time_ms(torch, lambda: ik.int8_conv2d(*args), iters=10, flush=flush)}
+            if first is not None:
+                check(torch.equal(first(*args), ik.int8_conv2d(*args)),
+                      f"{name}: E's first design disagrees with the current one")
+                t["first_design_ms"] = time_ms(torch, lambda: first(*args), iters=10,
+                                               flush=flush)
+            rows.append(t)
+    rows.sort(key=lambda t: t["ms"] - t["bound_ms"], reverse=True)
+    sums = {k: sum(t[k] for t in rows) for k in ("ms", "bound_ms", "first_design_ms")
+            if k in rows[0]}
+    log(f"  E on each of the {len(rows)} blocks of one forward, sorted by ms - bound ms "
+        f"(ms, bound ms, x bound" + (", first design ms" if first else "") + "):")
+    for t in rows:
+        log(f"    {t['block']:16s} {str(tuple(t['shape'])):22s} k{t['k']} s{t['stride']} -> "
+            f"{t['co']:3d}: {t['ms']:8.4f} {t['bound_ms']:8.4f} {t['ms'] / t['bound_ms']:6.2f}x"
+            + (f" {t['first_design_ms']:8.4f}" if first else ""))
+    log(f"  E per step (sum over the blocks): {sums['ms']:.4f} ms against its bound "
+        f"{sums['bound_ms']:.4f} ms ({sums['ms'] / sums['bound_ms']:.2f}x)"
+        + (f"; the first design {sums['first_design_ms']:.4f} ms" if first else ""))
+    return {"blocks": rows, **{f"per_step_{k}": v for k, v in sums.items()}}
+
+
 def start_calibration(ckpt, imgsz, out_path):
     """``tools/calibrate_int8_torch.py --synth 16`` for a checkpoint at the
     configuration's imgsz, in a subprocess started now."""
@@ -1965,8 +2112,9 @@ def start_calibration(ckpt, imgsz, out_path):
 INT8_DIR = os.path.join(HERE, "build", "int8_smoke")
 
 
-def check_int8(torch, ms, wp, ik, flush) -> dict:
-    """Phase 5c (see the module docstring)."""
+def check_int8(torch, ms, wp, ik, flush, first_int8=None) -> dict:
+    """Phase 5c (see the module docstring). ``first_int8``: kernel E's
+    first design (:func:`load_first_int8`), timed beside E."""
     from step_syncs_torch import count_step_syncs
 
     t_phase = time.perf_counter()
@@ -2077,6 +2225,24 @@ def check_int8(torch, ms, wp, ik, flush) -> dict:
                 res["e_ms_per_step"] = sum(v for k, v in parts.items() if "int8_conv" in k)
                 res["f_ms_per_step"] = sum(v for k, v in parts.items() if "act_absmax" in k)
                 out["timing"] = time_int8_layers(torch, ik, pipe, frames, flush)
+                out["blocks"] = blk = time_int8_blocks(
+                    torch, ik, capture_block_inputs(torch, pipe, frames), flush, first_int8)
+                res["e_bound_ms_per_step"] = blk["per_step_bound_ms"]
+                if first_int8 is not None:
+                    # E per step from the profiler: the first design bound in
+                    # its place, then the current design again.
+                    e_step = lambda: sum(v for k, v in device_time(
+                        torch, lambda: pipe.step(frames), 2)[0].items() if "int8_conv" in k)
+                    with int8_conv_bound(first_int8):
+                        res["first_design_e_ms_per_step"] = e_step()
+                    res["e_ms_per_step_again"] = e_step()
+                    log(f"  {label}: E per step (profiler) {res['e_ms_per_step']:.3f} and "
+                        f"{res['e_ms_per_step_again']:.3f} ms, the first design between them "
+                        f"{res['first_design_e_ms_per_step']:.3f} ms")
+            elif quant == "int8":
+                res["e_bound_ms_per_step"] = sum(
+                    int8_bound_ms(x, m.qpacked, m.k, m.s, m.p)[0]
+                    for _, m, x in capture_block_inputs(torch, pipe, frames))
             out[label] = res
             log(f"  {label}: {t['frames_per_s']:.1f} frames/s at batch {BATCH} against bf16 "
                 f"{t['ref_frames_per_s']:.1f} ({t['frames_per_s'] / t['ref_frames_per_s'] - 1:+.1%}), "
@@ -2093,6 +2259,8 @@ def check_int8(torch, ms, wp, ik, flush) -> dict:
                 + (f"; E {res['e_ms_per_step']:.3f} and F {res['f_ms_per_step']:.3f} of "
                    f"{res['device_ms_per_step']:.3f} device ms per step"
                    if "e_ms_per_step" in res else "")
+                + (f"; E's bound per step {res['e_bound_ms_per_step']:.3f} ms"
+                   if "e_bound_ms_per_step" in res else "")
                 + ("; mm report (16 scenes): " + "; ".join(
                     f"{k} {v['coverage']} p50 {v['p50']:.4f} p95 {v['p95']:.4f}"
                     for k, v in res["report"].items()) if "report" in res else ""))
@@ -3248,6 +3416,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--first-design", metavar="PATH",
                         help="a copy of the first design of maskstats.cu, timed beside the kernels")
+    parser.add_argument("--first-design-int8", metavar="PATH",
+                        help="a copy of kernel E's first int8conv.cu (commit 7a2104c), timed "
+                             "beside kernel E in phase 5c")
     parser.add_argument("--ablate", action="store_true",
                         help="time variants of maskstats.cu on synthetic inputs, and nothing else")
     opts = parser.parse_args()
@@ -3292,6 +3463,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (g++, framering.cpp)")
 
     first = load_first_design(torch, opts.first_design) if opts.first_design else None
+    first_int8 = (load_first_int8(torch, opts.first_design_int8) if opts.first_design_int8
+                  else None)
     if opts.ablate:
         ablate(torch, ms, kbuild, first)
         log(card)
@@ -3342,7 +3515,7 @@ def main() -> int:
     log("int8 inference (kernels E and F; CUDA events, L2 flushed before each timed call):")
     flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    int8 = check_int8(torch, ms, wp, ik, flush)
+    int8 = check_int8(torch, ms, wp, ik, flush, first_int8)
 
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
@@ -3448,6 +3621,12 @@ def main() -> int:
         "library": "torch._int_mm, the integer product alone", "cudnn_bf16_ms": e["cudnn_bf16_ms"],
         "timed_on": f"the deploy int8 step's block {e['block']} at batch {BATCH}",
         "timed_shape": e["shape"], "ms_per_step": dep8["e_ms_per_step"],
+        "per_step_ms": int8["blocks"]["per_step_ms"],
+        "per_step_bound_ms": int8["blocks"]["per_step_bound_ms"],
+        "headline_per_step_bound_ms": int8["headline int8"]["e_bound_ms_per_step"],
+        **({"first_design_per_step_ms": int8["blocks"]["per_step_first_design_ms"],
+            "first_design_ms_per_step": dep8["first_design_e_ms_per_step"],
+            "ms_per_step_again": dep8["e_ms_per_step_again"]} if first_int8 else {}),
         "launches_per_step": {k: v["launches"]["int8_conv2d"] for k, v in int8.items()
                               if isinstance(v, dict) and "launches" in v},
         "other_blocks": [{k: t[k] for k in ("block", "shape", "ms", "plain_ms", "bound_ms",

@@ -354,28 +354,26 @@ def test_eval_serves_int8_with_the_plain_stem(tmp_path, monkeypatch, capsys):
     assert "box:" in capsys.readouterr().out
 
 
-def test_kernel_e_routes_every_block():
-    """Kernel E's route for each of the 66 blocks at the main path's
-    layouts (bf16, 16-byte loads): the s2d stem (ci 12) the direct route,
-    the other 65 the halo route, each window within the shared-memory
-    budget; the window's pixel stride puts the 8 rows of an mma fragment
-    (``stride`` pixels apart, 4 lanes each) in 32 distinct banks."""
-    from tti_torch.model.yolo import create_model
+@pytest.mark.parametrize("config", ["deploy", "headline"])
+def test_kernel_e_routes_every_block(config):
+    """Kernel E's route for each of the 66 blocks at the main path's layouts
+    (bf16, channels_last, the C2f slices in place): the s2d stem (24-byte
+    pixels) the ``cp.async`` ring, the other 65 TMA, each with a tile and
+    ring that fit shared memory and a grid no larger than its tiles; the
+    plain stem ``eval`` serves and an input 8 bytes off alignment take the
+    ring too."""
+    from tests.test_torch_int8_plan import block_inputs, plan_block
 
-    model = create_model("n", mask_stride=2, proto_head="subpixel", qmode="int8")
     routes = {}
-    for name, m in model.named_modules():
-        if isinstance(m, Conv):
-            c = m.qweight.shape[3]
-            routes[name] = ik.halo_route(c, m.k, m.s, 16, 64 if m.qweight.shape[0] >= 64 else 16)
-    assert len(routes) == 66 and [n for n, cp in routes.items() if not cp] == ["m0s2d"]
-    assert ik.halo_route(3, 3, 2, 2, 16) == 0  # the plain stem eval serves
-    assert ik.halo_route(64, 3, 1, 8, 64) == 0  # narrower loads
-    for c in (16, 32, 48, 64, 128, 192, 256, 384, 512):
-        for stride in (1, 2):
-            cp = ik.halo_pixel_bytes(c, stride)
-            banks = {(g * stride * cp // 4 + t) % 32 for g in range(8) for t in range(4)}
-            assert cp >= c and cp % 8 == 0 and len(banks) == 32, (c, stride, cp)
+    for name, shape, strides, offset, co, k, s, p in block_inputs(config):
+        pl = plan_block(shape, strides, offset, co, k, s, p)
+        assert pl.smem + ik.SMEM_SLACK <= ik.SMEM_LIMIT and 1 <= pl.grid <= pl.items
+        routes[name] = pl.route
+    assert len(routes) == 66
+    assert [n for n, r in routes.items() if r != ik.ROUTE_TMA] == ["m0s2d"]
+    (_, shape, strides, offset, co, k, s, p), *_ = block_inputs(config, plain_stem=True)
+    assert plan_block(shape, strides, offset, co, k, s, p).route == ik.ROUTE_RING
+    assert ik.input_route(64, 2, (64 * 20 * 24, 1, 64 * 24, 64), 8) == (ik.ROUTE_RING, 8)
 
 
 @pytest.fixture

@@ -28,6 +28,8 @@ written).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +38,7 @@ from tti_torch.kernels.build import load_library
 
 Tensor = torch.Tensor
 
-K_ALIGN = 32  # the kernel's K step (one mma.m16n8k32)
+K_ALIGN = 32  # the packed weights' K padding (one wgmma k32 step)
 
 # Kernel launches (plain-version calls are not counted).
 LAUNCHES = {"int8_conv2d": 0, "act_scale_per_sample": 0}
@@ -44,7 +46,6 @@ LAUNCHES = {"int8_conv2d": 0, "act_scale_per_sample": 0}
 _lib: ctypes.CDLL | None = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132  # H100 SXM: F spreads each batch over about two blocks per SM
-HALO_SMEM = 100 * 1024  # E's halo route: two blocks per SM
 
 
 def reset_launch_counts() -> None:
@@ -59,7 +60,7 @@ def build() -> ctypes.CDLL:
         lib = load_library("int8conv")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tti_int8_conv2d.argtypes = [p, ll, ll, ll, ll, i, i, i, i, p, i, i, i, i, i, p, p,
-                                        p, i, p, i, i, i, i, i, i, i, p]
+                                        p, i, p, i, i, i, i, p, p]
         lib.tti_int8_conv2d.restype = i
         lib.tti_act_scale_per_sample.argtypes = [p, ll, ll, ll, ll, i, i, i, i, i, i, i, i, p,
                                                  p, p]
@@ -130,25 +131,212 @@ def int8_conv2d_plain(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, 
 # ---------------------------------------------------------------------------
 
 
-def halo_pixel_bytes(c: int, stride: int) -> int:
-    """Bytes per pixel of the halo route's quantized window in shared memory:
-    ``c`` padded so that the 8 rows of an mma fragment, ``stride`` pixels
-    apart, fall in distinct shared-memory banks."""
-    if stride == 1:
-        return c if c % 32 == 16 else c + 16
-    return c + 8
+# Kernel E's planner: the route, the tile and the shared-memory layout of one
+# call, in the order of ``struct Geo`` in csrc/int8conv.cu (which takes them as
+# they are and checks only what it must).
+GEO_FIELDS = ("route", "vbytes", "tm", "stages", "bn", "groups", "cbox", "nbox", "planes",
+              "planes2", "cr", "wr", "wc", "wcp", "part", "cols", "tiles_x", "tiles_y", "items",
+              "region_bytes", "raw_bytes", "plane_bytes", "codes_bytes", "off_codes", "off_w",
+              "off_wsb", "off_stage", "off_bar", "smem", "stage_pitch", "nch", "ksteps",
+              "tx_bytes", "grid", "consumers")
+ROUTE_TMA, ROUTE_RING = 0, 1
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may opt into (H100)
+SMEM_SLACK = 128  # the kernel aligns its dynamic shared memory to 128 bytes
+TILE_COLS = 64  # rows of one wgmma m64 product: a tile row's output columns, at most
+TILE_WIDTHS = (64, 32, 16)  # output columns of a tile, widest first
+CONSUMER_COUNTS = (3, 2, 1)  # consumer warpgroups per block, most first
+TILE_ROWS = (8, 4, 2, 1)  # output rows of a tile, largest first
+BOX_CHANNELS = 256  # a TMA box's largest extent
 
 
-def halo_route(c: int, k: int, stride: int, load_bytes: int, bn: int) -> int:
-    """Kernel E's route for a block: the halo route's bytes per window pixel
-    (:func:`halo_pixel_bytes`), or 0 for the direct route. The halo route
-    takes 16-byte loads of whole 16-channel groups and a window (an 8 x 16
-    output tile's input, plus the two weight buffers) within
-    :data:`HALO_SMEM`; the stems (ci 3 and 12) go the direct route."""
-    cp = halo_pixel_bytes(c, stride)
-    hh, hw = 7 * stride + k, 15 * stride + k
-    smem = (hh * hw * cp + 15) // 16 * 16 + 2 * bn * 48
-    return cp if c % 16 == 0 and load_bytes == 16 and smem <= HALO_SMEM else 0
+def ring_depths(consumers: int) -> tuple[int, int]:
+    """Raw windows in the ring, most first: multiples of the consumer count
+    (consumer c owns the stages s = c mod consumers; see csrc/int8conv.cu)."""
+    return (2, 1) if consumers == 1 else (2 * consumers, consumers)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """One call of kernel E: the route (``ROUTE_TMA`` or ``ROUTE_RING``),
+    ``vbytes`` (the ring's bytes per copy: 16, 8, 4, or 2 for plain loads),
+    ``tm`` output rows of ``TILE_COLS`` columns per tile, ``stages`` raw
+    windows in the ring, ``bn`` output channels per group (``groups`` =
+    co / bn; a block keeps one group's weights), the window (``wr`` rows x
+    ``wc`` columns; TMA boxes of ``cbox`` channels, ``nbox`` of them), the
+    code planes (``planes`` of 16 channels, ``wcp`` positions per window row,
+    columns split by their remainder mod the stride into parts of ``part``),
+    the shared-memory offsets, ``grid``, the most blocks the launch uses
+    (the kernel lowers it to what is resident at once), and ``consumers``,
+    its consumer warpgroups."""
+
+    route: int
+    vbytes: int
+    tm: int
+    stages: int
+    bn: int
+    groups: int
+    cbox: int
+    nbox: int
+    planes: int
+    planes2: int
+    cr: int
+    wr: int
+    wc: int
+    wcp: int
+    part: int
+    cols: int
+    tiles_x: int
+    tiles_y: int
+    items: int
+    region_bytes: int
+    raw_bytes: int
+    plane_bytes: int
+    codes_bytes: int
+    off_codes: int
+    off_w: int
+    off_wsb: int
+    off_stage: int
+    off_bar: int
+    smem: int
+    stage_pitch: int
+    nch: int
+    ksteps: int
+    tx_bytes: int
+    grid: int
+    consumers: int
+
+    def as_ints(self) -> list[int]:
+        return [getattr(self, f) for f in GEO_FIELDS]
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _canonical_strides(shape, strides) -> tuple[int, ...]:
+    """(sN, sC, sH, sW) with the stride of an extent-1 dimension replaced by
+    the one a dense layout would give it (it is never stepped over, and TMA
+    checks it)."""
+    b, c, h, w = shape
+    sn, sc, sh, sw = strides
+    if w == 1:
+        sw = c * sc if sc == 1 else 1
+    if h == 1:
+        sh = w * sw
+    if b == 1:
+        sn = h * sh if sc == 1 else c * sc
+    return sn, sc, sh, sw
+
+
+def input_route(c: int, esize: int, strides, ptr: int) -> tuple[int, int]:
+    """(route, bytes per copy) for an input of ``c`` channels, element size
+    ``esize``, strides (sN, sC, sH, sW) in elements and base address
+    ``ptr``. TMA wherever a tensor map can describe it: channels contiguous
+    and a multiple of 16, a 16-byte-aligned base and byte strides that are
+    multiples of 16. Otherwise the ``cp.async`` ring: 16-, 8- or 4-byte
+    copies of contiguous channels where the sizes and alignments allow,
+    else one element per copy (4-byte copies, or plain loads for bf16)."""
+    sn, sc, sh, sw = strides
+    steps = (sn * esize, sh * esize, sw * esize)
+    if sc == 1 and c % 16 == 0 and ptr % 16 == 0 and all(s % 16 == 0 for s in steps):
+        return ROUTE_TMA, 0
+    if sc == 1:
+        for v in (16, 8, 4):
+            if (c * esize) % v == 0 and ptr % v == 0 and all(s % v == 0 for s in steps):
+                return ROUTE_RING, v
+    return ROUTE_RING, esize
+
+
+def _boxes(c: int) -> int:
+    """TMA boxes per window: the fewest of equal channel counts, each a
+    multiple of 16 and at most :data:`BOX_CHANNELS`."""
+    n = -(-c // BOX_CHANNELS)
+    while c % n or (c // n) % 16:
+        n += 1
+    return n
+
+
+def _layout(route, vbytes, tm, stages, bn, cols, consumers, *, c, ho, wo, b, co, k, stride,
+            esize) -> ConvPlan:
+    planes = -(-c // 16)
+    planes2 = planes + planes % 2
+    cr = 16 * planes
+    cols = min(cols, wo)
+    wr, wc = (tm - 1) * stride + k, (cols - 1) * stride + k
+    part = -(-wc // stride)
+    wcp = part * stride
+    nbox = _boxes(c) if route == ROUTE_TMA else 1
+    cbox = c // nbox if route == ROUTE_TMA else cr
+    region = _up(wr * wc * cbox * esize, 128)
+    raw = nbox * region
+    plane = _up(wr * wcp * 16, 128) + 16  # 16 mod 128: a warp's stores spread over the banks
+    codes = _up(planes * plane + 16 * TILE_COLS, 128)  # + a tile row of overread
+    nch = k * k * planes2
+    pitch = bn * esize + 16
+    off_codes = stages * raw
+    off_w = off_codes + consumers * codes
+    off_wsb = off_w + _up(bn * nch * 16, 128)
+    off_stage = off_wsb + _up(8 * bn, 128)
+    off_bar = off_stage + consumers * _up(TILE_COLS * pitch, 128)
+    tiles_x, tiles_y = -(-wo // cols), -(-ho // tm)
+    groups = co // bn
+    items = b * tiles_y * tiles_x * groups
+    return ConvPlan(route=route, vbytes=vbytes, tm=tm, stages=stages, bn=bn, groups=groups,
+                    cbox=cbox, nbox=nbox, planes=planes, planes2=planes2, cr=cr, wr=wr, wc=wc,
+                    wcp=wcp, part=part, cols=cols, tiles_x=tiles_x, tiles_y=tiles_y,
+                    items=items, region_bytes=region, raw_bytes=raw, plane_bytes=plane,
+                    codes_bytes=codes, off_codes=off_codes, off_w=off_w, off_wsb=off_wsb,
+                    off_stage=off_stage, off_bar=off_bar, smem=off_bar + 16 * stages,
+                    stage_pitch=pitch, nch=nch, ksteps=nch // 2,
+                    tx_bytes=nbox * wr * wc * cbox * esize if route == ROUTE_TMA else 0,
+                    grid=items, consumers=consumers)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_conv(b: int, c: int, h: int, w: int, co: int, k: int, stride: int, pad: int,
+              esize: int, route: int, vbytes: int, sms: int = _SMS) -> ConvPlan:
+    """Kernel E's plan for one call. The widest group of output channels
+    whose weights fit beside a one-row window of 64 output columns in the
+    shallowest ring (all 66 blocks of both configurations keep all co, but
+    the P4/P5 3x3 blocks of 128-256 channels: each group re-quantizes the
+    window), else of 32 or 16 columns (a tile row is still one m64 product,
+    its other rows discarded: float32 windows at stride 2); three consumer
+    warpgroups where they keep that group and width, else two, else one
+    (more consumers hide each other's float latency; fewer leave room for
+    a wider group: a P4/P5 3x3 block's window is quantized once per group,
+    so one consumer and all co beat two and a quarter of it); then the
+    tallest tile that fits and
+    still gives ``sms`` items (or as many as one-row tiles give); then the
+    deepest ring. Raises ``ValueError`` when no tile fits shared memory.
+    Cached: a step asks for the same 66 plans every time, and planning on
+    every launch cost the host-bound steps frames/s."""
+    ho, wo = _out_hw(h, w, k, stride, pad)
+    geo = dict(c=c, ho=ho, wo=wo, b=b, co=co, k=k, stride=stride, esize=esize)
+    fits = lambda p: p.smem + SMEM_SLACK <= SMEM_LIMIT
+    bns = [n for n in (128, 64, 32, 16) if n <= co and co % n == 0]
+    options = []  # (cols, bn, consumers) that fit a one-row tile
+    for nc in CONSUMER_COUNTS:
+        shallow = ring_depths(nc)[-1]
+        found = next(((cols, bn) for cols in TILE_WIDTHS for bn in bns if fits(
+            _layout(route, vbytes, 1, shallow, bn, cols, nc, **geo))), None)
+        if found is not None:
+            options.append((*found, nc))
+    if not options:
+        raise ValueError(f"kernel E: no tile of a ({c}, {h}, {w}) input, k={k}, stride={stride} "
+                         f"-> {co} fits {SMEM_LIMIT} bytes of shared memory")
+    cols, bn, nc = max(options)
+    depths = ring_depths(nc)
+    lay = lambda tm, stages: _layout(route, vbytes, tm, stages, bn, cols, nc, **geo)
+    one_row = lay(1, depths[-1]).items
+    tm = next(t for t in TILE_ROWS if t == 1 or (
+        t <= ho and fits(lay(t, depths[-1])) and lay(t, depths[-1]).items >= min(one_row, sms)))
+    return lay(tm, next(s for s in depths if fits(lay(tm, s))))
+
+
+@functools.lru_cache(maxsize=1024)
+def _geo(plan: ConvPlan) -> ctypes.Array:
+    """The plan as the kernel's ``int geo[]`` (read only by the kernel)."""
+    return (ctypes.c_int * len(GEO_FIELDS))(*plan.as_ints())
 
 
 def _vec_width(x: Tensor, c: int) -> int:
@@ -203,6 +391,10 @@ def act_scale_per_sample(x: Tensor) -> Tensor:
     return _launch_scale(x)
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_conv(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscale: Tensor,
                  k: int, stride: int, pad: int, act: bool) -> Tensor:
     _check_input(x, "int8_conv2d")
@@ -219,8 +411,7 @@ def _launch_conv(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscal
     if wscale.shape != (co,) or bias.shape != (co,) or xscale.shape not in ((), (b,)):
         raise ValueError(f"wscale {tuple(wscale.shape)}, bias {tuple(bias.shape)}, xscale "
                          f"{tuple(xscale.shape)} against co={co}, B={b}")
-    bn = next((n for n in (64, 32, 16) if co % n == 0), None)
-    if bn is None or kp % K_ALIGN or kp < k * k * c:
+    if co % 16 or kp % K_ALIGN or kp < k * k * c:
         raise ValueError(f"qweight {tuple(qweight.shape)} does not fit k={k}, ci={c}: co must "
                          f"be a multiple of 16, Kp a multiple of {K_ALIGN} >= {k * k * c}")
     ho, wo = _out_hw(h, w, k, stride, pad)
@@ -228,20 +419,22 @@ def _launch_conv(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscal
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    if out.numel() >= 2 ** 31 or (b * ho * wo + 127) // 128 >= 2 ** 31:
+    if out.numel() >= 2 ** 31:
         raise ValueError(f"output {tuple(out.shape)} too large for one launch")
-    vec = _vec_width(x, c)
-    cp = halo_route(c, k, stride, vec * x.element_size(), bn)
+    strides = _canonical_strides(x.shape, x.stride())
+    route, vbytes = input_route(c, x.element_size(), strides, x.data_ptr())
+    plan = plan_conv(b, c, h, w, co, k, stride, pad, x.element_size(), route, vbytes,
+                     _sm_count(x.device))
+    geo = _geo(plan)
     lib = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tti_int8_conv2d(
-            x.data_ptr(), x.stride(0), x.stride(1), x.stride(2), x.stride(3), b, c, h, w,
-            qweight.data_ptr(), kp, co, k, stride, pad, wscale.data_ptr(), bias.data_ptr(),
-            xscale.data_ptr(), int(xscale.dim() == 1), out.data_ptr(), ho, wo, int(act),
-            _DTYPES[x.dtype], vec, bn, cp, stream)
+            x.data_ptr(), *strides, b, c, h, w, qweight.data_ptr(), kp, co, k, stride, pad,
+            wscale.data_ptr(), bias.data_ptr(), xscale.data_ptr(), int(xscale.dim() == 1),
+            out.data_ptr(), ho, wo, int(act), _DTYPES[x.dtype], geo, stream)
     if err != 0:
-        raise RuntimeError(f"int8 convolution kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"int8 convolution kernel launch failed: error {err}")
     LAUNCHES["int8_conv2d"] += 1
     return out
 
