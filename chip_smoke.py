@@ -105,6 +105,20 @@ exits non-zero without printing the final result line:
    imgsz 640, float32), int8 and int8s; ``TTI_QUANT=int8 python -m tti_torch.cli run
    --synthetic --max-frames 2 --skip-calibration`` in a subprocess (exit 0,
    two records); the phase's wall time;
+5d. the frozen step (``tti_torch.app.export``; every kernel is a registered
+   operator, ``torch.ops.tti_torch.*``): deploy bf16 at batch 1 and 128,
+   the headline with ``warp_pass1="kernel"`` at batch 1 (its artifact also
+   holds the CPU program, which is loaded and run on the host) and deploy
+   ``quant="int8"`` at batch 1, each exported on the card, saved under
+   ``build/frozen_smoke/``, loaded from the file and deleted: outputs
+   against the live step's (detections equal, scores within 1e-6, boxes
+   within 1e-5 px, mm within 0.01), launches per frozen call (A 1 and D 1;
+   B, C and D 1; E 66, F 66, A 1 and D 1; every other kernel none), no
+   synchronising call, export + save and load seconds and bytes, and the
+   frozen step's batch-1 p50 or batch-128 frames/s against the live step's
+   in turns; then each kernel's host microseconds per call on the batch-1
+   steps' own calls, through its wrapper, its operator and the bare ctypes
+   launch; the phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -2428,6 +2442,251 @@ def time_warp_p1(torch, wp, pipe, frame_hw, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: the frozen step (tti_torch.app.export)
+# ---------------------------------------------------------------------------
+
+
+FROZEN_DIR = os.path.join(HERE, "build", "frozen_smoke")
+# label, configuration, pipeline arguments, batches, platforms, and each
+# kernel's launches per frozen call (every other kernel's: none).
+FROZEN = (
+    ("deploy bf16", "deploy", {}, (1, BATCH), ("cuda",),
+     {"mask_stats_soft": 1, "greedy_keep": 1}),
+    ("headline kernel route", "headline", dict(warp_pass1="kernel"), (1,), ("cuda", "cpu"),
+     {"warp_pass1_decimated": 1, "mask_stats_binary": 1, "greedy_keep": 1}),
+    ("deploy int8", "deploy", dict(quant="int8"), (1,), ("cuda",),
+     {"int8_conv2d": 66, "act_scale_per_sample": 66, "mask_stats_soft": 1, "greedy_keep": 1}),
+)
+# tti's export test: detections equal, scores within 1e-6, frame boxes within
+# 1e-5 px; the mm readings within 0.01 mm, NaN where the live step has NaN.
+FROZEN_SCORE_ATOL, FROZEN_BOX_ATOL, FROZEN_MM_ATOL = 1e-6, 1e-5, 1e-2
+
+
+def check_frozen_outputs(torch, got: dict, live: dict, label: str) -> dict:
+    """A frozen step's outputs against the live step's, name by name."""
+    check(list(got) == list(live), f"{label}: output names {list(got)} vs {list(live)}")
+    for name, value in live.items():
+        check(got[name].shape == value.shape and got[name].dtype == value.dtype,
+              f"{label}: {name} is {got[name].dtype} {tuple(got[name].shape)}, live "
+              f"{value.dtype} {tuple(value.shape)}")
+    for name in ("dets/valid", "dets/classes"):
+        check(torch.equal(got[name], live[name]), f"{label}: {name} differs from the live step")
+    err = lambda name: float((got[name].float() - live[name].float()).abs().max())
+    errs = {"scores": err("dets/scores"), "boxes_frame": err("boxes_frame"), "mm": 0.0}
+    check(errs["scores"] <= FROZEN_SCORE_ATOL, f"{label}: scores differ by {errs['scores']}")
+    check(errs["boxes_frame"] <= FROZEN_BOX_ATOL, f"{label}: boxes differ by {errs['boxes_frame']}")
+    for name in (n for n in live if n.startswith("measurements/") and n.endswith("_mm")):
+        a, r = got[name].float(), live[name].float()
+        check(torch.equal(a.isnan(), r.isnan()), f"{label}: {name} NaN pattern differs")
+        both = ~r.isnan()
+        if both.any():
+            errs["mm"] = max(errs["mm"], float((a[both] - r[both]).abs().max()))
+    check(errs["mm"] <= FROZEN_MM_ATOL, f"{label}: mm differ by {errs['mm']}")
+    errs["bit_equal_leaves"] = sum(
+        torch.equal(torch.nan_to_num(got[n].float(), 1e30), torch.nan_to_num(v.float(), 1e30))
+        for n, v in live.items())
+    return errs
+
+
+def time_turns(torch, fns: dict, x, iters: int, per_call: bool) -> dict:
+    """``fns`` ({"live": ..., "frozen": ...}) on ``x`` in turns (live, frozen,
+    frozen, live), each after a warm call: the p50 of single calls
+    (``per_call``: a synchronise after each) or frames/s over ``iters``
+    calls and one synchronise, both turns of each."""
+    runs = {who: [] for who in fns}
+    for who in ("live", "frozen", "frozen", "live"):
+        fns[who](x)
+        torch.cuda.synchronize()
+        if per_call:
+            for _ in range(iters):
+                t = time.perf_counter()
+                fns[who](x)
+                torch.cuda.synchronize()
+                runs[who].append(1e3 * (time.perf_counter() - t))
+        else:
+            t = time.perf_counter()
+            for _ in range(iters):
+                fns[who](x)
+            torch.cuda.synchronize()
+            runs[who].append(x.shape[0] * iters / (time.perf_counter() - t))
+    return {who: float(np.median(v)) if per_call else float(np.mean(v)) for who, v in runs.items()}
+
+
+@contextlib.contextmanager
+def recording(seen: dict):
+    """Record the arguments of every kernel call the step makes, by kernel."""
+    import tti_torch.measure.pipeline as mp
+    import tti_torch.model.layers as layers
+    import tti_torch.parallel.runtime as rt
+    import tti_torch.postprocess.nms as nms
+
+    sites = ((mp, "mask_stats_soft"), (mp, "mask_stats_binary"), (rt, "warp_pass1_decimated"),
+             (nms, "greedy_keep"), (layers, "int8_conv2d"), (layers, "act_scale_per_sample"))
+    saved = [getattr(m, a) for m, a in sites]
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            seen.setdefault(name, []).append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for (m, a), fn in zip(sites, saved):
+        setattr(m, a, recorder(a, fn))
+    try:
+        yield
+    finally:
+        for (m, a), fn in zip(sites, saved):
+            setattr(m, a, fn)
+
+
+def kernel_calls(ms, wp, nk, ik, name, args, kwargs) -> dict:
+    """One recorded kernel call three ways: the wrapper the step calls, the
+    operator alone, the bare ctypes launch."""
+    if name.startswith("mask_stats"):
+        soft = name == "mask_stats_soft"
+        dt = kwargs["logits_dtype"]
+        return {"wrapper": lambda: getattr(ms, name)(*args, **kwargs),
+                "operator": lambda: ms._OPS[soft](*args, dt),
+                "bare": lambda: ms._launch(soft, *args, dt)}
+    if name == "warp_pass1_decimated":
+        kw = [kwargs[k] for k in ("k", "off", "hs", "ws")]
+        pad = float(kwargs["pad_value"])
+        return {"wrapper": lambda: wp.warp_pass1_decimated(*args, **kwargs),
+                "operator": lambda: wp._OP(*args, *kw, pad, True),
+                "bare": lambda: wp._launch(*args, *kw, pad, True)}
+    if name == "greedy_keep":
+        b, c, o, thr, aware = args
+        return {"wrapper": lambda: nk.greedy_keep(*args),
+                "operator": lambda: nk._OP(b, c, o, float(thr), bool(aware)),
+                "bare": lambda: nk._launch(*args)}
+    if name == "int8_conv2d":
+        x, qw, ws, bias, xs, k, s, p, act = args
+        return {"wrapper": lambda: ik.int8_conv2d(*args),
+                "operator": lambda: ik._CONV_OP(x, qw, ws, bias, xs, int(k), int(s), int(p),
+                                                bool(act)),
+                "bare": lambda: ik._launch_conv(*args)}
+    return {"wrapper": lambda: ik.act_scale_per_sample(*args),
+            "operator": lambda: ik._SCALE_OP(*args), "bare": lambda: ik._launch_scale(*args)}
+
+
+def host_us_per_call(torch, calls: list[dict], n: int = 240, rounds: int = 5) -> dict:
+    """Host microseconds per call, each way, over the step's own calls of one
+    kernel repeated to ``n`` calls (no synchronise inside, so the host's
+    clock times the host): the median of ``rounds`` rounds, ways in turns."""
+    reps = -(-n // len(calls))
+    out = {way: [] for way in calls[0]}
+    for r in range(rounds):
+        ways = list(out)[r % 3:] + list(out)[:r % 3]
+        for way in ways:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                for c in calls:
+                    c[way]()
+            out[way].append(1e6 * (time.perf_counter() - t) / (reps * len(calls)))
+            torch.cuda.synchronize()
+    return {way: float(np.median(v)) for way, v in out.items()}
+
+
+def check_frozen(torch, ms, wp, ik) -> dict:
+    """Export each configuration of :data:`FROZEN` on the card, save it under
+    ``build/frozen_smoke``, load it from the file, run it against the live
+    step (outputs, launches per call, synchronising calls, timings in
+    turns) and delete it; then each kernel's host microseconds per call,
+    operator against bare launch, on the batch-1 steps' own calls."""
+    from types import SimpleNamespace
+
+    from step_syncs_torch import count_step_syncs
+
+    from tti_torch.app.export import SUFFIX, FrozenPipeline, export_pipeline, flatten_outputs
+    from tti_torch.kernels import nms as nk
+
+    t_phase = time.perf_counter()
+    os.makedirs(FROZEN_DIR, exist_ok=True)
+    out, recorded = {}, {}
+    for label, config, kw, batches, platforms, want in FROZEN:
+        frame_hw, imgsz, ckpt = CONFIGS[config]
+        pipe = build_pipeline(torch, frame_hw, imgsz, ckpt, **kw)
+        frames = torch.from_numpy(textile(frame_hw, max(batches))).cuda()
+        for batch in batches:
+            x = frames[:batch].contiguous()
+            tag = f"{label} batch {batch}"
+            path = os.path.join(FROZEN_DIR, f"{config}_{batch}{SUFFIX}")
+            t0 = time.perf_counter()
+            export_pipeline(pipe, batch, platforms=platforms, out=path)
+            t1 = time.perf_counter()
+            frozen = FrozenPipeline(path, device="cuda")
+            t2 = time.perf_counter()
+            size = os.path.getsize(path)
+            check(frozen.manifest["platforms"] == list(platforms),
+                  f"{tag}: the manifest lists {frozen.manifest['platforms']}")
+            cpu = None
+            if "cpu" in platforms:
+                host = FrozenPipeline(path, device="cpu")
+                tc = time.perf_counter()
+                got_cpu = host(x.cpu())
+                cpu = {"run_s": time.perf_counter() - tc,
+                       "detections": got_cpu["dets/valid"].sum(1).tolist()}
+                check(list(got_cpu) == frozen.manifest["outputs"], f"{tag}: CPU program's names")
+                del host
+            os.remove(path)
+            with torch.inference_mode():
+                live = dict(zip(*flatten_outputs(pipe.step(x))))
+            reset_launch_counts(ms, wp)
+            got = frozen(x)
+            launches = launch_counts(ms, wp)
+            expected = {k: want.get(k, 0) for k in launches}
+            check(launches == expected, f"{tag}: launches per frozen call {launches}, "
+                  f"expected {expected}")
+            errs = check_frozen_outputs(torch, got, live, tag)
+            n_sync, where, _ = count_step_syncs(torch, SimpleNamespace(step=frozen), x)
+            check(n_sync == 0, f"{tag}: {n_sync} synchronising calls per frozen step: {where}")
+            fns = {"live": pipe.step, "frozen": frozen}
+            if batch == 1:
+                timing = time_turns(torch, fns, x, 30, per_call=True)
+                shown = (f"batch-1 p50 frozen {timing['frozen']:.3f} ms, live "
+                         f"{timing['live']:.3f} ms")
+            else:
+                timing = time_turns(torch, fns, x, 6, per_call=False)
+                shown = (f"frozen {timing['frozen']:.1f} frames/s, live {timing['live']:.1f} "
+                         f"frames/s")
+            out[tag] = {"export_s": t1 - t0, "load_s": t2 - t1, "bytes": size,
+                        "platforms": list(platforms), "launches": {k: v for k, v in
+                                                                   launches.items() if v},
+                        "syncs": n_sync, "errors": errs, "timing": timing,
+                        **({"cpu_program": cpu} if cpu else {})}
+            log(f"frozen {tag}: export + save {t1 - t0:.1f} s, load {t2 - t1:.1f} s, "
+                f"{size} bytes ({'+'.join(platforms)}); launches per call "
+                f"{out[tag]['launches']}; 0 synchronising calls; |frozen - live| scores "
+                f"{errs['scores']:.3g}, boxes {errs['boxes_frame']:.3g} px, mm {errs['mm']:.3g}, "
+                f"{errs['bit_equal_leaves']} of {len(live)} leaves bit-equal; {shown}"
+                + (f"; CPU program {cpu['run_s']:.1f} s, detections {cpu['detections']}"
+                   if cpu else ""))
+            del frozen, got, live
+            torch.cuda.empty_cache()
+        one = frames[:1].contiguous()
+        seen: dict = {}
+        with recording(seen), torch.inference_mode():
+            pipe.step(one)
+        for name, calls in seen.items():
+            recorded.setdefault(name, [kernel_calls(ms, wp, nk, ik, name, a, k)
+                                       for a, k in calls])
+        del pipe, frames
+        torch.cuda.empty_cache()
+    out["host_us_per_call"] = {}
+    for name, calls in recorded.items():
+        us = host_us_per_call(torch, calls)
+        out["host_us_per_call"][name] = dict(us, calls_per_step=len(calls))
+        log(f"  {name}: host us per call, bare launch {us['bare']:.1f}, operator "
+            f"{us['operator']:.1f} (+{us['operator'] - us['bare']:.1f}), wrapper "
+            f"{us['wrapper']:.1f} (+{us['wrapper'] - us['bare']:.1f}); {len(calls)} per "
+            "batch-1 step")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"frozen step phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: training
 # ---------------------------------------------------------------------------
 
@@ -3517,6 +3776,13 @@ def main() -> int:
     flush = lambda: flush_buf.zero_()
     int8 = check_int8(torch, ms, wp, ik, flush, first_int8)
 
+    # Phase 5d: the frozen step, exported, saved, loaded and run on the card.
+    log("the frozen step (torch.export through the kernels' operators):")
+    frozen = check_frozen(torch, ms, wp, ik)
+    frozen_launches = {tag: v["launches"] for tag, v in frozen.items()
+                       if isinstance(v, dict) and "launches" in v}
+    log(card)
+
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
 
@@ -3646,10 +3912,13 @@ def main() -> int:
         "launches_per_step": {k: v["launches"]["act_scale_per_sample"]
                               for k, v in int8.items() if isinstance(v, dict) and "launches" in v},
     })
+    for k in kernels:  # every kernel is an operator: its launches per frozen call, host cost
+        k["frozen_launches"] = {tag: n.get(k["name"], 0) for tag, n in frozen_launches.items()}
+        k["host_us_per_call"] = frozen["host_us_per_call"].get(k["name"])
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
-        "modes": modes, "int8": int8},
+        "modes": modes, "int8": int8, "frozen": frozen},
         "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -28,19 +28,22 @@ for name in names:
 for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
              "tti_torch.kernels.warp_p1", "tti_torch.kernels.nms", "tti_torch.kernels.int8conv",
              "tti_torch.model.quantize", "tti_torch.core.logging", "tti_torch.cli.__main__",
+             "tti_torch.model.convert",
              *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
                                                "checkpoint", "loop", "eval")),
              *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
                                                   "mqtt", "cleaner")),
              *(f"tti_torch.app.{m}" for m in ("results", "annotate", "orchestrator",
-                                             "predict")),
+                                             "predict", "export")),
              *(f"tti_torch.calib.{m}" for m in ("pnp", "charuco", "intrinsics"))):
     assert name in names and name in sys.modules, name
 sys.path.insert(0, "tools")
 import measure_report_torch
 import calibrate_int8_torch
+import parity_report_torch
 assert "measure_report" not in sys.modules and "tools.measure_report" not in sys.modules
 assert "calibrate_int8" not in sys.modules
+assert "parity_report" not in sys.modules and "test_predict_parity" not in sys.modules
 from tti_torch.calib.charuco import create_charuco_board
 from tti_torch.core.errors import CalibrationError
 try:
@@ -133,7 +136,8 @@ def test_port_sources_name_no_forbidden_module():
                                   "measure_report_torch.py", "step_syncs_torch.py",
                                   "step_latency_torch.py", "fused_head_copies_torch.py",
                                   "int8conv.cu", "int8conv.py", "quantize.py",
-                                  "calibrate_int8_torch.py"} <= names
+                                  "calibrate_int8_torch.py", "export.py", "convert.py",
+                                  "parity_report_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -3,9 +3,10 @@
 and the batch-1 p50, on device-resident frames.
 
     python tools/step_latency_torch.py [--root DIR] [--configs deploy headline]
-        [--steps 10] [--p50-iters 50]
+        [--steps 10] [--p50-iters 50] [--quant int8]
 
-Builds the deploy and headline steps as ``tools/step_syncs_torch.py`` does,
+Builds the deploy and headline steps as ``tools/step_syncs_torch.py`` does
+(``--quant int8``: the W8A8 step, kernels E and F),
 from the ``tti_torch`` package under ``--root`` (default: this checkout; an
 unpacked ``git archive`` of an earlier commit times that commit's step).
 Each step is warmed, then timed as ``chip_smoke.py``'s phases 4-5 time it:
@@ -64,6 +65,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--p50-iters", type=int, default=50)
     parser.add_argument("--configs", nargs="+", default=list(CONFIGS), choices=list(CONFIGS))
+    parser.add_argument("--quant", default="", choices=["", "int8"],
+                        help="the int8 step (TTI_QUANT=int8) instead of bf16")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     sys.path[:0] = [root, os.path.join(root, "tests")]
@@ -81,15 +84,15 @@ def main() -> int:
     import tti_torch
 
     print(f"tti_torch from {os.path.dirname(os.path.dirname(tti_torch.__file__))}", flush=True)
-    out = {"root": root, "card": card}
+    out = {"root": root, "card": card, "quant": args.quant}
     for name in args.configs:
         hw = CONFIGS[name][0]
-        pipe = build_step(name)
+        pipe = build_step(name, **({"quant": args.quant} if args.quant else {}))
         base = textile_frames(8, *hw, seed=5)
         frames = torch.from_numpy(np.ascontiguousarray(np.tile(base, (16, 1, 1, 1)))).cuda()
         one = frames[:1].contiguous()
         out[name] = t = time_step(torch, pipe, frames, one, args.steps, args.p50_iters)
-        print(f"{name}: {t['frames_per_s']:.1f} frames/s at batch {frames.shape[0]}; batch-1 "
+        print(f"{name}{' ' + args.quant if args.quant else ''}: {t['frames_per_s']:.1f} frames/s at batch {frames.shape[0]}; batch-1 "
               f"p50 {t['p50_ms']:.3f} ms (p10 {t['p10_ms']:.3f}, p90 {t['p90_ms']:.3f}; "
               f"enqueue p50 {t['enqueue_p50_ms']:.3f}; {args.p50_iters} steps)", flush=True)
         del pipe, frames, one

@@ -90,9 +90,10 @@ def count_step_syncs(torch, pipe, frames) -> tuple[int, list[str], list[str]]:
     return len(second), second, first
 
 
-def build_step(name: str):
+def build_step(name: str, **pipe_kw):
     """The ``tti_torch`` step of configuration ``name`` as bench.py runs it:
-    bf16, the deployment calibration scaled to the frame, bench.py's ROI."""
+    bf16, the deployment calibration scaled to the frame, bench.py's ROI;
+    ``pipe_kw`` are further ``InspectionPipeline`` arguments."""
     from tti_torch.calib.io import CalibrationData
     from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
@@ -113,7 +114,7 @@ def build_step(name: str):
     return InspectionPipeline(cfg, load_flax_msgpack(path), (h, w),
                               calibration=CalibrationData(K=K, dist=DIST, rvec=RVEC, tvec=TVEC),
                               measure_cfg=MeasureConfig().with_subcell_from(meta), roi=roi,
-                              device="cuda")
+                              device="cuda", **pipe_kw)
 
 
 def main() -> int:

@@ -10,10 +10,17 @@
     eval             box and mask mAP on a YOLO-format dataset
     train            train a segmentation model on a YOLO-format dataset
     export-weights   the deploy msgpack + sidecar from a training checkpoint
+    export           the frozen inspection step: torch.export programs + weights
+                     in one artifact [--out] [--batch] [--platforms cuda,cpu]
+    convert          an Ultralytics .pt -> a flax-layout msgpack checkpoint
+    validate-reference
+                     the reference's trained .pt end to end: convert, strict
+                     structural check, parity and mm reports [, eval]
 
 The flags are ``tti``'s, plus ``--device`` (default cuda; ``run``,
-``check-model``, ``eval``, ``train``) and ``--init`` (``train``: start from
-a deploy checkpoint's params and batch stats). The calibration commands run
+``check-model``, ``eval``, ``train``, ``export``, ``validate-reference``)
+and ``--init`` (``train``: start from a deploy checkpoint's params and batch
+stats). The calibration commands run
 on the host (numpy and OpenCV) and take no ``--device``. ``run`` on a camera
 first runs the startup calibration gate, as ``tti`` does, unless given
 ``--skip-calibration``. Configuration comes from the environment and ``.env``
@@ -27,8 +34,10 @@ and ``.env`` alike, and log once each switch of ``tti``'s that has no
 counterpart here. ``eval`` serves ``TTI_QUANT=int8`` / ``int8s`` as ``tti``
 does (the plain-stem folded model, quantized). A ``TTI_QUANT`` that cannot
 apply is refused with ``tti``'s message (another value, unfolded BN, the
-fused head, ``int8s`` without its scales file). Refused, naming the reason
-or the ROADMAP item that ports them: ``train --host-aug`` and
+fused head, ``int8s`` without its scales file). ``export`` writes the
+port's own artifact (:mod:`tti_torch.app.export`; ``--platforms`` defaults to
+``cuda,cpu``), which ``tti`` does not load, nor the port ``tti``'s. Refused,
+naming the reason or the ROADMAP item that ports them: ``train --host-aug`` and
 ``TTI_APPROX_TOPK=1``.
 """
 
@@ -377,6 +386,145 @@ def cmd_export_weights(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Freeze the whole inspection step (preprocess, model, NMS, mask
+    statistics, measurement) into one artifact: a torch.export program per
+    platform and the weights (:func:`tti_torch.app.export.export_pipeline`)."""
+    import torch
+
+    from tti_torch.app.export import SUFFIX, export_pipeline
+
+    out = args.out or "tti_pipeline" + SUFFIX
+    cfg = load_config(validate=False)
+    if _refuses_switches(cfg.switches):
+        return 1
+    platforms = tuple(args.platforms.split(","))
+    if "cuda" in platforms and not torch.cuda.is_available():
+        return _refuse("export --platforms names cuda, but no CUDA device is available "
+                       "(--platforms cpu --device cpu exports for the host alone)")
+    frame_hw = (cfg.camera.height, cfg.camera.width)
+    calibration = _load_calibration(cfg)
+    if calibration is None:
+        log.warning("calibration files missing — exporting detection-only")
+    pipeline = load_pipeline(cfg, frame_hw, calibration, device=args.device)
+    export_pipeline(pipeline, batch=args.batch, platforms=platforms, out=out)
+    print(f"exported batch={args.batch} frames={frame_hw} platforms={','.join(platforms)} "
+          f"-> {out} ({os.path.getsize(out)} bytes)")
+    return 0
+
+
+def _load_state_dict(path: str) -> dict:
+    """The state dict inside a ``.pt``: the file itself, a module's, or the
+    one under ``model`` / ``ema`` / ``state_dict`` (Ultralytics checkpoints
+    keep the model under ``model``)."""
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        return obj.state_dict()
+    if isinstance(obj, dict):
+        for key in ("model", "ema", "state_dict"):
+            if key in obj:
+                inner = obj[key]
+                return inner.state_dict() if hasattr(inner, "state_dict") else inner
+    return obj
+
+
+def cmd_convert(args) -> int:
+    """An Ultralytics ``.pt`` -> a flax-layout msgpack checkpoint."""
+    from tti_torch.model.checkpoint import save_flax_msgpack
+    from tti_torch.model.convert import convert_torch_state_dict
+
+    variables = convert_torch_state_dict(_load_state_dict(args.pt))
+    save_flax_msgpack(variables, args.out, metadata={"source": args.pt})
+    print("wrote", args.out)
+    return 0
+
+
+def cmd_validate_reference(args) -> int:
+    """The reference's trained weights (``best_Model.pt``,
+    ``single_needle_model.pt``; reference config.py:67, measurement.py:145)
+    end to end, as ``tti validate-reference``: convert -> the strict
+    structural check against the port's own model, both ways
+    (``load_report.json``) -> the checkpoint and its sidecar -> the parity
+    report against the torch oracle at the deployment geometry and the mm
+    report -> the optional mAP eval. Everything lands in ``--out-dir``."""
+    import json
+
+    import numpy as np
+
+    from tti_torch.model.checkpoint import save_flax_msgpack, to_flax_variables
+    from tti_torch.model.convert import convert_torch_state_dict, verify_tree_shapes
+    from tti_torch.model.yolo import create_model, model_channels
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    state_dict = _load_state_dict(args.pt)
+    variables = convert_torch_state_dict(state_dict)
+    # The architecture from the converted tree (a .pt carries no sidecar):
+    # the width from m1's output channels, the classes from the class
+    # branch's exit bias. Ultralytics heads are always proto stride 4.
+    try:
+        c128 = int(np.shape(variables["params"]["m1"]["conv"]["kernel"])[-1])
+        nc = int(np.shape(variables["params"]["m22"]["cv3_0_2"]["bias"])[0])
+    except KeyError as e:
+        print(f"FAIL: converted tree is missing {e} — not an Ultralytics YOLOv8-seg state dict?")
+        return 1
+    variant = next((v for v in ("n", "s", "m", "l", "x") if model_channels(v)["c128"] == c128),
+                   None)
+    if variant is None:
+        print(f"FAIL: no YOLOv8 variant has width {c128} at m1")
+        return 1
+    print(f"architecture: yolov8{variant}-seg, {nc} classes")
+
+    template = to_flax_variables(create_model(variant, nc=nc, s2d_stem=False,
+                                              folded_bn=False).state_dict())
+    problems = [p for coll in ("params", "batch_stats")
+                for p in verify_tree_shapes(variables.get(coll, {}), template[coll], path=coll)]
+    report = {"source_pt": args.pt, "torch_keys": len(state_dict), "variant": variant,
+              "num_classes": nc, "strict_load_problems": problems}
+    with open(os.path.join(args.out_dir, "load_report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    if problems:
+        print(f"FAIL: {len(problems)} structural problems (see {args.out_dir}/load_report.json):")
+        for p in problems[:10]:
+            print("  ", p)
+        return 1
+    print(f"strict load OK: {len(state_dict)} torch keys -> the port's tree, 0 problems")
+
+    ckpt = os.path.join(args.out_dir, args.name)
+    save_flax_msgpack(variables, ckpt, metadata={
+        "source": args.pt, "variant": variant, "num_classes": nc, "imgsz_trained": 960,
+        "mask_stride": 4, "recipe": "converted from reference .pt (tti_torch validate-reference)"})
+    print("checkpoint:", ckpt)
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    if not args.skip_parity:
+        from tools.parity_report_torch import main as parity_main
+
+        parity_out = os.path.join(args.out_dir, "PARITY_REFERENCE.md")
+        rc = parity_main(["--weights", ckpt, "--frames", str(args.frames), "--imgsz",
+                          str(args.imgsz), "--frame-h", str(args.frame_h), "--frame-w",
+                          str(args.frame_w), "--out", parity_out, "--device", args.device])
+        print(f"parity report: {parity_out}")
+        if rc:
+            return rc
+    if not args.skip_measure:
+        from tools.measure_report_torch import main as measure_main
+
+        measure_out = os.path.join(args.out_dir, "MEASURE_REFERENCE.md")
+        rc = measure_main(["--weights", ckpt, "--scenes", str(args.scenes), "--imgsz",
+                           str(args.imgsz), "--out", measure_out, "--device", args.device])
+        print(f"measure report: {measure_out}")
+        if rc:
+            return rc
+    if args.images:
+        return main(["eval", "--images", args.images, "--weights", ckpt, "--imgsz",
+                     str(args.imgsz), "--device", args.device])
+    return 0
+
+
 def _soft_masks_flag(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument("--soft-masks", nargs="?", const="all", default=None,
                    help=f"{what} (all | stitch | fabric | comma ids; bare flag = all)")
@@ -477,6 +625,45 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--proto-head", default="deconv", choices=["deconv", "subpixel"])
     _device_flag(p)
     p.set_defaults(func=cmd_eval)
+
+    p = sub.add_parser("convert", help="convert .pt weights to a msgpack checkpoint")
+    p.add_argument("--pt", required=True)
+    p.add_argument("--out", required=True)
+    p.set_defaults(func=cmd_convert)
+
+    p = sub.add_parser(
+        "validate-reference",
+        help="one-shot validation of the reference's trained .pt: convert -> strict load "
+             "report -> torch-oracle parity -> measure report")
+    p.add_argument("--pt", required=True, help="path to the reference .pt")
+    p.add_argument("--out-dir", default="validation")
+    p.add_argument("--name", default="reference_model.msgpack",
+                   help="converted checkpoint filename inside --out-dir")
+    p.add_argument("--frames", type=int, default=8,
+                   help="parity frames at the deployment geometry")
+    p.add_argument("--scenes", type=int, default=64,
+                   help="analytic scenes for the mm measure report")
+    p.add_argument("--imgsz", type=int, default=960,
+                   help="model input size (960 = deployment geometry, reference "
+                        "measurement.py:210)")
+    p.add_argument("--frame-h", type=int, default=960)
+    p.add_argument("--frame-w", type=int, default=1280)
+    p.add_argument("--images", default="",
+                   help="optional labeled real-frame dataset for an mAP eval")
+    p.add_argument("--skip-parity", action="store_true")
+    p.add_argument("--skip-measure", action="store_true")
+    _device_flag(p)
+    p.set_defaults(func=cmd_validate_reference)
+
+    p = sub.add_parser("export", help="freeze the inspection step into torch.export programs "
+                       "+ weights in one artifact")
+    p.add_argument("--out", default=None,
+                   help="the artifact's path (default tti_pipeline.ttitorch.zip)")
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--platforms", default="cuda,cpu",
+                   help="comma-separated devices to trace for (default cuda,cpu)")
+    _device_flag(p)
+    p.set_defaults(func=cmd_export)
 
     args = parser.parse_args(argv)
     try:

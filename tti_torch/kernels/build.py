@@ -1,9 +1,19 @@
-"""Build-and-load helper shared by the CUDA kernel modules.
+"""Build-and-load helper shared by the CUDA kernel modules, and their
+operator registrations.
 
 Each kernel source under ``csrc/`` becomes one shared library with a plain C
 interface: compiled by nvcc at first use into ``build/`` at the repository
 root, keyed by a hash of the source and the flags, and loaded with ctypes.
 Nothing is built when a module is imported.
+
+Each kernel is one operator ``torch.ops.tti_torch.<name>``
+(:func:`register_op`): its CPU implementation is the kernel's plain version,
+its CUDA implementation the ctypes launch, and its fake implementation gives
+the output's shapes, dtypes and strides without touching data, so that
+``torch.export`` records the operator in a traced step. The live step calls
+the same operators. They are registered with ``torch.library.Library``
+rather than the ``custom_op`` decorator, whose Python wrapper costs more host
+time per call.
 """
 
 from __future__ import annotations
@@ -15,6 +25,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -80,3 +93,18 @@ def compile_all(names: tuple[str, ...]) -> None:
         t.join()
     if errors:
         raise errors[0]
+
+
+_ops = torch.library.Library("tti_torch", "FRAGMENT")
+
+
+def register_op(schema: str, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define ``tti_torch::<name>`` by its ``schema``, with a CPU, a CUDA and
+    a fake implementation; returns the operator's overload, the object the
+    wrappers call."""
+    name = schema.split("(", 1)[0]
+    _ops.define(schema)
+    _ops.impl(name, cpu, "CPU")
+    _ops.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"tti_torch::{name}", fake, lib=_ops)
+    return getattr(torch.ops.tti_torch, name).default

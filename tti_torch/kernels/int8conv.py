@@ -17,8 +17,12 @@ Weights are packed once at load by :func:`pack_qweight`: ``(co, kh, kw,
 ci)`` int8 -> ``(co, Kp)``, K in (kh, kw, ci) order zero-padded to a
 multiple of 32.
 
-A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises. The plain version quantizes in float32, convolves the
+Each kernel is an operator, ``torch.ops.tti_torch.int8_conv2d`` and
+``act_scale_per_sample`` (:func:`tti_torch.kernels.build.register_op`): on
+CPU tensors it runs the plain version; on CUDA tensors it launches the
+kernel or raises. E's plan depends on the input's address, so it is chosen
+in the CUDA implementation at each call, never in a trace. The plain version
+quantizes in float32, convolves the
 integer values in float64 (exact) and runs the same float32 epilogue in the
 same order, so the kernel equals it bit for bit (SiLU's ``expf`` aside, see
 ``csrc/int8conv.cu``, where what bounds the kernels and their design are
@@ -34,7 +38,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from tti_torch.kernels.build import load_library
+from tti_torch.kernels.build import load_library, register_op
 
 Tensor = torch.Tensor
 
@@ -360,7 +364,6 @@ def _check_input(x: Tensor, what: str) -> None:
 
 
 def _launch_scale(x: Tensor) -> Tensor:
-    _check_input(x, "act_scale_per_sample")
     b, c, h, w = x.shape
     vec = _vec_width(x, c)
     cpp = c // vec
@@ -381,14 +384,19 @@ def _launch_scale(x: Tensor) -> Tensor:
     return scale
 
 
+_SCALE_OP = register_op("act_scale_per_sample(Tensor x) -> Tensor",
+                        act_scale_per_sample_plain, _launch_scale,
+                        lambda x: torch.empty((x.shape[0],), dtype=torch.float32,
+                                              device=x.device))
+
+
 def act_scale_per_sample(x: Tensor) -> Tensor:
     """Kernel F: (B, C, H, W) float32 or bfloat16, any strides -> (B,)
     float32 ``max(absmax, 1e-12) / 127`` per sample."""
-    if x.device.type == "cpu":
-        return act_scale_per_sample_plain(x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the activation scale runs on cpu or cuda tensors, got {x.device}")
-    return _launch_scale(x)
+    _check_input(x, "act_scale_per_sample")
+    return _SCALE_OP(x)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -397,7 +405,6 @@ def _sm_count(device: torch.device) -> int:
 
 def _launch_conv(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscale: Tensor,
                  k: int, stride: int, pad: int, act: bool) -> Tensor:
-    _check_input(x, "int8_conv2d")
     b, c, h, w = x.shape
     co, kp = qweight.shape
     for name, t, dtype in (("qweight", qweight, torch.int8), ("wscale", wscale, torch.float32),
@@ -414,9 +421,8 @@ def _launch_conv(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscal
     if co % 16 or kp % K_ALIGN or kp < k * k * c:
         raise ValueError(f"qweight {tuple(qweight.shape)} does not fit k={k}, ci={c}: co must "
                          f"be a multiple of 16, Kp a multiple of {K_ALIGN} >= {k * k * c}")
-    ho, wo = _out_hw(h, w, k, stride, pad)
-    out = torch.empty((b, co, ho, wo), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = _conv_out(x, qweight, k, stride, pad)
+    ho, wo = out.shape[2:]
     if out.numel() == 0:
         return out
     if out.numel() >= 2 ** 31:
@@ -439,6 +445,29 @@ def _launch_conv(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscal
     return out
 
 
+def _conv_out(x: Tensor, qweight: Tensor, k: int, stride: int, pad: int) -> Tensor:
+    """E's output, uninitialised: (B, co, Ho, Wo) in ``x``'s dtype,
+    channels_last (the CPU, CUDA and fake implementations all make it so,
+    strides included)."""
+    ho, wo = _out_hw(x.shape[2], x.shape[3], k, stride, pad)
+    return torch.empty((x.shape[0], qweight.shape[0], ho, wo), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def _conv_plain_op(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscale: Tensor,
+                   k: int, stride: int, pad: int, act: bool) -> Tensor:
+    y = int8_conv2d_plain(x, qweight, wscale, bias, xscale, k, stride, pad, act)
+    return _conv_out(x, qweight, k, stride, pad).copy_(y)
+
+
+_CONV_OP = register_op(
+    "int8_conv2d(Tensor x, Tensor qweight, Tensor wscale, Tensor bias, Tensor xscale, int k, "
+    "int stride, int pad, bool act) -> Tensor",
+    _conv_plain_op, _launch_conv,
+    lambda x, qweight, wscale, bias, xscale, k, stride, pad, act: _conv_out(
+        x, qweight, k, stride, pad))
+
+
 def int8_conv2d(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscale: Tensor,
                 k: int, stride: int = 1, pad: int = 0, act: bool = True) -> Tensor:
     """Kernel E: the quantized ``Conv`` block.
@@ -449,8 +478,7 @@ def int8_conv2d(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, xscale
     (``TTI_QUANT=int8``, :func:`act_scale_per_sample`) or 0-d (``int8s``).
     Square kernel ``k``, symmetric zero padding ``pad``. Returns (B, co,
     Ho, Wo) in ``x``'s dtype, channels_last."""
-    if x.device.type == "cpu":
-        return int8_conv2d_plain(x, qweight, wscale, bias, xscale, k, stride, pad, act)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the int8 convolution runs on cpu or cuda tensors, got {x.device}")
-    return _launch_conv(x, qweight, wscale, bias, xscale, k, stride, pad, act)
+    _check_input(x, "int8_conv2d")
+    return _CONV_OP(x, qweight, wscale, bias, xscale, int(k), int(stride), int(pad), bool(act))

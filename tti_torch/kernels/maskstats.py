@@ -9,10 +9,14 @@ PyTorch versions (port of ``tti.kernels.maskstats``).
   ``_batched`` forms). Contract: ``instance_mask_stats_xla``, for any D.
 
 Both take a batch: protos (B, Hm, Wm, nm) bf16/f32, coefs (B, D, nm) f32,
-boxes_grid (B, D, 4) f32 xyxy on the proto grid, valid (B, D) bool. A tensor
-on the CPU goes to the plain version; a CUDA tensor launches the kernel or
-raises. What bounds the kernels and how their design meets it is written in
-``csrc/maskstats.cu``: bytes, the bf16 protos read once per frame and the
+boxes_grid (B, D, 4) f32 xyxy on the proto grid, valid (B, D) bool. Each
+kernel is an operator, ``torch.ops.tti_torch.mask_stats_soft`` and
+``mask_stats_binary`` (:func:`tti_torch.kernels.build.register_op`): on CPU
+tensors it runs the plain version; on CUDA tensors it launches the kernel or
+raises. The operator returns the moments as one (B, D, 6 or 3) tensor and
+the per-column fields in :data:`COLUMN_FIELDS` order; the wrapper rebuilds
+the dict. What bounds the kernels and how their design meets it is written
+in ``csrc/maskstats.cu``: bytes, the bf16 protos read once per frame and the
 per-column outputs of every detection written once.
 
 The kernels cut the work by cells, not by detection: a unit is a strip of
@@ -40,7 +44,7 @@ import ctypes
 
 import torch
 
-from tti_torch.kernels.build import load_library
+from tti_torch.kernels.build import load_library, register_op
 
 Tensor = torch.Tensor
 
@@ -48,6 +52,13 @@ Tensor = torch.Tensor
 # of work is a strip of columns of one box, its rows cut into chunks.
 STRIP_COLS = 32
 CHUNK_ROWS = {"mask_stats_soft": 4, "mask_stats_binary": 2}
+
+# The operators' outputs: the moments, in the order of their last axis, then
+# the per-column fields.
+MOMENTS = {"mask_stats_soft": ("m00", "m10", "m01", "m00s", "m10s", "m01s"),
+           "mask_stats_binary": ("m00", "m10", "m01")}
+COLUMN_FIELDS = {"mask_stats_soft": ("col_any", "bottom", "col_p", "bottom_sub"),
+                 "mask_stats_binary": ("col_any", "bottom")}
 
 # Wrapper calls that launched their kernel (plain-version calls are not
 # counted; one call is one count, whatever it launches on the device).
@@ -248,7 +259,8 @@ def mask_stats_chunked_plain(soft: bool, protos: Tensor, coefs: Tensor, boxes_gr
 # ---------------------------------------------------------------------------
 
 
-def _check(protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor) -> None:
+def _check(protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor,
+           logits_dtype: torch.dtype) -> None:
     if protos.dim() != 4 or coefs.dim() != 3 or boxes_grid.dim() != 3 or valid.dim() != 2:
         raise ValueError("expected protos (B,Hm,Wm,nm), coefs (B,D,nm), boxes (B,D,4), valid (B,D)")
     b, _, _, nm = protos.shape
@@ -269,8 +281,8 @@ def _check(protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor) -> 
             raise ValueError(f"{name} is on {t.device}, protos on {protos.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b > 65535:
-        raise ValueError(f"at most 65535 frames per launch, got {b}")
+    if logits_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"logits_dtype must be float32 or bfloat16, got {logits_dtype}")
 
 
 def blocks_per_frame(b: int, wm: int) -> int:
@@ -282,24 +294,18 @@ def blocks_per_frame(b: int, wm: int) -> int:
 
 
 def _launch(soft: bool, protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor,
-            logits_dtype: torch.dtype) -> dict[str, Tensor]:
-    _check(protos, coefs, boxes_grid, valid)
-    if logits_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"logits_dtype must be float32 or bfloat16, got {logits_dtype}")
-    lib = build()
+            logits_dtype: torch.dtype) -> tuple[Tensor, ...]:
     b, hm, wm, nm = protos.shape
+    if b > 65535:
+        raise ValueError(f"at most 65535 frames per launch, got {b}")
+    lib = build()
     d = coefs.shape[1]
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=protos.device)
     m = new(b, d, 6 if soft else 3)
-    col_any, bottom = new(b, d, wm), new(b, d, wm)
-    extra = (new(b, d, wm), new(b, d, wm)) if soft else ()
-    out = {"m00": m[..., 0], "m10": m[..., 1], "m01": m[..., 2],
-           "col_any": col_any, "bottom": bottom}
-    if soft:
-        out.update({"m00s": m[..., 3], "m10s": m[..., 4], "m01s": m[..., 5],
-                    "col_p": extra[0], "bottom_sub": extra[1]})
+    cols = tuple(new(b, d, wm) for _ in range(4 if soft else 2))
     if b * d == 0:
-        return out
+        return (m, *cols)
+    col_any, bottom, *extra = cols
     # Scratch: the moments of every (frame, detection, strip); the kernel
     # writes what it reads, so it needs no initial value.
     nstrips = -(-wm // STRIP_COLS)
@@ -318,16 +324,40 @@ def _launch(soft: bool, protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid
     if err != 0:
         raise RuntimeError(f"mask-stats kernel launch failed: cudaError {err}")
     LAUNCHES["mask_stats_soft" if soft else "mask_stats_binary"] += 1
-    return out
+    return (m, *cols)
 
 
-def _dispatch(soft: bool, protos, coefs, boxes_grid, valid, logits_dtype):
-    if protos.device.type == "cpu":
-        plain = mask_stats_soft_plain if soft else mask_stats_binary_plain
-        return plain(protos, coefs, boxes_grid, valid, logits_dtype)
-    if protos.device.type != "cuda":
+def _register(soft: bool):
+    name = "mask_stats_soft" if soft else "mask_stats_binary"
+    plain = mask_stats_soft_plain if soft else mask_stats_binary_plain
+
+    def cpu(protos, coefs, boxes_grid, valid, logits_dtype):
+        out = plain(protos, coefs, boxes_grid, valid, logits_dtype)
+        return (torch.stack([out[k] for k in MOMENTS[name]], -1),
+                *(out[k] for k in COLUMN_FIELDS[name]))
+
+    def fake(protos, coefs, boxes_grid, valid, logits_dtype):
+        b, d, wm = coefs.shape[0], coefs.shape[1], protos.shape[2]
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=protos.device)
+        return (new(b, d, len(MOMENTS[name])), *(new(b, d, wm) for _ in COLUMN_FIELDS[name]))
+
+    cuda = lambda *args: _launch(soft, *args)
+    outs = ", ".join(["Tensor"] * (1 + len(COLUMN_FIELDS[name])))
+    return register_op(f"{name}(Tensor protos, Tensor coefs, Tensor boxes_grid, Tensor valid, "
+                       f"ScalarType logits_dtype) -> ({outs})", cpu, cuda, fake)
+
+
+_OPS = {soft: _register(soft) for soft in (True, False)}
+
+
+def _dispatch(soft: bool, protos, coefs, boxes_grid, valid, logits_dtype) -> dict[str, Tensor]:
+    if protos.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mask stats run on cpu or cuda tensors, got {protos.device}")
-    return _launch(soft, protos, coefs, boxes_grid, valid, logits_dtype)
+    _check(protos, coefs, boxes_grid, valid, logits_dtype)
+    name = "mask_stats_soft" if soft else "mask_stats_binary"
+    m, *cols = _OPS[soft](protos, coefs, boxes_grid, valid, logits_dtype)
+    return {**{k: m[..., i] for i, k in enumerate(MOMENTS[name])},
+            **dict(zip(COLUMN_FIELDS[name], cols))}
 
 
 def mask_stats_soft(protos: Tensor, coefs: Tensor, boxes_grid: Tensor, valid: Tensor,

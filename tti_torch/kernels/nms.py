@@ -9,9 +9,11 @@ threshold. That keep-set is the unique fixed point of the reference's sweep,
 so the kernel walks the ranks once instead of sweeping, and the step reads
 nothing back to the host.
 
-A tensor on the CPU goes to the plain version, the reference's sweep to its
-fixed point; a CUDA tensor launches the kernel or raises. What bounds the
-kernel and what its design does about it is written in ``csrc/nms.cu``.
+The kernel is the operator ``torch.ops.tti_torch.greedy_keep``
+(:func:`tti_torch.kernels.build.register_op`): on a CPU tensor it runs the
+plain version, the reference's sweep to its fixed point; on a CUDA tensor it
+launches the kernel or raises. What bounds the kernel and what its design
+does about it is written in ``csrc/nms.cu``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 
 import torch
 
-from tti_torch.kernels.build import load_library
+from tti_torch.kernels.build import load_library, register_op
 
 Tensor = torch.Tensor
 
@@ -87,7 +89,9 @@ def greedy_keep_plain(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor,
                       iou_thresh: float, class_aware: bool = True) -> Tensor:
     """The same keep-set in plain PyTorch: the reference's sweep from
     ``keep = ok`` to its fixed point, at most K sweeps (position i is final
-    after i + 1), with a host check after each."""
+    after i + 1), with a host check after each. It is the operator's CPU
+    implementation: a trace records the operator and never enters this
+    data-dependent loop."""
     blocked_by = suppression_matrix(cand_boxes, cand_classes, iou_thresh, class_aware)
     keep = cand_ok
     for _ in range(cand_boxes.shape[1]):
@@ -142,6 +146,19 @@ def _launch(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor, iou_thres
     return keep
 
 
+def _plain_op(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor, iou_thresh: float,
+              class_aware: bool) -> Tensor:
+    keep = greedy_keep_plain(cand_boxes, cand_classes, cand_ok, iou_thresh, class_aware)
+    return keep.clone() if keep is cand_ok else keep  # an operator's output is its own
+
+
+_OP = register_op(
+    "greedy_keep(Tensor cand_boxes, Tensor cand_classes, Tensor cand_ok, float iou_thresh, "
+    "bool class_aware) -> Tensor",
+    _plain_op, _launch, lambda cand_boxes, cand_classes, cand_ok, iou_thresh, class_aware:
+    torch.empty(cand_ok.shape, dtype=torch.bool, device=cand_ok.device))
+
+
 def greedy_keep(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor,
                 iou_thresh: float, class_aware: bool = True) -> Tensor:
     """Kernel D: score-sorted candidate boxes (B, K, 4) float32 xyxy, their
@@ -149,8 +166,6 @@ def greedy_keep(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor,
     (B, K) bool. ``class_aware``: only boxes of one class suppress each
     other."""
     _check(cand_boxes, cand_classes, cand_ok)
-    if cand_boxes.device.type == "cpu":
-        return greedy_keep_plain(cand_boxes, cand_classes, cand_ok, iou_thresh, class_aware)
-    if cand_boxes.device.type != "cuda":
+    if cand_boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy keep runs on cpu or cuda tensors, got {cand_boxes.device}")
-    return _launch(cand_boxes, cand_classes, cand_ok, iou_thresh, class_aware)
+    return _OP(cand_boxes, cand_classes, cand_ok, float(iou_thresh), bool(class_aware))

@@ -18,9 +18,11 @@ by 255: in float32 the two agree to 2e-5, in bfloat16 they differ by up to
 one step of the content (``bfloat16(1/255)`` is ``129/32768``, 0.39% above
 ``1/255``).
 
-A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises. What bounds the kernel and what its design does about it
-is written in ``csrc/warp_p1.cu``. The TPU kernel's ``hs % 8`` rule and its
+The kernel is the operator ``torch.ops.tti_torch.warp_pass1_decimated``
+(:func:`tti_torch.kernels.build.register_op`): on CPU tensors it runs the
+plain version; on CUDA tensors it launches the kernel or raises. What bounds
+the kernel and what its design does about it is written in
+``csrc/warp_p1.cu``. The TPU kernel's ``hs % 8`` rule and its
 128-column block were Mosaic's tiling and are not carried over.
 """
 
@@ -30,7 +32,7 @@ import ctypes
 
 import torch
 
-from tti_torch.kernels.build import load_library
+from tti_torch.kernels.build import load_library, register_op
 
 Tensor = torch.Tensor
 
@@ -120,6 +122,20 @@ def _launch(frames_u8: Tensor, w1: Tensor, k: int, off: int, hs: int, ws: int,
     return out
 
 
+def _plain_op(frames_u8: Tensor, w1: Tensor, k: int, off: int, hs: int, ws: int,
+              pad_value: float, bgr_flip: bool) -> Tensor:
+    return warp_pass1_decimated_plain(frames_u8, w1, k=k, off=off, hs=hs, ws=ws,
+                                      pad_value=pad_value, bgr_flip=bgr_flip)
+
+
+_OP = register_op(
+    "warp_pass1_decimated(Tensor frames_u8, Tensor w1, int k, int off, int hs, int ws, "
+    "float pad_value, bool bgr_flip) -> Tensor",
+    _plain_op, _launch, lambda frames_u8, w1, k, off, hs, ws, pad_value, bgr_flip:
+    torch.empty((hs, 3, frames_u8.shape[0], w1.shape[2]), dtype=w1.dtype,
+                device=frames_u8.device))
+
+
 def warp_pass1_decimated(frames_u8: Tensor, w1: Tensor, *, k: int, off: int, hs: int, ws: int,
                          pad_value: float, bgr_flip: bool = True) -> Tensor:
     """Kernel C: uint8 BGR frames (B, H, W, 3) and dense pass-1 weights
@@ -127,10 +143,7 @@ def warp_pass1_decimated(frames_u8: Tensor, w1: Tensor, *, k: int, off: int, hs:
 
     ``k`` is the odd decimation stride, ``off`` its offset ``(k - 1) // 2``,
     ``hs`` x ``ws`` the decimated content that pass 1 consumes."""
-    if frames_u8.device.type == "cpu":
-        return warp_pass1_decimated_plain(frames_u8, w1, k=k, off=off, hs=hs, ws=ws,
-                                          pad_value=pad_value, bgr_flip=bgr_flip)
-    if frames_u8.device.type != "cuda":
+    if frames_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"warp pass 1 runs on cpu or cuda tensors, got {frames_u8.device}")
     _check_geometry(frames_u8, w1, k, off, hs, ws)
-    return _launch(frames_u8, w1, k, off, hs, ws, pad_value, bgr_flip)
+    return _OP(frames_u8, w1, k, off, hs, ws, float(pad_value), bool(bgr_flip))
