@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``tti_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--first-design PATH] [--first-design-int8 PATH] [--ablate]
+    python3 chip_smoke.py [--first-design PATH] [--first-design-int8 PATH]
+                          [--first-design-warp PATH] [--ablate]
 
 ``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
 file as the commit that added the port's measurement path had it); it is
@@ -11,7 +12,11 @@ first design (``git show 7a2104c:tti_torch/kernels/csrc/int8conv.cu``):
 phase 5c builds it, holds its
 output equal to E's on every block input of the deploy int8 forward and
 times it beside E there and, bound in E's place, on the whole deploy int8
-step (E, then it, then E again). Nothing else uses either. ``--ablate`` runs phases 1-2
+step (E, then it, then E again). ``--first-design-warp`` names a copy of
+kernel C's first design (``git show 0b702ac:tti_torch/kernels/csrc/warp_p1.cu``):
+phase 3 holds its output equal to C's on the headline inputs at batch 128
+and 1, and phase 9 times it beside C on the same inputs (first, C, C,
+first). Nothing else uses them. ``--ablate`` runs phases 1-2
 and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
 part of the design out or tune it otherwise, timed on synthetic inputs
 shaped like the steps' (what each part costs or buys).
@@ -33,11 +38,17 @@ exits non-zero without printing the final result line:
    height (a bottom on a chunk's last and first row, on the box's last row,
    one-row boxes, a box over every chunk), boxes over the whole grid at both
    main-path shapes with 8 of 200 detections valid, and every comparison
-   launched twice with bit-equal outputs. Warp pass 1: the headline shape at
-   batch 128 and 1 with the headline warp's own weights, a k = 5 geometry,
-   dense weights j/64, a frame holding every byte value on which the plain
-   version that divides by 255 must fail, and the stride-k select alone
-   (identity weights, bytes 0 or 255) at k = 3 and k = 5. Kernel D (greedy
+   launched twice with bit-equal outputs. Warp pass 1 (kernel C, which
+   reads only the rows of W1 that the warp's table ``pass1_window`` says
+   hold a non-zero): the headline shape at batch 128, 64, 33, 17, 16, 2
+   and 1 with the headline warp's own weights, a k = 5 geometry and a W1
+   whose non-zeros sit on its tiles' first and last rows and columns, with
+   dead tiles and dead columns (0 differing elements: at most two non-zero
+   products per output), dense weights j/64 (within one bf16 step), a
+   frame holding every byte value on which the plain version that divides
+   by 255 must fail, and the stride-k select alone (identity weights,
+   bytes 0 or 255) at k = 3 and k = 5; every case launched twice,
+   bit-equal. Kernel D (greedy
    NMS keep-set) bit-equal to ``greedy_keep_plain``, two launches bit-equal,
    at K = 256, 512 and 1000 (the rows in the scratch buffer), on a
    suppression chain through all K, every candidate invalid, every box
@@ -54,7 +65,8 @@ exits non-zero without printing the final result line:
    checkpoint, through kernel B, with the same checks (the synchronising
    calls too, also on the kernel route's step); then the same step
    with ``warp_pass1="kernel"`` at batch 128 (kernels C and B, once per step
-   each), against the plain versions and against the "einsum" step; the
+   each), against the plain versions and against the "einsum" step, and
+   its frames/s and batch-1 p50 against the "einsum" step's in turns; the
    packed-remap step against the two-pass step (its pack of the decimated
    bytes bit-equal to the float resize it skips); the dual step (two
    checkpoints, one preprocess, kernel D twice) against each model's own
@@ -177,7 +189,10 @@ exits non-zero without printing the final result line:
    p50, p95 and bias printed;
 9. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
-   on the inputs the batch-128 step gives it (kernel D also at batch 1);
+   on the inputs the batch-128 step gives it (kernels C and D also at batch
+   1; C's bound counts what its weights need, W1's non-zeros and the table,
+   beside the bound of reading W1 whole, with the share of W1 its boxes
+   read);
 10. the ``kernels`` JSON line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -449,41 +464,114 @@ def k5_warp(torch):
     return spec, TwoPassWarp(small_map, (spec.new_h, spec.new_w), device="cuda")
 
 
-def check_warp_p1(torch, wp, warp, spec) -> dict:
+def edge_tile_w1(torch, hs, ws, wo, gen):
+    """A W1 (hs, ws, wo) whose non-zeros (values j/64, never 0) sit where a
+    tiled walk over W1 breaks first: each 64-column tile of a row y holds
+    one non-zero on the tile's first column and one on its last, their rows
+    spanning exactly 80 source columns (one whole chunk), 81 (a second
+    chunk of one row) or 16, at source column 0 and at ws - 1; every fourth
+    tile and one column of each tile hold nothing (a dead tile, a dead
+    column)."""
+    w1 = torch.zeros((hs, ws, wo), dtype=torch.bfloat16, device="cuda")
+    spans = (80, 81, 16, 1)
+    for y in range(hs):
+        for m in range(wo // 64):
+            if (y + m) % 4 == 3:
+                continue  # a dead tile
+            span = min(spans[(y + m) % 4], ws)
+            x0 = (0, ws - span, (37 * (y + m)) % max(ws - span, 1))[(y * 7 + m) % 3]
+            vals = torch.randint(1, 65, (2,), device="cuda", generator=gen).float() / 64
+            w1[y, x0, 64 * m] = vals[0]
+            w1[y, x0 + span - 1, 64 * m + 63] = vals[1]
+            w1[y, x0 + span // 2, 64 * m + 1 + (y + m) % 60] = vals[0]
+    return w1
+
+
+def load_first_warp(torch, path):
+    """Build kernel C's first design (its ``warp_p1.cu``, from ``path``)
+    into its own library and return ``call(frames, w1, k, off, hs, ws,
+    pad_value)``, which launches it as its own wrapper did (dense W1, no
+    table; not counted)."""
+    import ctypes
+
+    from tti_torch.kernels import build as kbuild
+
+    out = kbuild.BUILD_DIR / "libtti_warp_p1_first_design.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out), path], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tti_warp_pass1_decimated.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, i,
+                                             ctypes.c_float, i, i, i, p]
+    lib.tti_warp_pass1_decimated.restype = i
+
+    def call(frames, w1, k, off, hs, ws, pad_value):
+        b, h, w, _ = frames.shape
+        wo = w1.shape[2]
+        out = torch.empty((hs, 3, b, wo), dtype=torch.bfloat16, device=frames.device)
+        err = lib.tti_warp_pass1_decimated(
+            frames.data_ptr(), frames.numel(), w1.data_ptr(), out.data_ptr(), b, h, w, k, off, hs,
+            ws, wo, float(pad_value), 1, int(frames.data_ptr() % 16 == 0),
+            int(w1.data_ptr() % 16 == 0 and wo % 8 == 0), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"first design of kernel C: cudaError {err}")
+        return out
+
+    return call
+
+
+def check_warp_p1(torch, wp, warp, spec, first=None) -> dict:
     """Kernel C against its plain version in bf16 on the card. ``warp`` and
     ``spec`` are the headline pipeline's. The limit is one bf16 step (2^-8)
     relative to max(|ref|, 1/16): the sum rounds once to bf16, and a float32
     sum taken in another order can fall on the other side of a rounding
-    boundary. With the warp's own weights an output is a sum of at most two
-    non-zero products, whose order cannot matter: equality is expected, and
-    the count of differing elements is printed."""
+    boundary. With at most two non-zero products per output (the warp's own
+    weights, the edge-tile weights) the order cannot matter: there 0
+    differing elements are required. Every case is launched twice, and the
+    two outputs must be bit-equal. With ``first`` (the first design's
+    launcher), its output on the headline inputs at batch 128 and 1 must
+    equal the kernel's."""
     worst = [0.0, 0.0]
     gen = torch.Generator(device="cuda").manual_seed(7)
     rand = lambda *shape: torch.randint(0, 256, (*shape, 3), dtype=torch.uint8, device="cuda",
                                         generator=gen)
 
-    def run(label, frames, w1, kw):
-        got = wp.warp_pass1_decimated(frames, w1, **kw)
-        ref = wp.warp_pass1_decimated_plain(frames, w1, **kw)
+    def run(label, frames, w1, kw, exact=False, vs_first=False):
+        window = wp.pass1_window(w1)
+        got = wp.warp_pass1_decimated(frames, w1, window, **kw)
+        again = wp.warp_pass1_decimated(frames, w1, window, **kw)
+        ref = wp.warp_pass1_decimated_plain(frames, w1, window, **kw)
         torch.cuda.synchronize()
         want_shape = (kw["hs"], 3, frames.shape[0], w1.shape[2])
         check(tuple(got.shape) == want_shape and got.dtype == w1.dtype,
               f"warp_pass1_decimated {label}: {tuple(got.shape)} {got.dtype}, expected {want_shape}")
+        check(torch.equal(got, again), f"warp_pass1_decimated {label}: two launches differ")
         a, r, ndiff = p1_errors(got, ref)
         check(r <= BF16_STEP, f"warp_pass1_decimated {label}: max rel err {r} > {BF16_STEP}")
+        check(ndiff == 0 or not exact, f"warp_pass1_decimated {label}: {ndiff} elements differ")
         worst[0], worst[1] = max(worst[0], a), max(worst[1], r)
         log(f"  warp_pass1_decimated {label}: max abs err {a:.3g}, max rel err {r:.3g}, "
-            f"{ndiff} of {got.numel()} elements differ")
+            f"{ndiff} of {got.numel()} elements differ; two launches bit-equal")
+        if first is not None and vs_first:
+            old = first(frames, w1, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(old, got), f"warp_pass1_decimated {label}: the first design differs")
+            log(f"  the first design on the same inputs: equal to the kernel")
         return got
 
     head = dict(k=3, off=1, hs=spec.new_h, ws=spec.new_w, pad_value=warp.pad_value)
     check((head["hs"], head["ws"], warp.w1.shape[2]) == (360, 640, 640),
           f"headline pass-1 shape {tuple(warp.w1.shape)}")
-    run("headline B=128, the warp's own W1", rand(BATCH, 1080, 1920), warp.w1, head)
-    run("headline B=1, the warp's own W1", rand(1, 1080, 1920), warp.w1, head)
+    for b in (BATCH, 64, 33, 17, 16, 2, 1):
+        run(f"headline B={b}, the warp's own W1", rand(b, 1080, 1920), warp.w1, head, exact=True,
+            vs_first=b in (BATCH, 1))
     spec5, warp5 = k5_warp(torch)
     kw5 = dict(k=5, off=2, hs=spec5.new_h, ws=spec5.new_w, pad_value=warp5.pad_value)
-    run("k=5 (480x480, imgsz 96) B=5", rand(5, 480, 480), warp5.w1, kw5)
+    run("k=5 (480x480, imgsz 96) B=5", rand(5, 480, 480), warp5.w1, kw5, exact=True)
+    edge = edge_tile_w1(torch, 16, 640, 640, gen)
+    run("B=40, non-zeros on the tiles' first and last rows and columns, dead tiles and columns",
+        rand(40, 1080, 1920), edge, dict(head, hs=16), exact=True)
+    del edge
     dense = (torch.randint(-64, 65, tuple(warp.w1.shape), device="cuda", generator=gen).float()
              / 64).to(torch.bfloat16)
     run("headline B=128, dense W1 of values j/64", rand(BATCH, 1080, 1920), dense, head)
@@ -494,7 +582,7 @@ def check_warp_p1(torch, wp, warp, spec) -> dict:
     ar = lambda n, shape: torch.arange(n, device="cuda").view(shape)
     every = ((ar(1920, (1, 1, -1, 1)) + 7 * ar(1080, (1, -1, 1, 1)) + 31 * ar(3, (1, 1, 1, -1))
               + 13 * ar(4, (-1, 1, 1, 1))) % 256).to(torch.uint8)
-    got = run("headline B=4, every byte value", every, warp.w1, head)
+    got = run("headline B=4, every byte value", every, warp.w1, head, exact=True)
     _, div_err, div_n = p1_errors(got, p1_plain_dividing(torch, every, warp.w1, **head))
     check(div_err > BF16_STEP, f"dividing by 255 passes the kernel's comparison ({div_err})")
     log(f"  warp_pass1_decimated against the plain version that divides by 255: max rel err "
@@ -509,7 +597,8 @@ def check_warp_p1(torch, wp, warp, spec) -> dict:
         off = (k - 1) // 2
         frames = rand(b, h, w) // 128 * 255
         eye = torch.eye(ws, dtype=torch.bfloat16, device="cuda").expand(hs, ws, ws).contiguous()
-        got = wp.warp_pass1_decimated(frames, eye, k=k, off=off, hs=hs, ws=ws, pad_value=0.0)
+        got = wp.warp_pass1_decimated(frames, eye, wp.pass1_window(eye), k=k, off=off, hs=hs,
+                                      ws=ws, pad_value=0.0)
         sel = frames[:, off::k, off::k, :][:, :hs, :ws, :].flip(-1).permute(1, 3, 0, 2)
         want = torch.where(sel == 255, one.to("cuda"), torch.zeros((), dtype=torch.bfloat16,
                                                                    device="cuda"))
@@ -679,20 +768,25 @@ def kernel_bound_ms(torch, name: str, *args) -> tuple[float, str, dict]:
     Mask statistics (protos, coefs, boxes, valid): the protos cells that some
     valid box covers plus the other inputs and the outputs; 2*nm operations
     per covered cell per detection (bf16 logits: tensor cores; f32 logits:
-    f32 FMA). Warp pass 1 (frames, w1, kw): of every kept source row the
-    32-byte sectors that hold a sampled byte (at k = 3 and 5 that is the
-    whole row; the skipped rows are not read), the weights and the output;
-    2 * 3B * ws * wo * hs operations on the bf16 tensor cores."""
+    f32 FMA). Warp pass 1 (frames, w1, window, kw): of every kept source
+    row the 32-byte sectors that hold a sampled byte (at k = 3 and 5 that is
+    the whole row; the skipped rows are not read), what these weights need
+    (their non-zero entries, 2 bytes each, and the table) and the output;
+    2 * 3B operations per non-zero weight on the bf16 tensor cores. With
+    ``dense=True``: all of W1 and 2 * 3B * ws * wo * hs operations (the
+    bound of a product that reads W1 whole)."""
     if name == "warp_pass1_decimated":
-        frames, w1, kw = args
+        frames, w1, window, kw, dense = args
         b, _, w, _ = frames.shape
         k, off, hs, ws = kw["k"], kw["off"], kw["hs"], kw["ws"]
         wo = w1.shape[2]
         first = 3 * (off + k * np.arange(ws))
         sectors = np.unique(np.concatenate([first // 32, (first + 2) // 32])).size
         frame_bytes = b * hs * min(32 * sectors, 3 * w)
-        nbytes = frame_bytes + (w1.numel() + hs * 3 * b * wo) * w1.element_size()
-        ops = 2.0 * 3 * b * ws * wo * hs
+        weights = w1.numel() if dense else int((w1 != 0).sum())
+        nbytes = (frame_bytes + (weights + hs * 3 * b * wo) * w1.element_size()
+                  + (0 if dense else window.numel() * window.element_size()))
+        ops = 2.0 * 3 * b * weights
         peak = PEAK_OPS["bf16"]
     else:
         soft = name == "mask_stats_soft"
@@ -1306,8 +1400,14 @@ def check_kernel_route(torch, head, head_k, got_e, got_k, frame_hw) -> dict:
         f"detection slots that agree {det_same:.4%}")
     log(f"headline warp in bf16 against the same warp in float32 (4 frames): max abs diff "
         f"{f32_diff:.4g}")
+    turns = time_pair(torch, head, head_k, frames, frames[:1].contiguous())
+    log(f"headline kernel route against the einsum route in turns (einsum, kernel, kernel, "
+        f"einsum; 4 steps of {BATCH} frames each): {turns['frames_per_s']:.1f} frames/s against "
+        f"{turns['ref_frames_per_s']:.1f} ({turns['frames_per_s'] / turns['ref_frames_per_s'] - 1:+.1%}); "
+        f"batch-1 p50 {turns['p50_ms']:.3f} ms against {turns['ref_p50_ms']:.3f}")
     return {"input_max_abs_diff": x_max, "input_mean_abs_diff": x_mean, "mm_max_diff": mm,
-            "mm_median_diff": mm_med, "bf16_vs_f32_warp_max_abs_diff": f32_diff}
+            "mm_median_diff": mm_med, "bf16_vs_f32_warp_max_abs_diff": f32_diff,
+            "turns_vs_einsum": turns}
 
 
 def stage_ms(torch, fn, iters=10) -> float:
@@ -2399,14 +2499,38 @@ def check_streams(torch, pipe, frame_hw) -> dict:
             "h2d_bytes_per_step": int(batch.nbytes), "gather_ms": gather_ms}
 
 
-def time_warp_p1(torch, wp, pipe, frame_hw, flush) -> dict:
+def live_tile_share(torch, w1, window) -> dict:
+    """What kernel C reads of W1 through ``window``: per (y, 64 output
+    columns) the union of the columns' windows, cut into chunks of 80 rows
+    (the kernel's chunk at the headline; each chunk a TMA box of 80 rows x
+    64 columns). Returns the share of W1's bytes those boxes hold, the rows
+    of the union as a share of ws, and the share of W1 that is non-zero."""
+    hs, ws, wo = w1.shape
+    w = window.view(hs, -1, 2)
+    lo, hi = w[..., 0], w[..., 1]
+    live = lo < hi
+    tiles = (wo + 63) // 64
+    pad = tiles * 64 - wo
+    lo = torch.nn.functional.pad(torch.where(live, lo, ws), (0, pad), value=ws)
+    hi = torch.nn.functional.pad(torch.where(live, hi, 0), (0, pad), value=0)
+    span = (hi.view(hs, tiles, 64).amax(2) - lo.view(hs, tiles, 64).amin(2)).clamp(min=0)
+    boxes = (span + 79) // 80
+    return {"live_tile_share": float((boxes * 80 * 64).sum()) / (hs * ws * wo),
+            "union_row_share": float(span.float().mean()) / ws,
+            "nonzero_share": float((w1 != 0).float().mean())}
+
+
+def time_warp_p1(torch, wp, pipe, frame_hw, flush, first=None) -> dict:
     """Kernel C at the headline step's shapes (batch 128 and 1): the kernel,
     its plain version, the unfused chain it replaces (letterbox_content ->
-    subtract pad -> pass-1 einsum), its bound, and pass 2 from either
-    layout."""
+    subtract pad -> pass-1 einsum), its bounds (what these weights need, and
+    W1 read whole), the share of W1 it reads, and pass 2 from either
+    layout; with ``first``, the first design on the same inputs in turns
+    (first, kernel, kernel, first)."""
     from tti_torch.preprocess.letterbox import letterbox_content
 
     warp, spec = pipe.warp, pipe.spec
+    window = warp.pass1_window()
     kw = dict(k=3, off=1, hs=spec.new_h, ws=spec.new_w, pad_value=warp.pad_value)
     pad = torch.tensor(warp.pad_value, dtype=warp.w1.dtype)
 
@@ -2414,30 +2538,45 @@ def time_warp_p1(torch, wp, pipe, frame_hw, flush) -> dict:
         content = letterbox_content(f, spec, torch.bfloat16, decimate=True)
         return torch.einsum("bywc,ywo->byoc", content.to(warp.w1.dtype) - pad, warp.w1)
 
+    share = live_tile_share(torch, warp.w1, window)
     out = {}
     with torch.inference_mode():
         for batch in (BATCH, 1):
             frames = torch.from_numpy(textile(frame_hw, batch)).cuda()
-            t = {"ms": time_ms(torch, lambda: wp.warp_pass1_decimated(frames, warp.w1, **kw),
-                               flush=flush),
-                 "plain_ms": time_ms(torch, lambda: wp.warp_pass1_decimated_plain(
-                     frames, warp.w1, **kw), iters=5, flush=flush),
-                 "unfused_ms": time_ms(torch, lambda: unfused(frames), flush=flush)}
-            i1_k = wp.warp_pass1_decimated(frames, warp.w1, **kw)
+            kernel = lambda: wp.warp_pass1_decimated(frames, warp.w1, window, **kw)
+            if first is not None:
+                old = lambda: first(frames, warp.w1, **kw)
+                t = {"first_design_ms": [time_ms(torch, old, flush=flush)],
+                     "ms": time_ms(torch, kernel, flush=flush)}
+                t["ms_again"] = time_ms(torch, kernel, flush=flush)
+                t["first_design_ms"].append(time_ms(torch, old, flush=flush))
+            else:
+                t = {"ms": time_ms(torch, kernel, flush=flush)}
+            t["plain_ms"] = time_ms(torch, lambda: wp.warp_pass1_decimated_plain(
+                frames, warp.w1, window, **kw), iters=5, flush=flush)
+            t["unfused_ms"] = time_ms(torch, lambda: unfused(frames), flush=flush)
+            i1_k = kernel()
             i1_e = unfused(frames)
             t["pass2_from_ycbo_ms"] = time_ms(
                 torch, lambda: warp.apply_pass2_ycbo(i1_k, torch.bfloat16), flush=flush)
             t["pass2_from_byoc_ms"] = time_ms(torch, lambda: warp.apply_pass2(i1_e, torch.bfloat16), flush=flush)
             t["bound_ms"], t["bound_by"], info = kernel_bound_ms(
-                torch, "warp_pass1_decimated", frames, warp.w1, kw)
-            t.update(info, shape=list(frames.shape))
+                torch, "warp_pass1_decimated", frames, warp.w1, window, kw, False)
+            t["bound_dense_ms"], _, dense = kernel_bound_ms(
+                torch, "warp_pass1_decimated", frames, warp.w1, window, kw, True)
+            t.update(info, shape=list(frames.shape), dense_bytes=dense["bytes"], **share)
             out[batch] = t
+            firsts = (f", first design {' and '.join(f'{v:.4f}' for v in t['first_design_ms'])} ms"
+                      f" (before and after; the kernel again {t['ms_again']:.4f} ms)"
+                      if first is not None else "")
             log(f"  warp_pass1_decimated on the headline step's frames {tuple(frames.shape)}, W1 "
-                f"{tuple(warp.w1.shape)}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                f"unfused chain {t['unfused_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                f"({t['bound_by']}; {t['bytes'] / 1e6:.2f} MB, {t['ops'] / 1e9:.3f} GFLOP); pass 2 "
-                f"from (y,c,b,o) {t['pass2_from_ycbo_ms']:.4f} ms, from (b,y,o,c) "
-                f"{t['pass2_from_byoc_ms']:.4f} ms")
+                f"{tuple(warp.w1.shape)}: kernel {t['ms']:.4f} ms{firsts}, plain "
+                f"{t['plain_ms']:.4f} ms, unfused chain {t['unfused_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.2f} MB, what these "
+                f"weights need), {t['bound_dense_ms']:.4f} ms reading W1 whole "
+                f"({t['dense_bytes'] / 1e6:.2f} MB); W1 boxes read {share['live_tile_share']:.2%} "
+                f"of W1 (non-zero {share['nonzero_share']:.3%}); pass 2 from (y,c,b,o) "
+                f"{t['pass2_from_ycbo_ms']:.4f} ms, from (b,y,o,c) {t['pass2_from_byoc_ms']:.4f} ms")
     return out
 
 
@@ -3678,6 +3817,9 @@ def main() -> int:
     parser.add_argument("--first-design-int8", metavar="PATH",
                         help="a copy of kernel E's first int8conv.cu (commit 7a2104c), timed "
                              "beside kernel E in phase 5c")
+    parser.add_argument("--first-design-warp", metavar="PATH",
+                        help="a copy of kernel C's first warp_p1.cu (commit 0b702ac), held equal "
+                             "to kernel C and timed beside it")
     parser.add_argument("--ablate", action="store_true",
                         help="time variants of maskstats.cu on synthetic inputs, and nothing else")
     opts = parser.parse_args()
@@ -3724,6 +3866,8 @@ def main() -> int:
     first = load_first_design(torch, opts.first_design) if opts.first_design else None
     first_int8 = (load_first_int8(torch, opts.first_design_int8) if opts.first_design_int8
                   else None)
+    first_warp = (load_first_warp(torch, opts.first_design_warp) if opts.first_design_warp
+                  else None)
     if opts.ablate:
         ablate(torch, ms, kbuild, first)
         log(card)
@@ -3748,7 +3892,7 @@ def main() -> int:
         torch, ms, wp, "headline step (1080x1920, imgsz 640, stride-4 binary)", head_hw, 640,
         head_ckpt, ("mask_stats_binary",), batch=BATCH)
     # Phase 3 again, for kernel C, with the headline warp's own weights.
-    errs["warp_pass1_decimated"] = check_warp_p1(torch, wp, head.warp, head.spec)
+    errs["warp_pass1_decimated"] = check_warp_p1(torch, wp, head.warp, head.spec, first_warp)
     torch.cuda.empty_cache()
     head_time, (head_args, head_nms) = time_step(torch, ms, head, "headline", head_hw)
 
@@ -3829,7 +3973,7 @@ def main() -> int:
         })
     del dep_args, head_args
     torch.cuda.empty_cache()
-    c = time_warp_p1(torch, wp, head_k, head_hw, flush)
+    c = time_warp_p1(torch, wp, head_k, head_hw, flush, first_warp)
     kernels.append({
         "name": "warp_pass1_decimated", "route": "cuda",
         "source": "tti_torch/kernels/csrc/warp_p1.cu", "replaces": "tti/kernels/warp_p1.py:64",
@@ -3838,12 +3982,18 @@ def main() -> int:
         "max_rel_err": errs["warp_pass1_decimated"]["max_rel_err"],
         "ms": c[BATCH]["ms"], "plain_ms": c[BATCH]["plain_ms"], "bound_ms": c[BATCH]["bound_ms"],
         "bound_by": c[BATCH]["bound_by"], "library_ms": None,
+        "bound_dense_ms": c[BATCH]["bound_dense_ms"],
+        "live_tile_share": c[BATCH]["live_tile_share"],
+        "nonzero_share": c[BATCH]["nonzero_share"],
         "unfused_ms": c[BATCH]["unfused_ms"], "timed_on": "the headline step's frames",
         "timed_shape": c[BATCH]["shape"],
         "pass2_from_ycbo_ms": c[BATCH]["pass2_from_ycbo_ms"],
         "pass2_from_byoc_ms": c[BATCH]["pass2_from_byoc_ms"],
+        **({k: c[BATCH][k] for k in ("first_design_ms", "ms_again")} if first_warp else {}),
         "batch_1": {k: c[1][k] for k in ("ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by",
-                                         "pass2_from_ycbo_ms", "pass2_from_byoc_ms")},
+                                         "bound_dense_ms", "pass2_from_ycbo_ms",
+                                         "pass2_from_byoc_ms", "first_design_ms", "ms_again")
+                    if k in c[1]},
     })
     d_times = {}
     for config, cands in (("deploy", dep_nms), ("headline", head_nms)):

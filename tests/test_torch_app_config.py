@@ -185,3 +185,62 @@ def test_load_pipeline_builds_under_the_switches(tmp_path, monkeypatch):
         seen[0]["maskstats_logits"] == "f32" and seen[0]["fold_bn"]
     told = [m for m in handler.messages if "no counterpart" in m]
     assert len(told) == 2 and "TTI_INPUT_LAYOUT" in told[0] and "SKIP_PAD_ROWS" in told[1]
+
+
+CLI_COMMANDS = {
+    "calibrate": ["calibrate"],
+    "calibrate-intrinsics": ["calibrate-intrinsics", "--images", "none"],
+    "export-weights": ["export-weights", "--train-dir", "none", "--out", "x.msgpack"],
+    "train": ["train", "--images", "none", "--device", "cpu"],
+    "run": ["run", "--synthetic", "--device", "cpu"],
+    "check-model": ["check-model", "--device", "cpu"],
+    "eval": ["eval", "--images", "none", "--device", "cpu"],
+    "convert": ["convert", "--pt", "none.pt", "--out", "x.msgpack"],
+    "validate-reference": ["validate-reference", "--pt", "none.pt", "--device", "cpu"],
+    "export": ["export", "--device", "cpu", "--platforms", "cpu"],
+}
+
+
+@pytest.mark.parametrize("command", sorted(CLI_COMMANDS))
+def test_cli_refuses_multi_host(command, tmp_path, monkeypatch, capsys):
+    """tti joins a multi-host job before every command when TTI_COORDINATOR
+    is set (its init_distributed); the port refuses every command, naming
+    the ROADMAP item that ports multi-host, before it reads or writes
+    anything."""
+    from tti_torch.cli.__main__ import main as port_main
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TTI_COORDINATOR", "10.0.0.1:1234")
+    monkeypatch.setenv("TTI_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TTI_PROCESS_ID", "0")
+    assert port_main(CLI_COMMANDS[command]) == 1
+    err = capsys.readouterr().err
+    assert "ROADMAP Queue 1 item 3" in err and "TTI_COORDINATOR" in err
+    assert not any(tmp_path.iterdir())
+    with pytest.raises(terr.ConfigError, match="ROADMAP Queue 1 item 3"):
+        tcfg.check_process_switches({"TTI_COORDINATOR": "h:1"})
+    # As in tti, the other two alone do not turn multi-host on.
+    assert tcfg.check_process_switches({"TTI_NUM_PROCESSES": "2", "TTI_PROCESS_ID": "1"}) == ()
+
+
+def test_cli_logs_the_compilation_cache_dir(tmp_path, monkeypatch):
+    """TTI_JAX_CACHE_DIR (tti's XLA compilation cache, read before every
+    command) is logged as having no counterpart, once, and not again by the
+    step's own switches."""
+    from tti_torch.cli.__main__ import main as port_main
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TTI_JAX_CACHE_DIR", str(tmp_path / "cache"))
+    logger, handler = logging.getLogger("tti_torch.cli"), _Records()
+    logger.addHandler(handler)
+    try:
+        assert port_main(["convert", "--pt", "none.pt", "--out", "x.msgpack"]) != 0
+    except FileNotFoundError:
+        pass
+    finally:
+        logger.removeHandler(handler)
+    told = [m for m in handler.messages if "no counterpart" in m]
+    assert len(told) == 1 and "TTI_JAX_CACHE_DIR" in told[0]
+    assert "TTI_JAX_CACHE_DIR" in tcfg.NO_COUNTERPART
+    assert tcfg.RuntimeSwitches.from_env({"TTI_JAX_CACHE_DIR": "d"}).no_counterpart == ()
+    assert not (tmp_path / "cache").exists()

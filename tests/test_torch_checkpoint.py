@@ -102,6 +102,29 @@ def test_sidecar_resolution_matches_tti(path, monkeypatch):
     assert pinned.cal_edge_mm == 0.5 and pinned.subcell_edge is False
 
 
+@pytest.mark.parametrize("value", ["0", "off", " OFF ", "false", "No", "1", "on", "", None])
+@pytest.mark.parametrize("explicit", [{}, {"cal_edge_mm": 0.5, "cal_width_mm": -0.25}],
+                         ids=["sidecar", "explicit"])
+def test_readout_cal_switch_matches_tti(value, explicit, monkeypatch):
+    """``TTI_READOUT_CAL`` set to 0, false, no or off (case and whitespace
+    ignored) drops both offsets, explicit ones included; any other value, or
+    none, keeps the sidecar's (0.1175 / 0.1606 mm on the deploy checkpoint)
+    under explicit non-zero config."""
+    if value is None:
+        monkeypatch.delenv("TTI_READOUT_CAL", raising=False)
+    else:
+        monkeypatch.setenv("TTI_READOUT_CAL", value)
+    meta = ck.checkpoint_metadata("checkpoints/yolov8n_textile_cam.msgpack")
+    got = MeasureConfig(**explicit).with_subcell_from(meta)
+    ref = JaxMeasureConfig(**explicit).with_subcell_from(meta)
+    assert (got.cal_edge_mm, got.cal_width_mm) == (ref.cal_edge_mm, ref.cal_width_mm)
+    off = value is not None and value.strip().lower() in ("0", "off", "false", "no")
+    want = ((0.0, 0.0) if off else (0.5, -0.25) if explicit
+            else (meta["cal_edge_mm"], meta["cal_width_mm"]))
+    assert (got.cal_edge_mm, got.cal_width_mm) == want
+    assert off or explicit or want == (0.1175, 0.1606)
+
+
 @pytest.mark.parametrize("bad", [math.nan, math.inf, "nan"])
 def test_nonfinite_readout_offsets_rejected(bad):
     with pytest.raises(ConfigError):

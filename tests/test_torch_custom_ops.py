@@ -35,7 +35,7 @@ def _warp_args():
     rng = np.random.default_rng(2)
     frames = torch.from_numpy(rng.integers(0, 255, size=(2, 30, 60, 3), dtype=np.uint8))
     w1 = torch.from_numpy(rng.uniform(size=(10, 20, 8)).astype(np.float32))
-    return (frames, w1, 3, 1, 10, 20, 114.0 / 255.0, True)
+    return (frames, w1, wp.pass1_window(w1), 3, 1, 10, 20, 114.0 / 255.0, True)
 
 
 def _nms_args():
@@ -145,8 +145,8 @@ def test_wrappers_call_the_operators(monkeypatch):
     monkeypatch.setitem(ms._OPS, False, (lambda op: lambda *a: seen.append("binary") or op(*a))(
         ms._OPS[False]))
     knms.greedy_keep(*_nms_args())
-    frames, w1, k, off, hs, ws, pad, flip = _warp_args()
-    wp.warp_pass1_decimated(frames, w1, k=k, off=off, hs=hs, ws=ws, pad_value=pad)
+    frames, w1, window, k, off, hs, ws, pad, flip = _warp_args()
+    wp.warp_pass1_decimated(frames, w1, window, k=k, off=off, hs=hs, ws=ws, pad_value=pad)
     ik.int8_conv2d(*_conv_args(torch.float32, True))
     ik.act_scale_per_sample(*_scale_args(torch.float32, False))
     ms.mask_stats_soft(*_mask_args(torch.bfloat16))

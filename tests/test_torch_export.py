@@ -73,7 +73,11 @@ def test_frozen_deploy_equals_live_step(deploy):
 
 def test_frozen_headline_kernel_route_equals_live_step(headline):
     pipe, frames, blob = headline
-    _assert_same(FrozenPipeline(blob, device="cpu")(torch.from_numpy(frames)), _live(pipe, frames))
+    frozen = FrozenPipeline(blob, device="cpu")
+    _assert_same(frozen(torch.from_numpy(frames)), _live(pipe, frames))
+    # Kernel C's table travels as a weight input beside W1.
+    names = [r["name"] for r in frozen.manifest["warp"]]
+    assert names.index("warp/w1_window") == names.index("warp/w1") + 2
 
 
 def _as_outputs(d: dict) -> SimpleNamespace:

@@ -48,18 +48,48 @@ def test_oracle_copy_renders_the_same_scenes(scenes):
     assert port_tool.error_stats(m, np.ones(3)) == ref_tool.error_stats(m, np.ones(3))
 
 
-def test_run_pipeline_equals_tti_on_deploy_scenes(scenes):
+def _both_runs(scenes):
+    """(port, tti) ``run_pipeline`` results on the two deploy scenes."""
     frames = np.stack([f for f, _ in scenes[0][1]])
     got = port_tool.run_pipeline(frames, WEIGHTS, undistort=False, dtype="float32",
                                  batch=len(frames), device="cpu")
     want = ref_tool.run_pipeline(frames, WEIGHTS, undistort=False, dtype="float32",
                                  batch=len(frames))
+    return got, want
+
+
+def _assert_runs_agree(got, want):
     edge, width, n_stitch = got
     np.testing.assert_array_equal(n_stitch, want[2])
     for a, b, what in ((edge, want[0], "edge"), (width, want[1], "width")):
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=what)
         np.testing.assert_allclose(a, b, atol=1e-3, err_msg=what)
     assert np.isfinite(width).all()  # both scenes give a width reading
+
+
+@pytest.fixture(scope="module")
+def default_runs(scenes):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("TTI_READOUT_CAL", raising=False)
+        return _both_runs(scenes)
+
+
+def test_run_pipeline_equals_tti_on_deploy_scenes(default_runs):
+    _assert_runs_agree(*default_runs)
+
+
+def test_run_pipeline_equals_tti_with_readout_cal_off(scenes, default_runs, monkeypatch):
+    """``TTI_READOUT_CAL=0`` drops the sidecar's readout offsets in both
+    packages: the readings agree as above (well inside the report's 0.02 mm
+    parity limit), and each lies below the default run's by the deploy
+    sidecar's 0.1175 mm (edge) and 0.1606 mm (width)."""
+    monkeypatch.setenv("TTI_READOUT_CAL", "0")
+    got, want = _both_runs(scenes)
+    _assert_runs_agree(got, want)
+    for i, (offset, what) in enumerate(((0.1175, "edge"), (0.1606, "width"))):
+        shift = default_runs[0][i] - got[i]
+        assert np.isfinite(shift).any(), what
+        np.testing.assert_allclose(shift[np.isfinite(shift)], offset, atol=1e-5, err_msg=what)
 
 
 def test_ring_smoothed_is_the_production_ring():

@@ -16,6 +16,8 @@ one learning rate; the optimizer fed tti's gradients and the schedule
 1e-6 relative.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,7 @@ from tti_torch.model import checkpoint as ck
 from tti_torch.model.layers import Proto
 from tti_torch.train import step as tstep
 from tti_torch.train.data import scene_to_targets
-from tti_torch.train.loop import build_model
+from tti_torch.train.loop import build_model, step_and_augment, train_switches
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -234,14 +236,36 @@ def test_optimizer_fed_tti_gradients_matches_optax(problem, jax_value_and_grad):
 def test_whole_step_matches_tti(problem):
     """One step of tti's make_train_step against the port's: parameters,
     batch statistics, EMA, step and the returned losses."""
+    _assert_whole_step_matches(problem, tstep.TrainStep((IMGSZ, IMGSZ), seg_class_gains=GAINS))
+
+
+@pytest.mark.parametrize("env", [{"TTI_SEG_DTYPE": "bf16"}, {"TTI_SEG_CHUNK": "0"},
+                                 {"TTI_SEG_CHUNK": "16"}, {"TTI_AUGMENT_DTYPE": "f32"}],
+                         ids=["seg_bf16", "seg_unchunked", "seg_chunk16", "augment_f32"])
+def test_whole_step_matches_tti_under_switch(problem, env, monkeypatch):
+    """The same comparison with one of tti's trainer switches set in the
+    process environment, which tti reads when it traces its step and the
+    port's ``train`` when it builds its step (``step_and_augment``); same
+    tolerances."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    # tti reads the switches while tracing, and jax caches the traces of its
+    # module-level functions (the checkpointed seg term) across steps: trace
+    # afresh under this test's switch.
+    jax.clear_caches()
+    step, _ = step_and_augment(IMGSZ, 2, MAX_GT, torch.float32, GAINS)
+    _assert_whole_step_matches(problem, step)
+    jax.clear_caches()
+
+
+def _assert_whole_step_matches(problem, port_step):
     jmodel, images, targets, variables = _jax(problem)
     jstate, tx = jstep.create_train_state(jmodel, variables, learning_rate=LR, total_steps=TOTAL)
     jfn = jstep.make_train_step(jmodel, tx, (IMGSZ, IMGSZ), seg_class_gains=GAINS)
     jstate, jmetrics = jfn(jstate, images, targets)
     model, timages, ttargets = _port(problem)
     state = tstep.create_train_state(model, LR, total_steps=TOTAL)
-    metrics = tstep.TrainStep((IMGSZ, IMGSZ), seg_class_gains=GAINS)(state, timages,
-                                                                          ttargets)
+    metrics = port_step(state, timages, ttargets)
     assert state.step == int(jstate.step) == 1
     for key, value in jmetrics.items():
         np.testing.assert_allclose(float(metrics[key]), float(value), rtol=1e-4, err_msg=key)
@@ -289,3 +313,66 @@ def test_bf16_stops_at_the_head(problem, monkeypatch):
     total.backward()
     assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.parameters())
     assert not torch.is_autocast_enabled()
+
+
+SWITCH_VALUES = [None, "", "bf16", "BF16", " bf16", "f32", "fp32", "float32", "F32", "0", "16",
+                 "x"]
+
+
+@pytest.mark.parametrize("value", SWITCH_VALUES)
+def test_train_switches_parse_as_tti(value, monkeypatch):
+    """Each of tti's trainer switches, fallbacks included, selects what
+    tti's own readers select: ``TTI_SEG_DTYPE`` (tti's
+    ``_seg_storage_dtype``), ``TTI_AUGMENT_DTYPE`` (``_image_dtype``, under
+    either default) and ``TTI_SEG_CHUNK`` (an integer, 0 unchunked, as
+    ``seg_loss`` reads it)."""
+    from tti.train import augment as jaug
+    from tti.train import losses as jlosses
+
+    to_torch = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+    for name in ("TTI_SEG_DTYPE", "TTI_AUGMENT_DTYPE", "TTI_SEG_CHUNK"):
+        monkeypatch.delenv(name, raising=False)
+        if value is not None:
+            monkeypatch.setenv(name, value)
+    if value is not None and value.strip().isdigit():
+        assert train_switches(os.environ)["seg_chunk"] == int(value)
+    elif value is not None:
+        with pytest.raises(ValueError):  # tti's int() raises on the same values
+            train_switches(os.environ)
+        monkeypatch.delenv("TTI_SEG_CHUNK")
+    sw = train_switches(os.environ)
+    assert sw["seg_dtype"] == to_torch[jlosses._seg_storage_dtype()]
+    for default in (torch.bfloat16, torch.float32):
+        jdefault = jnp.bfloat16 if default == torch.bfloat16 else jnp.float32
+        assert (sw["augment_dtype"] or default) == to_torch[jaug._image_dtype(default=jdefault)]
+
+
+@pytest.mark.parametrize("env,chunks,seg_dtype,image_dtype", [
+    ({}, 1, torch.float32, torch.bfloat16),
+    ({"TTI_SEG_CHUNK": "16", "TTI_SEG_DTYPE": "bf16"}, 5, torch.bfloat16, torch.bfloat16),
+    ({"TTI_SEG_CHUNK": "0", "TTI_AUGMENT_DTYPE": "f32"}, 1, torch.float32, torch.float32),
+], ids=["unset", "chunk16_bf16", "unchunked_f32"])
+def test_train_builds_its_step_and_augment_under_the_switches(problem, env, chunks, seg_dtype,
+                                                              image_dtype, monkeypatch):
+    """``step_and_augment`` (what ``build_trainer`` and so ``train`` run)
+    applies the switches: the seg loss's chunks (80 anchors at this batch:
+    five chunks of 16) and storage dtype, and the augment's image dtype for
+    a bf16 run."""
+    from tti_torch.train import losses as tlo
+    from tti_torch.train.augment import build_device_dataset, step_generator
+
+    for name in ("TTI_SEG_DTYPE", "TTI_AUGMENT_DTYPE", "TTI_SEG_CHUNK"):
+        monkeypatch.delenv(name, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    step, augment = step_and_augment(IMGSZ, 2, MAX_GT, torch.bfloat16, GAINS)
+    seen = []
+    real = tlo._seg_per_anchor
+    monkeypatch.setattr(tlo, "_seg_per_anchor",
+                        lambda c, *r: seen.append((c.shape[1], r[-1])) or real(c, *r))
+    model, images, targets = _port(problem)
+    step.loss(model, images, targets)
+    assert len(seen) == chunks and all(d == seg_dtype for _, d in seen)
+    data = build_device_dataset(textile_samples(4, IMGSZ, seed=5), IMGSZ, MAX_GT, mask_stride=2,
+                                device="cpu")
+    assert augment(data, step_generator(0, 1, "cpu"))[0].dtype == image_dtype

@@ -18,7 +18,8 @@ from tti.preprocess.remap import build_small_undistort_map
 from tti.preprocess.warp2pass import TwoPassWarp as JaxWarp
 from tti_torch.core.errors import ConfigError
 from tti_torch.kernels import warp_p1
-from tti_torch.kernels.warp_p1 import warp_pass1_decimated, warp_pass1_decimated_plain
+from tti_torch.kernels.warp_p1 import (pass1_window, warp_pass1_decimated,
+                                       warp_pass1_decimated_plain)
 from tti_torch.preprocess import letterbox as tlb
 from tti_torch.preprocess.warp2pass import TwoPassWarp
 from tests.torch_pair import assert_outputs_match, pipelines
@@ -52,7 +53,8 @@ def test_pass1_matches_tti_kernel(case):
     warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device="cpu")
     ref = np.asarray(jax_pass1(jnp.asarray(frames), jwarp.w1, **_kw(spec, k, jwarp.pad_value)))
     warp_p1.reset_launch_counts()
-    got = warp_pass1_decimated(torch.from_numpy(frames), warp.w1, **_kw(spec, k, warp.pad_value))
+    got = warp_pass1_decimated(torch.from_numpy(frames), warp.w1, warp.pass1_window(),
+                               **_kw(spec, k, warp.pad_value))
     assert got.shape == ref.shape == (spec.new_h, 3, 2, warp.w1.shape[2])
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
@@ -67,7 +69,8 @@ def test_pass1_then_pass2_matches_tti_and_the_unfused_chain(case, s2d):
     warp = TwoPassWarp(m, (spec.new_h, spec.new_w), s2d_out=s2d, device="cpu")
     i1_ref = jax_pass1(jnp.asarray(frames), jwarp.w1, **_kw(spec, k, jwarp.pad_value))
     ref = np.asarray(jwarp.apply_pass2_ycbo(i1_ref, out_dtype=jnp.float32))
-    i1 = warp_pass1_decimated(torch.from_numpy(frames), warp.w1, **_kw(spec, k, warp.pad_value))
+    i1 = warp_pass1_decimated(torch.from_numpy(frames), warp.w1, warp.pass1_window(),
+                              **_kw(spec, k, warp.pad_value))
     got = warp.apply_pass2_ycbo(i1, torch.float32).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=2e-5)
@@ -83,13 +86,14 @@ def test_plain_version_against_numpy_at_a_ragged_size():
     rng = np.random.default_rng(3)
     frames = rng.integers(0, 256, (3, 31, 63, 3), dtype=np.uint8)
     w1 = rng.normal(size=(9, 21, 13)).astype(np.float32)
-    got = warp_pass1_decimated(torch.from_numpy(frames), torch.from_numpy(w1), k=3, off=1,
+    window = pass1_window(torch.from_numpy(w1))
+    got = warp_pass1_decimated(torch.from_numpy(frames), torch.from_numpy(w1), window, k=3, off=1,
                                hs=9, ws=21, pad_value=0.25)
     x = frames[:, 1::3, 1::3, ::-1][:, :9, :21].astype(np.float64) / 255.0 - 0.25
     ref = np.einsum("bywc,ywo->ycbo", x, w1.astype(np.float64))
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
-    keep = warp_pass1_decimated(torch.from_numpy(frames), torch.from_numpy(w1), k=3, off=1,
-                                hs=9, ws=21, pad_value=0.25, bgr_flip=False)
+    keep = warp_pass1_decimated(torch.from_numpy(frames), torch.from_numpy(w1), window, k=3,
+                                off=1, hs=9, ws=21, pad_value=0.25, bgr_flip=False)
     np.testing.assert_allclose(keep.numpy()[:, ::-1], ref, atol=1e-5)
 
 
@@ -100,8 +104,8 @@ def test_bfloat16_steps_multiply_and_do_not_divide():
     division x / 255 for some bytes."""
     frames = np.arange(256, dtype=np.uint8).reshape(1, 1, 256, 1).repeat(3, -1)
     w1 = torch.eye(256, dtype=torch.bfloat16)[None]
-    got = warp_pass1_decimated_plain(torch.from_numpy(frames), w1, k=1, off=0, hs=1, ws=256,
-                                     pad_value=114 / 255)
+    got = warp_pass1_decimated_plain(torch.from_numpy(frames), w1, pass1_window(w1), k=1, off=0,
+                                     hs=1, ws=256, pad_value=114 / 255)
     x = torch.arange(256, dtype=torch.float32)
     pad = torch.tensor(114 / 255, dtype=torch.bfloat16)
     want = ((x * (129 / 32768)).to(torch.bfloat16) - pad).to(torch.bfloat16)
@@ -110,10 +114,12 @@ def test_bfloat16_steps_multiply_and_do_not_divide():
     assert (divided != want).sum() > 10
 
 
-@pytest.mark.parametrize("bad", ["channels", "rows", "cols", "width", "w1", "dtype"])
+@pytest.mark.parametrize("bad", ["channels", "rows", "cols", "width", "w1", "dtype", "window",
+                                 "window_dtype"])
 def test_geometry_errors(bad):
     frames = torch.zeros((1, 30, 60, 3), dtype=torch.uint8)
     w1 = torch.zeros((10, 20, 20))
+    window = torch.zeros((10, 20, 2), dtype=torch.int32)
     kw = dict(k=3, off=1, hs=10, ws=20, pad_value=0.0)
     err = ValueError
     if bad == "channels":
@@ -126,17 +132,22 @@ def test_geometry_errors(bad):
         frames = torch.zeros((1, 30, 61, 3), dtype=torch.uint8)
     elif bad == "w1":
         w1 = torch.zeros((10, 19, 20))
+    elif bad == "window":
+        window = torch.zeros((10, 19, 2), dtype=torch.int32)
+    elif bad == "window_dtype":
+        window = window.long()
     else:
         frames, err = frames.float(), TypeError
     with pytest.raises(err):
-        warp_pass1_decimated(frames, w1, **kw)
+        warp_pass1_decimated(frames, w1, window, **kw)
 
 
 def test_other_devices_are_refused():
     frames = torch.zeros((1, 30, 60, 3), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
-        warp_pass1_decimated(frames, torch.zeros((10, 20, 20), device="meta"), k=3, off=1,
-                             hs=10, ws=20, pad_value=0.0)
+        warp_pass1_decimated(frames, torch.zeros((10, 20, 20), device="meta"),
+                             torch.zeros((10, 20, 2), dtype=torch.int32, device="meta"), k=3,
+                             off=1, hs=10, ws=20, pad_value=0.0)
 
 
 def test_pipeline_with_the_kernel_route_matches_tti(ref_intrinsics, monkeypatch):
@@ -164,6 +175,106 @@ def test_kernel_route_needs_a_decimation_and_a_calibration(ref_intrinsics):
         pipelines("headline", ref_intrinsics, port_kw=dict(warp_pass1="pallas"))
 
 
+def _windows_of(w1: np.ndarray) -> np.ndarray:
+    """The table by its definition, in numpy: (first, last + 1) of the
+    non-zero source columns per (y, o), (0, 0) where there are none."""
+    hs, ws, wo = w1.shape
+    out = np.zeros((hs, wo, 2), np.int32)
+    for y in range(hs):
+        for o in range(wo):
+            xs = np.nonzero(w1[y, :, o])[0]
+            if xs.size:
+                out[y, o] = xs[0], xs[-1] + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_table_is_the_nonzero_windows_of_w1(case, dtype):
+    """TwoPassWarp's table equals the non-zero windows of the weights it
+    holds, after their rounding to the weight type; it is made once."""
+    spec, k, m, frames = _setup(case)
+    warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device="cpu", weight_dtype=dtype)
+    assert warp.w1_window is None
+    table = warp.pass1_window()
+    assert warp.pass1_window() is table and table.dtype == torch.int32
+    want = _windows_of(warp.w1.float().numpy())
+    np.testing.assert_array_equal(table.numpy(), want)
+    assert (want[..., 1] - want[..., 0]).max() <= 2  # the bilinear map's two taps
+    assert (want[..., 1] == 0).any()  # dead columns (the letterbox's sides) give (0, 0)
+    np.testing.assert_array_equal(pass1_window(warp.w1, rows_per_pass=7).numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_with_the_table_equals_the_dense_product(case):
+    """The plain version with the warp's table gives the same output as with
+    a table that spans every source column (the dense product), bit for
+    bit, and that output is tti's (test_pass1_matches_tti_kernel)."""
+    spec, k, m, frames = _setup(case)
+    warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device="cpu")
+    hs, ws, wo = warp.w1.shape
+    full = torch.zeros((hs, wo, 2), dtype=torch.int32)
+    full[..., 1] = ws
+    f = torch.from_numpy(frames)
+    kw = _kw(spec, k, warp.pad_value)
+    got = warp_pass1_decimated(f, warp.w1, warp.pass1_window(), **kw)
+    assert torch.equal(got, warp_pass1_decimated_plain(f, warp.w1, full, **kw))
+
+
+@pytest.mark.parametrize("miss", ["first", "last", "dead", "outside"])
+def test_a_table_that_misses_a_nonzero_raises(miss):
+    """The plain version (the CPU route and the card's oracle) refuses a
+    table that leaves out any non-zero weight."""
+    spec, k, m, frames = _setup("k3")
+    warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device="cpu")
+    table = warp.pass1_window().clone()
+    lo, hi = table[..., 0], table[..., 1]
+    y, o = [int(v) for v in torch.nonzero(hi - lo == 2)[0]]
+    if miss == "first":
+        table[y, o, 0] += 1
+    elif miss == "last":
+        table[y, o, 1] -= 1
+    elif miss == "dead":
+        table[y, o] = 0
+    else:
+        table[y, o] = torch.tensor([int(hi[y, o]), int(hi[y, o]) + 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="window"):
+        warp_pass1_decimated(torch.from_numpy(frames), warp.w1, table,
+                             **_kw(spec, k, warp.pad_value))
+    # Widening a window is allowed: it only adds zero products.
+    wide = warp.pass1_window().clone()
+    wide[..., 0] = 0
+    warp_pass1_decimated(torch.from_numpy(frames), warp.w1, wide, **_kw(spec, k, warp.pad_value))
+
+
+def test_operator_fake_takes_the_table():
+    """The operator's fake implementation, with the table argument, gives
+    the CPU implementation's shape, dtype and strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    spec, k, m, frames = _setup("k5")
+    warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device="cpu")
+    args = (torch.from_numpy(frames), warp.w1, warp.pass1_window(), k, (k - 1) // 2, spec.new_h,
+            spec.new_w, warp.pad_value, True)
+    op = torch.ops.tti_torch.warp_pass1_decimated.default
+    real = op(*args)
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    assert (fake.shape, fake.dtype, fake.stride()) == (real.shape, real.dtype, real.stride())
+    assert real.shape == (spec.new_h, 3, 2, warp.w1.shape[2])
+
+
+def test_kernel_route_pipeline_holds_the_table(ref_intrinsics, monkeypatch):
+    """The kernel route builds the table when the pipeline is built (before
+    any step or export trace); the einsum route never does."""
+    monkeypatch.delenv("TTI_MASKSTATS_LOGITS", raising=False)
+    pipe = pipelines("headline", ref_intrinsics, port_kw=dict(warp_pass1="kernel"))[0]
+    assert pipe.warp.w1_window is not None
+    np.testing.assert_array_equal(pipe.warp.w1_window.numpy(),
+                                  _windows_of(pipe.warp.w1.float().numpy()))
+    assert pipelines("headline", ref_intrinsics)[0].warp.w1_window is None
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -180,7 +291,8 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
     warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device=cuda_device)
     f = torch.from_numpy(frames).to(cuda_device)
     warp_p1.reset_launch_counts()
-    got = warp_pass1_decimated(f, warp.w1, **_kw(spec, k, warp.pad_value))
-    ref = warp_pass1_decimated_plain(f, warp.w1, **_kw(spec, k, warp.pad_value))
+    got = warp_pass1_decimated(f, warp.w1, warp.pass1_window(), **_kw(spec, k, warp.pad_value))
+    ref = warp_pass1_decimated_plain(f, warp.w1, warp.pass1_window(),
+                                     **_kw(spec, k, warp.pad_value))
     assert warp_p1.LAUNCHES["warp_pass1_decimated"] == 1
     assert torch.equal(got, ref)

@@ -37,8 +37,14 @@ apply is refused with ``tti``'s message (another value, unfolded BN, the
 fused head, ``int8s`` without its scales file). ``export`` writes the
 port's own artifact (:mod:`tti_torch.app.export`; ``--platforms`` defaults to
 ``cuda,cpu``), which ``tti`` does not load, nor the port ``tti``'s. Refused,
-naming the reason or the ROADMAP item that ports them: ``train --host-aug`` and
-``TTI_APPROX_TOPK=1``.
+naming the reason or the ROADMAP item that ports them: ``train --host-aug``,
+``TTI_APPROX_TOPK=1`` and, before every command, ``tti``'s multi-host mode
+(``TTI_COORDINATOR``, with ``TTI_NUM_PROCESSES`` and ``TTI_PROCESS_ID``).
+``train`` reads ``tti``'s trainer switches ``TTI_SEG_DTYPE``,
+``TTI_SEG_CHUNK`` and ``TTI_AUGMENT_DTYPE`` from the process environment
+(:func:`tti_torch.train.loop.train_switches`); ``TTI_READOUT_CAL=0`` drops
+the sidecar's readout offsets
+(:meth:`tti_torch.core.config.MeasureConfig.with_subcell_from`).
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import dataclasses
 import os
 import sys
 
-from tti_torch.core.config import AppConfig, load_config
+from tti_torch.core.config import AppConfig, check_process_switches, load_config
 from tti_torch.core.errors import ConfigError
 from tti_torch.core.logging import get_logger
 
@@ -73,12 +79,13 @@ def _refuses_switches(switches) -> bool:
     return False
 
 
-def _log_no_counterpart(switches) -> None:
-    """Say that a set ``tti`` switch has no counterpart here (once per step
-    built: ``run`` and ``check-model`` build one)."""
+def _log_no_counterpart(names) -> None:
+    """Say that each set ``tti`` switch of ``names`` has no counterpart here:
+    the process-level ones before every command, the step's once per step
+    built (``run`` and ``check-model`` build one)."""
     from tti_torch.core.config import NO_COUNTERPART
 
-    for name in switches.no_counterpart:
+    for name in names:
         log.info("%s has no counterpart in tti_torch and is not read: %s", name,
                  NO_COUNTERPART[name])
 
@@ -128,7 +135,7 @@ def load_pipeline(cfg: AppConfig, frame_hw: tuple[int, int], calibration=None,
     else:
         log.warning("weights %r not found — using random init", weights)
         variables = _random_variables(cfg.model)
-    _log_no_counterpart(cfg.switches)
+    _log_no_counterpart(cfg.switches.no_counterpart)
     return InspectionPipeline(cfg.model, variables, frame_hw, calibration=calibration,
                               measure_cfg=cfg.measure, roi=cfg.roi, device=device,
                               return_masks=return_masks, **cfg.switches.pipeline_kwargs())
@@ -667,6 +674,7 @@ def main(argv: list[str] | None = None) -> int:
 
     args = parser.parse_args(argv)
     try:
+        _log_no_counterpart(check_process_switches(os.environ))
         return args.func(args)
     except ConfigError as e:  # a setting that cannot apply (a TTI_QUANT, ...): its reason
         return _refuse(str(e))

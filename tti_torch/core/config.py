@@ -10,8 +10,9 @@ Differences from the reference, all deliberate:
   it builds or traces its step, are parsed here by
   :meth:`RuntimeSwitches.from_env`, from the same merged environment as
   every other setting (so ``.env`` sets them too), carried by ``AppConfig``
-  and handed to ``InspectionPipeline`` as arguments; ``with_subcell_from``
-  reads no environment;
+  and handed to ``InspectionPipeline`` as arguments (``with_subcell_from``
+  reads ``TTI_READOUT_CAL`` from the process environment, as the reference
+  does);
 - the readout calibration offsets must be finite. The reference treats 0.0
   as "unset" and would carry a NaN offset from a sidecar into every
   measurement; here a non-finite value raises ConfigError when it is set or
@@ -184,6 +185,12 @@ class RoiConfig:
             raise ConfigError(f"Invalid ROI Y bounds: {self.y_min}..{self.y_max} for height {height}")
 
 
+def readout_cal_enabled(env: Mapping[str, str]) -> bool:
+    """``TTI_READOUT_CAL``: the sidecar's readout offsets apply unless it is
+    0, false, no or off (case and surrounding whitespace ignored)."""
+    return env.get("TTI_READOUT_CAL", "1").strip().lower() not in ("0", "false", "no", "off")
+
+
 def _finite_offset(name: str, value: Any) -> float:
     value = float(value)
     if not math.isfinite(value):
@@ -238,7 +245,9 @@ class MeasureConfig:
         (soft_stitch / soft_fabric) split the two readouts, the legacy
         ``soft_masks`` flag drives both, an explicit ``subcell_envelope`` pin
         wins, and explicit (non-zero) config wins over the sidecar. A
-        non-finite sidecar offset raises ConfigError."""
+        non-finite sidecar offset raises ConfigError. ``TTI_READOUT_CAL``
+        (process environment) set to 0, false, no or off drops both offsets,
+        explicit config included."""
         sub = self.subcell_edge
         env = self.subcell_envelope
         legacy = bool(ckpt_meta.get("soft_masks", False))
@@ -249,10 +258,13 @@ class MeasureConfig:
         if env is None and ("soft_fabric" in ckpt_meta or "soft_stitch" in ckpt_meta):
             env = bool(ckpt_meta.get("soft_fabric", legacy))
         cal_e, cal_w = self.cal_edge_mm, self.cal_width_mm
-        if cal_e == 0.0:
-            cal_e = _finite_offset("cal_edge_mm", ckpt_meta.get("cal_edge_mm", 0.0))
-        if cal_w == 0.0:
-            cal_w = _finite_offset("cal_width_mm", ckpt_meta.get("cal_width_mm", 0.0))
+        if not readout_cal_enabled(os.environ):
+            cal_e = cal_w = 0.0
+        else:
+            if cal_e == 0.0:
+                cal_e = _finite_offset("cal_edge_mm", ckpt_meta.get("cal_edge_mm", 0.0))
+            if cal_w == 0.0:
+                cal_w = _finite_offset("cal_width_mm", ckpt_meta.get("cal_width_mm", 0.0))
         return dataclasses.replace(self, subcell_edge=sub, subcell_envelope=env,
                                    cal_edge_mm=cal_e, cal_width_mm=cal_w)
 
@@ -392,7 +404,29 @@ NO_COUNTERPART = {
     "TTI_LETTERBOX_ROWSLICE": "a TPU layout choice of the resize; the values are the same",
     "TTI_REMAP_U8_DECIMATE": "the gather always packs the decimated bytes at an exact "
                              "decimation; the output is bit-identical to the float resize's",
+    "TTI_JAX_CACHE_DIR": "XLA's persistent compilation cache; PyTorch runs eagerly, and the "
+                         "kernels' libraries are cached in build/ by source hash",
 }
+
+
+# The reference's CLI reads these from the process environment before every
+# command (``init_distributed`` and the compilation cache): the multi-host
+# triple, whose ``TTI_COORDINATOR`` turns multi-host on, and the switches of
+# NO_COUNTERPART that only the CLI reads (logged by the CLI, not by the step).
+MULTI_HOST = ("TTI_COORDINATOR", "TTI_NUM_PROCESSES", "TTI_PROCESS_ID")
+PROCESS_SWITCHES = ("TTI_JAX_CACHE_DIR",)
+
+
+def check_process_switches(env: Mapping[str, str]) -> tuple[str, ...]:
+    """Raise ConfigError when ``env`` asks for the reference's multi-host
+    mode (``TTI_COORDINATOR`` set), which the port has not ported yet;
+    return the set names of :data:`PROCESS_SWITCHES`."""
+    if env.get("TTI_COORDINATOR"):
+        raise ConfigError(
+            "multi-host is not ported: TTI_COORDINATOR, TTI_NUM_PROCESSES and TTI_PROCESS_ID "
+            "(tti's init_distributed) wait for ROADMAP Queue 1 item 3 (multi-GPU). Unset "
+            "TTI_COORDINATOR to run on this host's card.")
+    return tuple(name for name in PROCESS_SWITCHES if name in env)
 
 
 @dataclass(frozen=True)
@@ -436,7 +470,8 @@ class RuntimeSwitches:
             approx_topk=env.get("TTI_APPROX_TOPK") == "1",
             quant=env.get("TTI_QUANT", ""),
             quant_scales=env.get("TTI_QUANT_SCALES") or None,
-            no_counterpart=tuple(name for name in NO_COUNTERPART if name in env),
+            no_counterpart=tuple(name for name in NO_COUNTERPART
+                                 if name in env and name not in PROCESS_SWITCHES),
         )
 
     def pipeline_kwargs(self) -> dict[str, Any]:

@@ -18,6 +18,13 @@ by 255: in float32 the two agree to 2e-5, in bfloat16 they differ by up to
 one step of the content (``bfloat16(1/255)`` is ``129/32768``, 0.39% above
 ``1/255``).
 
+Both take the table :func:`pass1_window` of ``w1`` (for each source row y
+and output column o, the first source column with a non-zero weight and one
+past the last): the kernel reads only those rows of ``w1``, and the plain
+version checks that the table covers every non-zero weight, then runs the
+dense product. ``TwoPassWarp.pass1_window`` computes it once from the
+weights it holds.
+
 The kernel is the operator ``torch.ops.tti_torch.warp_pass1_decimated``
 (:func:`tti_torch.kernels.build.register_op`): on CPU tensors it runs the
 plain version; on CUDA tensors it launches the kernel or raises. What bounds
@@ -54,13 +61,40 @@ def build() -> ctypes.CDLL:
         lib = load_library("warp_p1")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tti_warp_pass1_decimated.argtypes = [
-            p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+            p, ctypes.c_longlong, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.tti_warp_pass1_decimated.restype = i
         _lib = lib
     return _lib
 
 
-def _check_geometry(frames_u8: Tensor, w1: Tensor, k: int, off: int, hs: int, ws: int) -> None:
+def pass1_window(w1: Tensor, rows_per_pass: int = 64) -> Tensor:
+    """(hs, wo, 2) int32 on ``w1``'s device: for each (y, o) the first source
+    column x with ``w1[y, x, o] != 0`` and one past the last; (0, 0) for a
+    column without any. Taken from the weights as they are held (after any
+    rounding to their dtype), ``rows_per_pass`` rows of y at a time."""
+    hs, ws, wo = w1.shape
+    out = torch.zeros((hs, wo, 2), dtype=torch.int32, device=w1.device)
+    x = torch.arange(ws, dtype=torch.int32, device=w1.device).view(1, ws, 1)
+    for y0 in range(0, hs, rows_per_pass):
+        nz = w1[y0:y0 + rows_per_pass] != 0
+        live = nz.any(1)
+        lo = torch.where(nz, x, ws).amin(1)
+        hi = torch.where(nz, x + 1, 0).amax(1)
+        out[y0:y0 + rows_per_pass, :, 0] = torch.where(live, lo, 0)
+        out[y0:y0 + rows_per_pass, :, 1] = torch.where(live, hi, 0)
+    return out
+
+
+def check_window(w1: Tensor, window: Tensor) -> None:
+    """Raise ValueError unless ``window`` covers every non-zero of ``w1``."""
+    x = torch.arange(w1.shape[1], device=w1.device).view(1, -1, 1)
+    lo, hi = window[..., 0].unsqueeze(1), window[..., 1].unsqueeze(1)
+    if bool(((w1 != 0) & ((x < lo) | (x >= hi))).any()):
+        raise ValueError("the pass-1 window misses a non-zero weight of w1")
+
+
+def _check_geometry(frames_u8: Tensor, w1: Tensor, window: Tensor, k: int, off: int, hs: int,
+                    ws: int) -> None:
     if frames_u8.dim() != 4 or frames_u8.shape[3] != 3:
         raise ValueError("expected 3-channel frames (B, H, W, 3)")
     if frames_u8.dtype != torch.uint8:
@@ -74,14 +108,20 @@ def _check_geometry(frames_u8: Tensor, w1: Tensor, k: int, off: int, hs: int, ws
         raise ValueError("frame width must be a multiple of k")
     if w1.dim() != 3 or w1.shape[0] != hs or w1.shape[1] != ws:
         raise ValueError(f"w1 must be (hs, ws, wo) = ({hs}, {ws}, wo), got {tuple(w1.shape)}")
+    if window.shape != (hs, w1.shape[2], 2) or window.dtype != torch.int32:
+        raise ValueError(f"window must be (hs, wo, 2) = ({hs}, {w1.shape[2]}, 2) int32, got "
+                         f"{tuple(window.shape)} {window.dtype}")
 
 
-def warp_pass1_decimated_plain(frames_u8: Tensor, w1: Tensor, *, k: int, off: int, hs: int,
-                               ws: int, pad_value: float, bgr_flip: bool = True) -> Tensor:
+def warp_pass1_decimated_plain(frames_u8: Tensor, w1: Tensor, window: Tensor, *, k: int,
+                               off: int, hs: int, ws: int, pad_value: float,
+                               bgr_flip: bool = True) -> Tensor:
     """The same function in plain PyTorch: the strided slice, the flip, the
-    three steps rounded to ``w1.dtype``, then the einsum with float32
-    accumulation, rounded once to ``w1.dtype``. Returns (hs, 3, B, wo)."""
-    _check_geometry(frames_u8, w1, k, off, hs, ws)
+    three steps rounded to ``w1.dtype``, then the dense einsum with float32
+    accumulation, rounded once to ``w1.dtype``. Returns (hs, 3, B, wo).
+    Raises ValueError when ``window`` misses a non-zero of ``w1``."""
+    _check_geometry(frames_u8, w1, window, k, off, hs, ws)
+    check_window(w1, window)
     wdt = w1.dtype
     small = frames_u8[:, off::k, off::k, :][:, :hs, :ws, :]
     if bgr_flip:
@@ -90,60 +130,67 @@ def warp_pass1_decimated_plain(frames_u8: Tensor, w1: Tensor, *, k: int, off: in
     return torch.einsum("bywc,ywo->ycbo", x.float(), w1.float()).to(wdt)
 
 
-def _launch(frames_u8: Tensor, w1: Tensor, k: int, off: int, hs: int, ws: int,
+def _launch(frames_u8: Tensor, w1: Tensor, window: Tensor, k: int, off: int, hs: int, ws: int,
             pad_value: float, bgr_flip: bool) -> Tensor:
     if w1.dtype != torch.bfloat16:
         raise TypeError(f"on the card w1 must be bfloat16, got {w1.dtype}")
-    if w1.device != frames_u8.device:
-        raise ValueError(f"w1 is on {w1.device}, frames on {frames_u8.device}")
-    for name, t in (("frames", frames_u8), ("w1", w1)):
+    for name, t in (("w1", w1), ("window", window)):
+        if t.device != frames_u8.device:
+            raise ValueError(f"{name} is on {t.device}, frames on {frames_u8.device}")
+    for name, t in (("frames", frames_u8), ("w1", w1), ("window", window)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     b, h, w, _ = frames_u8.shape
     wo = w1.shape[2]
-    if hs > 65535 or (b + 31) // 32 > 65535 or max(h, w, wo) >= 2 ** 31 // 8:
-        raise ValueError(f"shape too large for one launch: B={b}, H={h}, W={w}, hs={hs}, wo={wo}")
+    # What TMA and the 16-byte span copies can describe.
+    if frames_u8.data_ptr() % 16 or frames_u8.numel() % 16:
+        raise ValueError("the kernel needs 16-byte aligned frames of a multiple of 16 bytes")
+    if w1.data_ptr() % 16 or wo % 8:
+        raise ValueError(f"the kernel needs a 16-byte aligned w1 with wo a multiple of 8, "
+                         f"got wo={wo}")
+    if max(h, w, wo, b) >= 2 ** 31 // 8:
+        raise ValueError(f"shape too large for one launch: B={b}, H={h}, W={w}, wo={wo}")
     lib = build()
     out = torch.empty((hs, 3, b, wo), dtype=torch.bfloat16, device=frames_u8.device)
     if out.numel() == 0:
         return out
-    vec_frames = int(frames_u8.data_ptr() % 16 == 0)
-    vec_w1 = int(w1.data_ptr() % 16 == 0 and wo % 8 == 0)
     with torch.cuda.device(frames_u8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tti_warp_pass1_decimated(
-            frames_u8.data_ptr(), frames_u8.numel(), w1.data_ptr(), out.data_ptr(), b, h, w, k,
-            off, hs, ws, wo, float(pad_value), int(bgr_flip), vec_frames, vec_w1, stream)
-    if err == 1:  # cudaErrorInvalidValue: the launcher found no tiling that fits
-        raise ValueError(f"ws={ws} at k={k} is too wide for the kernel's shared-memory operand")
+            frames_u8.data_ptr(), frames_u8.numel(), w1.data_ptr(), window.data_ptr(),
+            out.data_ptr(), b, h, w, k, off, hs, ws, wo, float(pad_value), int(bgr_flip),
+            stream)
+    if err == 1:  # cudaErrorInvalidValue: no chunk width and ring depth fit
+        raise ValueError(f"k={k} is too wide for the kernel's shared-memory stages")
     if err != 0:
-        raise RuntimeError(f"warp pass-1 kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"warp pass-1 kernel launch failed: error {err}")
     LAUNCHES["warp_pass1_decimated"] += 1
     return out
 
 
-def _plain_op(frames_u8: Tensor, w1: Tensor, k: int, off: int, hs: int, ws: int,
+def _plain_op(frames_u8: Tensor, w1: Tensor, window: Tensor, k: int, off: int, hs: int, ws: int,
               pad_value: float, bgr_flip: bool) -> Tensor:
-    return warp_pass1_decimated_plain(frames_u8, w1, k=k, off=off, hs=hs, ws=ws,
+    return warp_pass1_decimated_plain(frames_u8, w1, window, k=k, off=off, hs=hs, ws=ws,
                                       pad_value=pad_value, bgr_flip=bgr_flip)
 
 
 _OP = register_op(
-    "warp_pass1_decimated(Tensor frames_u8, Tensor w1, int k, int off, int hs, int ws, "
-    "float pad_value, bool bgr_flip) -> Tensor",
-    _plain_op, _launch, lambda frames_u8, w1, k, off, hs, ws, pad_value, bgr_flip:
+    "warp_pass1_decimated(Tensor frames_u8, Tensor w1, Tensor window, int k, int off, int hs, "
+    "int ws, float pad_value, bool bgr_flip) -> Tensor",
+    _plain_op, _launch, lambda frames_u8, w1, window, k, off, hs, ws, pad_value, bgr_flip:
     torch.empty((hs, 3, frames_u8.shape[0], w1.shape[2]), dtype=w1.dtype,
                 device=frames_u8.device))
 
 
-def warp_pass1_decimated(frames_u8: Tensor, w1: Tensor, *, k: int, off: int, hs: int, ws: int,
-                         pad_value: float, bgr_flip: bool = True) -> Tensor:
-    """Kernel C: uint8 BGR frames (B, H, W, 3) and dense pass-1 weights
-    (hs, ws, wo) -> the pass-1 intermediate (hs, 3, B, wo) in ``w1.dtype``.
+def warp_pass1_decimated(frames_u8: Tensor, w1: Tensor, window: Tensor, *, k: int, off: int,
+                         hs: int, ws: int, pad_value: float, bgr_flip: bool = True) -> Tensor:
+    """Kernel C: uint8 BGR frames (B, H, W, 3), dense pass-1 weights (hs,
+    ws, wo) and their :func:`pass1_window` -> the pass-1 intermediate (hs, 3,
+    B, wo) in ``w1.dtype``.
 
     ``k`` is the odd decimation stride, ``off`` its offset ``(k - 1) // 2``,
     ``hs`` x ``ws`` the decimated content that pass 1 consumes."""
     if frames_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"warp pass 1 runs on cpu or cuda tensors, got {frames_u8.device}")
-    _check_geometry(frames_u8, w1, k, off, hs, ws)
-    return _OP(frames_u8, w1, k, off, hs, ws, float(pad_value), bool(bgr_flip))
+    _check_geometry(frames_u8, w1, window, k, off, hs, ws)
+    return _OP(frames_u8, w1, window, k, off, hs, ws, float(pad_value), bool(bgr_flip))

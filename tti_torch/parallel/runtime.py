@@ -315,6 +315,7 @@ class InspectionPipeline:
                     f"{frame_hw} at imgsz {model_cfg.image_size} resizes by {self.spec.scale:g}")
             if not isinstance(self.warp, TwoPassWarp):
                 raise ConfigError("warp_pass1='kernel' needs a calibration and the two-pass warp")
+            self.warp.pass1_window()  # the kernel's table, before any step or trace
         two_pass = isinstance(self.warp, TwoPassWarp)
         for name, asked, applies in (
                 ("warp_block", warp_block is not None, two_pass),
@@ -351,7 +352,8 @@ class InspectionPipeline:
         if isinstance(self.warp, TwoPassWarp):
             if self.warp_pass1 == "kernel":
                 k = decimation_stride(self.spec)
-                i1 = warp_pass1_decimated(frames_u8, self.warp.w1, k=k, off=(k - 1) // 2,
+                i1 = warp_pass1_decimated(frames_u8, self.warp.w1, self.warp.w1_window,
+                                          k=k, off=(k - 1) // 2,
                                           hs=self.spec.new_h, ws=self.spec.new_w,
                                           pad_value=self.warp.pad_value)
                 out = self.warp.apply_pass2_ycbo(i1, self.dtype)

@@ -153,6 +153,19 @@ class TwoPassWarp:
             return
         self.w1 = to_dev(w1)
         self.w2 = self._with_pad_terms(to_dev(w2))
+        self.w1_window: torch.Tensor | None = None  # pass1_window()'s table, once asked for
+
+    def pass1_window(self) -> torch.Tensor:
+        """The fused pass-1 kernel's table of ``w1`` (:func:`tti_torch.kernels.
+        warp_p1.pass1_window`): for each (y, o) the first source column with
+        a non-zero weight and one past the last. Computed once, on the
+        device, from the weights as this warp holds them (after the
+        rounding to the weight type), and kept as ``w1_window``."""
+        if self.w1_window is None:
+            from tti_torch.kernels.warp_p1 import pass1_window
+
+            self.w1_window = pass1_window(self.w1)
+        return self.w1_window
 
     def _with_pad_terms(self, w2: torch.Tensor) -> torch.Tensor:
         """(..., y) pass-2 weights -> (..., y + PAD_ROWS): the warp's weights,

@@ -6,8 +6,9 @@ smoke script both call these functions.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Mapping
 
 import torch
 
@@ -71,14 +72,42 @@ class Trainer:
         return self.step_fn(self.state, images, targets)
 
 
+def train_switches(env: Mapping[str, str]) -> dict:
+    """The reference trainer's environment switches, with its value sets:
+    ``TTI_SEG_DTYPE`` (``bf16`` selects bfloat16, anything else float32),
+    ``TTI_SEG_CHUNK`` (an integer; 0 means unchunked; unset leaves the
+    automatic policy) and ``TTI_AUGMENT_DTYPE`` (``bf16``, or ``f32``,
+    ``fp32``, ``float32``; anything else leaves the caller's default, None
+    here)."""
+    chunk = env.get("TTI_SEG_CHUNK")
+    aug = env.get("TTI_AUGMENT_DTYPE")
+    return {"seg_dtype": torch.bfloat16 if env.get("TTI_SEG_DTYPE") == "bf16" else torch.float32,
+            "seg_chunk": None if chunk is None else int(chunk),
+            "augment_dtype": (torch.bfloat16 if aug == "bf16" else
+                              torch.float32 if aug in ("f32", "fp32", "float32") else None)}
+
+
+def step_and_augment(imgsz: int, batch_size: int, max_gt: int, dtype: torch.dtype,
+                     seg_class_gains=None, env: Mapping[str, str] | None = None
+                     ) -> tuple[TrainStep, Callable]:
+    """The train step and the augment function of a run at ``imgsz``, under
+    the switches of ``env`` (the process environment by default; see
+    :func:`train_switches`). The augment's image chain runs in ``dtype``
+    unless ``TTI_AUGMENT_DTYPE`` says otherwise."""
+    sw = train_switches(os.environ if env is None else env)
+    step = TrainStep((imgsz, imgsz), seg_class_gains=seg_class_gains, seg_dtype=sw["seg_dtype"],
+                     seg_chunk=sw["seg_chunk"])
+    return step, make_augment_fn(batch_size, max_gt, image_dtype=sw["augment_dtype"] or dtype)
+
+
 def build_trainer(data: DeviceDataset, model: torch.nn.Module, batch_size: int, max_gt: int,
                   total_steps: int | None, lr: float = 1e-3, dtype: torch.dtype = torch.bfloat16,
                   seg_class_gains=None, seed: int = 0) -> Trainer:
-    """The trainer for a model already on the dataset's device."""
-    s = data.imgsz
+    """The trainer for a model already on the dataset's device, under the
+    process environment's switches (:func:`train_switches`)."""
     state = create_train_state(model, learning_rate=lr, total_steps=total_steps)
-    return Trainer(data, state, TrainStep((s, s), seg_class_gains=seg_class_gains),
-                   make_augment_fn(batch_size, max_gt, image_dtype=dtype), seed)
+    step, augment = step_and_augment(data.imgsz, batch_size, max_gt, dtype, seg_class_gains)
+    return Trainer(data, state, step, augment, seed)
 
 
 def run(trainer: Trainer, start: int, total: int, out: str | None = None, log_every: int = 10,

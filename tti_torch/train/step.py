@@ -123,7 +123,8 @@ def clip_by_global_norm_(grads: list[Tensor], max_norm: float = MAX_GRAD_NORM) -
 
 def yolo_seg_loss(raw: RawPredictions, targets: Targets, input_hw: tuple[int, int],
                   seg_class_gains: tuple[float, ...] | None = None,
-                  seg_dtype: torch.dtype = torch.float32) -> dict[str, Tensor]:
+                  seg_dtype: torch.dtype = torch.float32,
+                  seg_chunk: int | None = None) -> dict[str, Tensor]:
     """Per-image YOLOv8-seg loss terms {cls, box, dfl, seg}, each (B,), on
     float32 head outputs."""
     box_l, cls_l, coefs, level_hw = flatten_predictions(raw)
@@ -163,7 +164,7 @@ def yolo_seg_loss(raw: RawPredictions, targets: Targets, input_hw: tuple[int, in
         gt_gains = gains[targets.classes.clamp(min=0).long()]  # (B, G)
         anchor_w = torch.gather(gt_gains, 1, assign["assigned_gt"])
     loss_seg = seg_loss(coefs, protos, targets.masks, targets.boxes * scale,
-                        assign["assigned_gt"], pos, anchor_weights=anchor_w,
+                        assign["assigned_gt"], pos, chunk=seg_chunk, anchor_weights=anchor_w,
                         seg_dtype=seg_dtype)
     return {"cls": loss_cls, "box": loss_box, "dfl": loss_dfl, "seg": loss_seg}
 
@@ -178,14 +179,15 @@ class TrainStep:
     The reference calls it ``make_train_step``.
 
     ``seg_class_gains``: per-class seg-loss gains (index = class id), None
-    for the plain recipe. ``seg_dtype``: see
-    :func:`tti_torch.train.losses.seg_loss`."""
+    for the plain recipe. ``seg_dtype`` and ``seg_chunk`` (the ``chunk`` of
+    :func:`tti_torch.train.losses.seg_loss`): see there."""
 
     def __init__(self, input_hw: tuple[int, int], seg_class_gains=None,
-                 seg_dtype: torch.dtype = torch.float32) -> None:
+                 seg_dtype: torch.dtype = torch.float32, seg_chunk: int | None = None) -> None:
         self.input_hw = input_hw
         self.gains = tuple(seg_class_gains) if seg_class_gains is not None else None
         self.seg_dtype = seg_dtype
+        self.seg_chunk = seg_chunk
 
     def loss(self, model: YOLOv8Seg, images: Tensor, targets: Targets
              ) -> tuple[Tensor, dict[str, Tensor]]:
@@ -195,7 +197,8 @@ class TrainStep:
         raw = model(images)
         raw = RawPredictions(*(tuple(t.float() for t in getattr(raw, k))
                                for k in ("box", "cls", "mcoef")), raw.protos.float())
-        per_image = yolo_seg_loss(raw, targets, self.input_hw, self.gains, self.seg_dtype)
+        per_image = yolo_seg_loss(raw, targets, self.input_hw, self.gains, self.seg_dtype,
+                                  self.seg_chunk)
         losses = {k: v.mean() for k, v in per_image.items()}
         total = (BOX_GAIN * losses["box"] + CLS_GAIN * losses["cls"]
                  + DFL_GAIN * losses["dfl"] + BOX_GAIN * SEG_GAIN * losses["seg"])
