@@ -565,6 +565,12 @@ def check_warp_p1(torch, wp, warp, spec, first=None) -> dict:
     for b in (BATCH, 64, 33, 17, 16, 2, 1):
         run(f"headline B={b}, the warp's own W1", rand(b, 1080, 1920), warp.w1, head, exact=True,
             vs_first=b in (BATCH, 1))
+    # Frames that start and end off a 16-byte boundary (3 bytes into a
+    # buffer): the spans' end bytes come by plain loads.
+    buf = rand(2 * 1080 * 1920 + 1, 1).view(-1)
+    run("headline B=2, 3 bytes into a buffer, the warp's own W1",
+        buf[3:3 + 2 * 1080 * 1920 * 3].view(2, 1080, 1920, 3), warp.w1, head, exact=True)
+    del buf
     spec5, warp5 = k5_warp(torch)
     kw5 = dict(k=5, off=2, hs=spec5.new_h, ws=spec5.new_w, pad_value=warp5.pad_value)
     run("k=5 (480x480, imgsz 96) B=5", rand(5, 480, 480), warp5.w1, kw5, exact=True)
@@ -2503,8 +2509,8 @@ def live_tile_share(torch, w1, window) -> dict:
     """What kernel C reads of W1 through ``window``: per (y, 64 output
     columns) the union of the columns' windows, cut into chunks of 80 rows
     (the kernel's chunk at the headline; each chunk a TMA box of 80 rows x
-    64 columns). Returns the share of W1's bytes those boxes hold, the rows
-    of the union as a share of ws, and the share of W1 that is non-zero."""
+    64 columns). Returns the share of W1's bytes those boxes hold and the
+    share of W1 that is non-zero."""
     hs, ws, wo = w1.shape
     w = window.view(hs, -1, 2)
     lo, hi = w[..., 0], w[..., 1]
@@ -2516,7 +2522,6 @@ def live_tile_share(torch, w1, window) -> dict:
     span = (hi.view(hs, tiles, 64).amax(2) - lo.view(hs, tiles, 64).amin(2)).clamp(min=0)
     boxes = (span + 79) // 80
     return {"live_tile_share": float((boxes * 80 * 64).sum()) / (hs * ws * wo),
-            "union_row_share": float(span.float().mean()) / ws,
             "nonzero_share": float((w1 != 0).float().mean())}
 
 
@@ -3990,6 +3995,13 @@ def main() -> int:
         "pass2_from_ycbo_ms": c[BATCH]["pass2_from_ycbo_ms"],
         "pass2_from_byoc_ms": c[BATCH]["pass2_from_byoc_ms"],
         **({k: c[BATCH][k] for k in ("first_design_ms", "ms_again")} if first_warp else {}),
+        # The headline step at batch 128, frames/s: each route timed alone
+        # (phase 5) and the two in turns (einsum, kernel, kernel, einsum).
+        "step_frames_per_s": {
+            "kernel_route_alone": head_k_time["frames_per_s"],
+            "einsum_alone": head_time["frames_per_s"],
+            "kernel_route_in_turns": route["turns_vs_einsum"]["frames_per_s"],
+            "einsum_in_turns": route["turns_vs_einsum"]["ref_frames_per_s"]},
         "batch_1": {k: c[1][k] for k in ("ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by",
                                          "bound_dense_ms", "pass2_from_ycbo_ms",
                                          "pass2_from_byoc_ms", "first_design_ms", "ms_again")

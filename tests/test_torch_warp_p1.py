@@ -202,7 +202,7 @@ def test_table_is_the_nonzero_windows_of_w1(case, dtype):
     np.testing.assert_array_equal(table.numpy(), want)
     assert (want[..., 1] - want[..., 0]).max() <= 2  # the bilinear map's two taps
     assert (want[..., 1] == 0).any()  # dead columns (the letterbox's sides) give (0, 0)
-    np.testing.assert_array_equal(pass1_window(warp.w1, rows_per_pass=7).numpy(), want)
+    assert warp.w1.shape[0] > 64  # the table is built 64 rows of y at a time: a second step
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -245,6 +245,48 @@ def test_a_table_that_misses_a_nonzero_raises(miss):
     wide = warp.pass1_window().clone()
     wide[..., 0] = 0
     warp_pass1_decimated(torch.from_numpy(frames), warp.w1, wide, **_kw(spec, k, warp.pad_value))
+
+
+def test_blocked_warp_has_no_table():
+    """A blocked warp holds no dense W1: asking it for the table raises a
+    clear error."""
+    spec, k, m, frames = _setup("k3")
+    warp = TwoPassWarp(m, (spec.new_h, spec.new_w), device="cpu", block=32)
+    assert warp.w1 is None and warp.w1_window is None
+    with pytest.raises(ValueError, match="blocked"):
+        warp.pass1_window()
+
+
+def test_card_geometry_error():
+    """What the kernel never takes, at any batch: wo not a multiple of 8
+    (TMA rows of whole 16-byte units) and a decimation wider than MAX_K."""
+    assert warp_p1.card_geometry_error(3, 640) is None
+    assert warp_p1.card_geometry_error(warp_p1.MAX_K, 8) is None
+    assert "multiple of 8" in warp_p1.card_geometry_error(3, 100)
+    assert "decimation" in warp_p1.card_geometry_error(warp_p1.MAX_K + 2, 640)
+
+
+def test_kernel_route_refuses_a_geometry_the_kernel_never_takes():
+    """A square letterbox at imgsz 100 gives W1 100 output columns: the
+    kernel route is refused when the pipeline is built, on every device, and
+    the einsum route is not."""
+    from tti_torch.calib.io import CalibrationData
+    from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
+    from tti_torch.model.checkpoint import load_flax_msgpack
+    from tti_torch.parallel.runtime import InspectionPipeline
+
+    calib = CalibrationData(K=np.array([[90.0, 0, 150], [0, 90.0, 150], [0, 0, 1]]),
+                            dist=np.array([0.05, 0.01, 0, 0, 0.0]),
+                            rvec=np.array([-0.86, -0.39, -1.36]),
+                            tvec=np.array([0.005, 0.036, 0.094]))
+    variables = load_flax_msgpack("checkpoints/yolov8n_textile_cam.msgpack")
+    build = lambda route: InspectionPipeline(
+        ModelConfig(image_size=100, letterbox="square", dtype="float32", mask_stride=2,
+                    proto_head="subpixel"), variables, (300, 300), calib, MeasureConfig(),
+        RoiConfig(x_min=1, x_max=299, y_min=1, y_max=299), device="cpu", warp_pass1=route)
+    with pytest.raises(ConfigError, match="multiple of 8, got 100"):
+        build("kernel")
+    assert build("einsum").warp.w1.shape[2] == 100
 
 
 def test_operator_fake_takes_the_table():
@@ -296,3 +338,57 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
                                      **_kw(spec, k, warp.pad_value))
     assert warp_p1.LAUNCHES["warp_pass1_decimated"] == 1
     assert torch.equal(got, ref)
+
+
+def _two_tap_w1(hs, ws, wo, seed, device):
+    """A bilinear-like W1: two adjacent non-zero taps (j/64) per (y, o), so
+    the kernel and its plain version must agree to the bit."""
+    rng = np.random.default_rng(seed)
+    w1 = np.zeros((hs, ws, wo), np.float32)
+    x0 = rng.integers(0, ws - 1, (hs, wo))
+    for y in range(hs):
+        for o in range(wo):
+            w1[y, x0[y, o]:x0[y, o] + 2, o] = rng.integers(1, 65, 2) / 64
+    return torch.from_numpy(w1).to(device=device, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,offset", [(1, 0), (2, 0), (1, 1), (2, 5)])
+def test_kernel_takes_frames_that_do_not_start_or_end_on_16_bytes(cuda_device, batch, offset):
+    """30x60 frames hold 5400 bytes, 8 past a multiple of 16: batch 1 ends
+    off a 16-byte boundary and batch 2 does not; ``offset`` bytes into a
+    buffer, the frames also start off one. The kernel takes every case and
+    equals its plain version to the bit."""
+    rng = np.random.default_rng(batch + 10 * offset)
+    n = batch * 30 * 60 * 3
+    buf = torch.from_numpy(rng.integers(0, 256, n + offset, dtype=np.uint8)).to(cuda_device)
+    frames = buf[offset:].view(batch, 30, 60, 3)
+    assert (frames.data_ptr() % 16 == 0) == (offset == 0)
+    w1 = _two_tap_w1(10, 20, 16, 3, cuda_device)
+    kw = dict(k=3, off=1, hs=10, ws=20, pad_value=114 / 255)
+    warp_p1.reset_launch_counts()
+    got = warp_pass1_decimated(frames, w1, pass1_window(w1), **kw)
+    assert warp_p1.LAUNCHES["warp_pass1_decimated"] == 1
+    assert torch.equal(got, warp_pass1_decimated_plain(frames, w1, pass1_window(w1), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 9])
+def test_kernel_takes_the_widest_decimation_and_refuses_wider(cuda_device, batch):
+    """k = MAX_K fits at every batch (at batch 9 the plan falls back from 16
+    frames per item to 2); k = MAX_K + 2 and a wo that is not a multiple of
+    8 raise before any launch."""
+    k = warp_p1.MAX_K
+    hs, ws = 2, 12
+    frames = torch.randint(0, 256, (batch, k * hs, k * ws, 3), dtype=torch.uint8,
+                           device=cuda_device)
+    w1 = _two_tap_w1(hs, ws, 16, 4, cuda_device)
+    kw = dict(k=k, off=(k - 1) // 2, hs=hs, ws=ws, pad_value=0.5)
+    got = warp_pass1_decimated(frames, w1, pass1_window(w1), **kw)
+    assert torch.equal(got, warp_pass1_decimated_plain(frames, w1, pass1_window(w1), **kw))
+    wider = torch.zeros((1, (k + 2) * hs, (k + 2) * ws, 3), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="decimation"):
+        warp_pass1_decimated(wider, w1, pass1_window(w1), **dict(kw, k=k + 2, off=(k + 1) // 2))
+    w12 = _two_tap_w1(hs, ws, 12, 5, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        warp_pass1_decimated(frames, w12, pass1_window(w12), **kw)

@@ -409,11 +409,9 @@ NO_COUNTERPART = {
 }
 
 
-# The reference's CLI reads these from the process environment before every
-# command (``init_distributed`` and the compilation cache): the multi-host
-# triple, whose ``TTI_COORDINATOR`` turns multi-host on, and the switches of
-# NO_COUNTERPART that only the CLI reads (logged by the CLI, not by the step).
-MULTI_HOST = ("TTI_COORDINATOR", "TTI_NUM_PROCESSES", "TTI_PROCESS_ID")
+# The switches of NO_COUNTERPART that the reference's CLI reads from the
+# process environment before every command (the compilation cache), logged
+# by the CLI, not by the step.
 PROCESS_SWITCHES = ("TTI_JAX_CACHE_DIR",)
 
 

@@ -43,26 +43,27 @@
 // - The product is transposed: M = 64 output columns o, N = 3F rows (c, f)
 //   of F frames, K = the source columns x. wgmma takes 64 rows, and the
 //   output columns give them at every batch; N is 3F rounded up to 8 (F =
-//   2, 8 or 16 frames by batch), so batch 1 computes 8 rows for its 3 and
-//   not the first design's 48. A (W1[y] rows x0.., 64 columns) arrives
-//   by TMA with 128-byte swizzle, M-major (wgmma's transposed A); B (the
-//   converted frames) is written K-major in 8x8 core matrices. wgmma
-//   m64nNk16 bf16, float32 accumulators in registers.
+//   2, 8 or 16 frames by batch, fewer for a very wide k), so batch 1
+//   computes 8 rows for its 3 and not the first design's 48. A (W1[y] rows
+//   x0.., 64 columns) arrives by TMA with 128-byte swizzle, M-major
+//   (wgmma's transposed A); B (the converted frames) is written K-major in
+//   8x8 core matrices. wgmma m64nNk16 bf16, float32 accumulators in
+//   registers.
 // - Overlaps the byte fetch with the product: persistent, warp-specialised
 //   blocks of four pipelines, each a producer warp and a consumer
 //   warpgroup with its own ring of stages in shared memory (full / empty
 //   mbarriers; two stages of 22 KB at the headline). A stage holds one
 //   chunk: the W1 box by TMA and each frame's byte span of the kept row by
-//   cp.async.bulk (one lane per frame, 16-byte aligned spans). The
+//   cp.async.bulk (one lane per frame, spans widened to 16 bytes). The
 //   consumer converts the spans into B, runs the product, and at the
 //   item's last chunk writes the output through shared memory with 16-byte
 //   coalesced stores. While one consumer converts or stores, the others'
 //   products run and the producers' copies are in flight. More consumers
 //   per SM went faster while each item still fit one chunk: on the
-//   headline inputs four pipelines of 16 frames ran 0.197 ms, two of 32
-//   frames 0.218, three of 16 0.237, five of 16 (which fit only with
-//   64-column chunks, two per item) 0.221; the mma.sync product in
-//   wgmma's place 0.199 (tools/warp_p1_variants_torch.py, an H100 at 700 W).
+//   headline inputs (an H100 at 700 W) four pipelines of 16 frames ran
+//   0.197 ms, two of 32 frames 0.218, three of 16 0.237, five of 16 (which
+//   fit only with 64-column chunks, two per item) 0.221, and an mma.sync
+//   product in wgmma's place 0.199. PERF.md keeps those variants' table.
 // - Work item = (y, group of F frames, 64 output columns), walked y-major
 //   with the columns fastest: the blocks resident at once cover a few rows
 //   y, so the groups of one y read W1[y]'s boxes from L2, and neighbouring
@@ -71,9 +72,10 @@
 // The TPU kernel's hs % 8 rule and its 128-column block were Mosaic's tiling
 // and are not carried over: every ragged edge (frames past B, columns past
 // wo, rows past ws) is masked, zero-filled by TMA or left out of the
-// stores. The wrapper requires 16-byte aligned frames whose byte count is a
-// multiple of 16, and a 16-byte aligned W1 with wo a multiple of 8 (what
-// TMA can describe); it raises on anything else.
+// stores, and frames that do not start or end on 16 bytes take their end
+// bytes by plain loads. W1 must be 16-byte aligned with wo a multiple of 8
+// (what TMA can describe; the pipeline refuses another wo when it is
+// built), and k at most 283 (plan()); the wrapper raises on anything else.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,23 +85,10 @@
 
 namespace {
 
-// The tuning that a variant build can override (nvcc -D...): pipelines per
-// block, the most frames per item, the deepest ring, the MMA instruction.
-#ifndef TTI_P1_PIPES
-#define TTI_P1_PIPES 4
-#endif
-#ifndef TTI_P1_MAX_FRAMES
-#define TTI_P1_MAX_FRAMES 16
-#endif
-#ifndef TTI_P1_MAX_STAGES
-#define TTI_P1_MAX_STAGES 4
-#endif
-#ifndef TTI_P1_MMA_SYNC
-#define TTI_P1_MMA_SYNC 0  // 1: the product by mma.sync instead of wgmma
-#endif
-
-constexpr int kM = 64;                 // output columns per work item (wgmma M)
-constexpr int kPipes = TTI_P1_PIPES;   // producer warp + consumer warpgroup pairs per block
+constexpr int kM = 64;          // output columns per work item (wgmma M)
+constexpr int kPipes = 4;       // producer warp + consumer warpgroup pairs per block
+constexpr int kMaxFrames = 16;  // frames per work item at the largest batches
+constexpr int kMaxStages = 4;   // the deepest ring
 constexpr int kThreads = 128 * kPipes + 32 * kPipes;
 constexpr int kStagePitch = kM + 8;    // epilogue staging row, elements (bank spread)
 constexpr int kMaxSmem = 227 * 1024;
@@ -114,6 +103,7 @@ struct Plan {
 
 struct Args {
   const uint8_t* frames;
+  long long total;  // the frames' bytes
   const int* window;
   __nv_bfloat16* out;
   int B, H, W, k, off, ws, wo, bgr_flip;
@@ -237,28 +227,6 @@ struct Wgmma<48> {
   }
 };
 
-template <>
-struct Wgmma<96> {
-  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, %48, %49, p, 1, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-};
-
 // The accumulators, tied to their last writer: the compiler must not read
 // them before wgmma.wait_group nor move writes past wgmma.fence.
 template <int R>
@@ -268,52 +236,6 @@ __device__ __forceinline__ void fence_acc(float (&acc)[R]) {
 }
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-#if TTI_P1_MMA_SYNC
-// The same product with mma.sync m16n8k16 (the variant that wgmma is
-// measured against): warp w takes the output columns 16w .. 16w + 15, so
-// its accumulators fall where wgmma's do. A comes from the swizzled box by
-// ldmatrix.trans (16-byte chunk c of box row x sits at chunk c ^ (x % 8)),
-// B from the core matrices by ldmatrix.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr, bool trans) {
-  if (trans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_m16n8k16(float* c, const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int N>
-__device__ __forceinline__ void product_mma_sync(float (&acc)[N / 2], uint32_t w_u32,
-                                                 uint32_t bop_u32, int nk, int warp, int lane) {
-  const int mi = lane >> 3, r = lane & 7;
-  for (int kk = 0; kk < nk / 16; ++kk) {
-    uint32_t a[4];
-    const int x = 16 * kk + 8 * (mi >> 1) + r;
-    ldsm_x4(a, w_u32 + x * 128 + (((2 * warp + (mi & 1)) ^ r) << 4), true);
-#pragma unroll
-    for (int q = 0; q < N / 8; q += 2) {
-      // Matrices (n-group q, k 0-7), (q, k 8-15), (q + 1, ...) (the last
-      // pair of an odd count loads group q twice).
-      const int qq = q + (mi >> 1) < N / 8 ? q + (mi >> 1) : q;
-      uint32_t b[4];
-      ldsm_x4(b, bop_u32 + (2 * kk + (mi & 1)) * N * 16 + qq * 128 + r * 16, false);
-      mma_m16n8k16(&acc[4 * q], a, b[0], b[1]);
-      if (q + 1 < N / 8) mma_m16n8k16(&acc[4 * (q + 1)], a, b[2], b[3]);
-    }
-  }
-}
-#endif
 
 // The three rounded steps of one byte u, as bf16 bits: u is exact in
 // float32 (2^23 + u, less 2^23), then times bf16(1/255) rounded to bf16,
@@ -378,16 +300,38 @@ __device__ void produce(const CUtensorMap& wmap, const Args& a, const Plan& p,
       unsigned char* stage = region + s * p.stage_bytes;
       const uint32_t bar = smem_u32(&full[s]);
       // This lane's span: the bytes of columns x0 .. x0 + nx - 1 of frame b,
-      // widened to 16-byte boundaries.
+      // placed in the stage from the 16-byte boundary below its first byte.
+      // The 16-byte aligned part that lies inside the frames goes by
+      // cp.async.bulk; what is left at either end (at most 15 bytes, only
+      // where the frames do not start or end on 16 bytes) by plain loads,
+      // before the stage is posted.
       uint32_t bytes = 0;
-      const unsigned char* src = nullptr;
+      const uint8_t* src = nullptr;
+      unsigned char* dst = nullptr;
       if (nx > 0 && lane < p.F && b < a.B) {
-        const long long beg = row_base(a, b, y) + 3LL * (a.off + static_cast<long long>(a.k) * x0);
-        const long long end = beg + 3LL * a.k * (nx - 1) + 3;
-        const long long beg16 = beg & ~15LL;
-        src = a.frames + beg16;
-        bytes = static_cast<uint32_t>(((end + 15) & ~15LL) - beg16);
+        const uintptr_t base = reinterpret_cast<uintptr_t>(a.frames);
+        const uintptr_t beg =
+            base + row_base(a, b, y) + 3ULL * (a.off + static_cast<unsigned long long>(a.k) * x0);
+        const uintptr_t end = beg + 3ULL * a.k * (nx - 1) + 3;
+        const uintptr_t beg16 = beg & ~uintptr_t{15}, end16 = (end + 15) & ~uintptr_t{15};
+        const uintptr_t first16 = (base + 15) & ~uintptr_t{15};
+        const uintptr_t last16 = (base + a.total) & ~uintptr_t{15};
+        const uintptr_t lo = beg16 > first16 ? beg16 : first16;
+        const uintptr_t hi = end16 < last16 ? end16 : last16;
+        unsigned char* span = stage + p.w_bytes + lane * p.pitch;  // byte q at span[q - beg16]
+        const bool bulk = lo < hi;
+        const uintptr_t head = bulk ? lo : end, tail = bulk ? hi : end;
+        for (uintptr_t q = beg; q < head; ++q) span[q - beg16] = a.frames[q - base];
+        for (uintptr_t q = tail; q < end; ++q) span[q - beg16] = a.frames[q - base];
+        // Those writes before any later bulk copy into the same bytes.
+        if (beg < head || tail < end) fence_proxy_async();
+        if (bulk) {
+          bytes = static_cast<uint32_t>(hi - lo);
+          src = reinterpret_cast<const uint8_t*>(lo);
+          dst = span + (lo - beg16);
+        }
       }
+      __syncwarp();  // the plain loads land before lane 0 posts the stage
       const uint32_t total = __reduce_add_sync(0xFFFFFFFFu, bytes) + (nx > 0 ? p.w_bytes : 0);
       if (lane == 0) {
         hdr[s] = Header{x0, nx, (c == 0 ? 1 : 0) | (c + 1 >= chunks ? 2 : 0)};
@@ -399,7 +343,7 @@ __device__ void produce(const CUtensorMap& wmap, const Args& a, const Plan& p,
         }
       }
       __syncwarp();
-      if (bytes > 0) bulk_load(smem_u32(stage + p.w_bytes + lane * p.pitch), src, bytes, bar);
+      if (bytes > 0) bulk_load(smem_u32(dst), src, bytes, bar);
     }
   }
 }
@@ -443,7 +387,8 @@ __device__ void consume(const Args& a, const Plan& p, unsigned char* region, int
         const long long col = 3LL * (a.off + static_cast<long long>(a.k) * h.x0);
         for (int task = t; task < F * (nk / 8); task += 128) {
           const int f = task % F, j = task / F;
-          const int shift = static_cast<int>((row_base(a, g * F + f, y) + col) & 15);
+          const int shift = static_cast<int>(
+              (reinterpret_cast<uintptr_t>(a.frames) + row_base(a, g * F + f, y) + col) & 15);
           const unsigned char* px = stage + p.w_bytes + f * p.pitch + shift + 24 * a.k * j;
           uint32_t v[3][4];
 #pragma unroll
@@ -466,9 +411,6 @@ __device__ void consume(const Args& a, const Plan& p, unsigned char* region, int
         fence_proxy_async();
         wg_sync(wg);
         const uint32_t w_u32 = smem_u32(stage);
-#if TTI_P1_MMA_SYNC
-        product_mma_sync<N>(acc, w_u32, bop_u32, nk, warp, lane);
-#else
         fence_acc(acc);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
         for (int kk = 0; kk < nk / 16; ++kk) {
@@ -483,7 +425,6 @@ __device__ void consume(const Args& a, const Plan& p, unsigned char* region, int
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
         fence_acc(acc);
-#endif
       }
       // Every warp is past its product and its reads of the stage.
       wg_sync(wg);
@@ -579,32 +520,35 @@ constexpr int kErrTensorMap = 100000;  // + the CUresult of a refused tensor map
 
 // The frames per item for this batch, and the chunk width and ring depth
 // that fit: the widest chunk first (one chunk per item at the headline),
-// then the deepest ring, two stages at least.
+// then the deepest ring, two stages at least. A decimation too wide for
+// that takes fewer frames per item, so whether a k fits does not depend on
+// the batch: every k up to 283 fits with 2 frames, 16 columns and two
+// stages (MAX_K in kernels/warp_p1.py).
 bool plan(int B, int k, int hs, int wo, Plan& p) {
-  p.F = B <= 2 ? 2 : B <= 8 ? 8 : B <= 16 ? 16 : 32;
-  if (p.F > TTI_P1_MAX_FRAMES) p.F = TTI_P1_MAX_FRAMES;  // 2, 8, 16 or 32
-  const int N = round_up(3 * p.F, 8);
-  p.groups = (B + p.F - 1) / p.F;
-  p.mtiles = (wo + kM - 1) / kM;
-  const long long units = static_cast<long long>(hs) * p.groups * p.mtiles;
-  if (units > 0x7FFFFFFF) return false;
-  p.units = static_cast<int>(units);
-  for (int kc = 80; kc >= 16; kc -= 16) {
-    for (int stages = TTI_P1_MAX_STAGES; stages >= 2; --stages) {
-      p.kc = kc;
-      p.stages = stages;
-      p.pitch = round_up(3 * k * (kc - 1) + 33, 16);
-      p.w_bytes = kc * 128;
-      p.stage_bytes = round_up(p.w_bytes + p.F * p.pitch, 1024);
-      const int staging = N * kStagePitch * 2;
-      p.b_bytes = round_up(kc * N * 2 > staging ? kc * N * 2 : staging, 16);
-      const int tail = 2 * stages * 8 + stages * static_cast<int>(sizeof(Header));
-      p.pipe_bytes = round_up(stages * p.stage_bytes + p.b_bytes + tail, 1024);
-      p.smem = kPipes * p.pipe_bytes + 1024;  // + the alignment slack
-      if (p.smem <= kMaxSmem) return true;
+  for (p.F = B <= 2 ? 2 : B <= 8 ? 8 : kMaxFrames;; p.F = p.F > 8 ? 8 : 2) {
+    const int N = round_up(3 * p.F, 8);
+    p.groups = (B + p.F - 1) / p.F;
+    p.mtiles = (wo + kM - 1) / kM;
+    const long long units = static_cast<long long>(hs) * p.groups * p.mtiles;
+    if (units > 0x7FFFFFFF) return false;
+    p.units = static_cast<int>(units);
+    for (int kc = 80; kc >= 16; kc -= 16) {
+      for (int stages = kMaxStages; stages >= 2; --stages) {
+        p.kc = kc;
+        p.stages = stages;
+        p.pitch = round_up(3 * k * (kc - 1) + 33, 16);
+        p.w_bytes = kc * 128;
+        p.stage_bytes = round_up(p.w_bytes + p.F * p.pitch, 1024);
+        const int staging = N * kStagePitch * 2;
+        p.b_bytes = round_up(kc * N * 2 > staging ? kc * N * 2 : staging, 16);
+        const int tail = 2 * stages * 8 + stages * static_cast<int>(sizeof(Header));
+        p.pipe_bytes = round_up(stages * p.stage_bytes + p.b_bytes + tail, 1024);
+        p.smem = kPipes * p.pipe_bytes + 1024;  // + the alignment slack
+        if (p.smem <= kMaxSmem) return true;
+      }
     }
+    if (p.F == 2) return false;
   }
-  return false;
 }
 
 template <int N>
@@ -631,18 +575,18 @@ int launch(const CUtensorMap& map, const Args& a, const Plan& p, cudaStream_t st
 
 }  // namespace
 
-// frames (B, H, W, 3) u8, 16-byte aligned, of total_bytes bytes (a multiple
-// of 16); w1 (hs, ws, wo) bf16, 16-byte aligned, wo a multiple of 8;
-// window (hs, wo, 2) int32 covering every non-zero of w1; out (hs, 3, B,
-// wo) bf16. Returns cudaGetLastError() of the launch, cudaErrorInvalidValue
-// (1) for what the kernel does not take or when no plan fits in shared
-// memory, or kErrTensorMap + the CUresult of a refused tensor map.
+// frames (B, H, W, 3) u8 of total_bytes bytes; w1 (hs, ws, wo) bf16,
+// 16-byte aligned, wo a multiple of 8; window (hs, wo, 2) int32 covering
+// every non-zero of w1 (not checked here); out (hs, 3, B, wo) bf16.
+// Returns cudaGetLastError() of the launch, cudaErrorInvalidValue (1) for
+// what the kernel does not take or when no plan fits in shared memory, or
+// kErrTensorMap + the CUresult of a refused tensor map.
 extern "C" int tti_warp_pass1_decimated(const void* frames, long long total_bytes, const void* w1,
                                         const void* window, void* out, int B, int H, int W, int k,
                                         int off, int hs, int ws, int wo, float pad_value,
                                         int bgr_flip, void* stream) {
-  if (B < 1 || hs < 1 || ws < 1 || wo < 8 || wo % 8 != 0 || total_bytes % 16 != 0
-      || reinterpret_cast<uintptr_t>(frames) % 16 != 0 || reinterpret_cast<uintptr_t>(w1) % 16 != 0)
+  if (B < 1 || hs < 1 || ws < 1 || wo < 8 || wo % 8 != 0
+      || reinterpret_cast<uintptr_t>(w1) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
   if (!plan(B, k, hs, wo, p)) return static_cast<int>(cudaErrorInvalidValue);
@@ -661,16 +605,13 @@ extern "C" int tti_warp_pass1_decimated(const void* frames, long long total_byte
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return kErrTensorMap + static_cast<int>(r);
-  const Args a{static_cast<const uint8_t*>(frames), static_cast<const int*>(window),
+  const Args a{static_cast<const uint8_t*>(frames), total_bytes, static_cast<const int*>(window),
                static_cast<__nv_bfloat16*>(out), B, H, W, k, off, ws, wo, bgr_flip, pad_value};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (round_up(3 * p.F, 8)) {
     case 8: return launch<8>(map, a, p, s);
     case 24: return launch<24>(map, a, p, s);
     case 48: return launch<48>(map, a, p, s);
-#if TTI_P1_MAX_FRAMES >= 32
-    case 96: return launch<96>(map, a, p, s);
-#endif
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,14 +20,15 @@ one step of the content (``bfloat16(1/255)`` is ``129/32768``, 0.39% above
 
 Both take the table :func:`pass1_window` of ``w1`` (for each source row y
 and output column o, the first source column with a non-zero weight and one
-past the last): the kernel reads only those rows of ``w1``, and the plain
-version checks that the table covers every non-zero weight, then runs the
-dense product. ``TwoPassWarp.pass1_window`` computes it once from the
-weights it holds.
+past the last): the kernel reads only those rows of ``w1`` and trusts the
+table (it does not check it), and the plain version checks that the table
+covers every non-zero weight, then runs the dense product.
+``TwoPassWarp.pass1_window`` computes it once from the weights it holds.
 
 The kernel is the operator ``torch.ops.tti_torch.warp_pass1_decimated``
 (:func:`tti_torch.kernels.build.register_op`): on CPU tensors it runs the
-plain version; on CUDA tensors it launches the kernel or raises. What bounds
+plain version; on CUDA tensors it launches the kernel or raises (:func:`card_geometry_error`
+says which geometries it never takes). What bounds
 the kernel and what its design does about it is written in
 ``csrc/warp_p1.cu``. The TPU kernel's ``hs % 8`` rule and its
 128-column block were Mosaic's tiling and are not carried over.
@@ -48,6 +49,13 @@ LAUNCHES = {"warp_pass1_decimated": 0}
 
 _lib: ctypes.CDLL | None = None
 
+# The widest decimation the kernel takes: its smallest plan (2 frames per
+# item, 16 source columns per chunk, two stages; plan() in csrc/warp_p1.cu)
+# must fit in shared memory.
+MAX_K = 283
+# Rows of y per step of :func:`pass1_window` (bounds its temporaries).
+_WINDOW_ROWS = 64
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
@@ -67,22 +75,33 @@ def build() -> ctypes.CDLL:
     return _lib
 
 
-def pass1_window(w1: Tensor, rows_per_pass: int = 64) -> Tensor:
+def pass1_window(w1: Tensor) -> Tensor:
     """(hs, wo, 2) int32 on ``w1``'s device: for each (y, o) the first source
     column x with ``w1[y, x, o] != 0`` and one past the last; (0, 0) for a
     column without any. Taken from the weights as they are held (after any
-    rounding to their dtype), ``rows_per_pass`` rows of y at a time."""
+    rounding to their dtype)."""
     hs, ws, wo = w1.shape
     out = torch.zeros((hs, wo, 2), dtype=torch.int32, device=w1.device)
     x = torch.arange(ws, dtype=torch.int32, device=w1.device).view(1, ws, 1)
-    for y0 in range(0, hs, rows_per_pass):
-        nz = w1[y0:y0 + rows_per_pass] != 0
+    for y0 in range(0, hs, _WINDOW_ROWS):
+        rows = slice(y0, y0 + _WINDOW_ROWS)
+        nz = w1[rows] != 0
         live = nz.any(1)
-        lo = torch.where(nz, x, ws).amin(1)
-        hi = torch.where(nz, x + 1, 0).amax(1)
-        out[y0:y0 + rows_per_pass, :, 0] = torch.where(live, lo, 0)
-        out[y0:y0 + rows_per_pass, :, 1] = torch.where(live, hi, 0)
+        out[rows, :, 0] = torch.where(live, torch.where(nz, x, ws).amin(1), 0)
+        out[rows, :, 1] = torch.where(live, torch.where(nz, x + 1, 0).amax(1), 0)
     return out
+
+
+def card_geometry_error(k: int, wo: int) -> str | None:
+    """Why the kernel never takes the decimation ``k`` with ``wo`` output
+    columns, at any batch (the TMA copy of W1 needs rows of whole 16-byte
+    units; the spans of a wider k do not fit in shared memory); None when
+    it does."""
+    if wo % 8:
+        return f"the kernel needs wo, W1's output columns, a multiple of 8, got {wo}"
+    if k > MAX_K:
+        return f"the kernel takes a decimation up to k={MAX_K}, got k={k}"
+    return None
 
 
 def check_window(w1: Tensor, window: Tensor) -> None:
@@ -142,12 +161,11 @@ def _launch(frames_u8: Tensor, w1: Tensor, window: Tensor, k: int, off: int, hs:
             raise ValueError(f"{name} must be contiguous")
     b, h, w, _ = frames_u8.shape
     wo = w1.shape[2]
-    # What TMA and the 16-byte span copies can describe.
-    if frames_u8.data_ptr() % 16 or frames_u8.numel() % 16:
-        raise ValueError("the kernel needs 16-byte aligned frames of a multiple of 16 bytes")
-    if w1.data_ptr() % 16 or wo % 8:
-        raise ValueError(f"the kernel needs a 16-byte aligned w1 with wo a multiple of 8, "
-                         f"got wo={wo}")
+    why = card_geometry_error(k, wo)
+    if why is not None:
+        raise ValueError(why)
+    if w1.data_ptr() % 16:  # what TMA can describe
+        raise ValueError("the kernel needs a 16-byte aligned w1")
     if max(h, w, wo, b) >= 2 ** 31 // 8:
         raise ValueError(f"shape too large for one launch: B={b}, H={h}, W={w}, wo={wo}")
     lib = build()
@@ -160,8 +178,6 @@ def _launch(frames_u8: Tensor, w1: Tensor, window: Tensor, k: int, off: int, hs:
             frames_u8.data_ptr(), frames_u8.numel(), w1.data_ptr(), window.data_ptr(),
             out.data_ptr(), b, h, w, k, off, hs, ws, wo, float(pad_value), int(bgr_flip),
             stream)
-    if err == 1:  # cudaErrorInvalidValue: no chunk width and ring depth fit
-        raise ValueError(f"k={k} is too wide for the kernel's shared-memory stages")
     if err != 0:
         raise RuntimeError(f"warp pass-1 kernel launch failed: error {err}")
     LAUNCHES["warp_pass1_decimated"] += 1
@@ -186,7 +202,9 @@ def warp_pass1_decimated(frames_u8: Tensor, w1: Tensor, window: Tensor, *, k: in
                          hs: int, ws: int, pad_value: float, bgr_flip: bool = True) -> Tensor:
     """Kernel C: uint8 BGR frames (B, H, W, 3), dense pass-1 weights (hs,
     ws, wo) and their :func:`pass1_window` -> the pass-1 intermediate (hs, 3,
-    B, wo) in ``w1.dtype``.
+    B, wo) in ``w1.dtype``. On CPU tensors the plain version checks the
+    table; on CUDA tensors the kernel trusts it, and leaves out the products
+    of any non-zero weight outside it.
 
     ``k`` is the odd decimation stride, ``off`` its offset ``(k - 1) // 2``,
     ``hs`` x ``ws`` the decimated content that pass 1 consumes."""

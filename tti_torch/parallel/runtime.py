@@ -41,7 +41,7 @@ from tti_torch.calib.io import CalibrationData
 from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
 from tti_torch.core.errors import ConfigError
 from tti_torch.core.logging import get_logger
-from tti_torch.kernels.warp_p1 import warp_pass1_decimated
+from tti_torch.kernels.warp_p1 import card_geometry_error, warp_pass1_decimated
 from tti_torch.measure.pipeline import (
     CameraParams, FrameMeasurement, StitchSet, measure_frame, prepare_frame_inputs,
 )
@@ -224,7 +224,8 @@ class InspectionPipeline:
     ``warp_pass1``: "einsum" | "kernel" (the fused CUDA pass-1 kernel; needs
     an exact decimation geometry and the dense two-pass warp: kernel C reads
     dense ``W1`` and decimates itself, so neither ``warp_block`` nor
-    ``warp_col_expand`` goes with it).
+    ``warp_col_expand`` goes with it; a geometry the kernel never takes,
+    ``warp_p1.card_geometry_error``, is refused on every device).
     ``warp_block``: the two-pass warp's band width (None: dense weights).
     ``warp_col_expand``: the two-pass warp resamples the columns of an exact
     decimation in pass 1 and takes row-sliced frames; without an exact
@@ -315,6 +316,11 @@ class InspectionPipeline:
                     f"{frame_hw} at imgsz {model_cfg.image_size} resizes by {self.spec.scale:g}")
             if not isinstance(self.warp, TwoPassWarp):
                 raise ConfigError("warp_pass1='kernel' needs a calibration and the two-pass warp")
+            # Refused on every device, so that the CPU route takes what the card takes.
+            why = card_geometry_error(decimation_stride(self.spec), self.warp.w1.shape[2])
+            if why is not None:
+                raise ConfigError(f"warp_pass1='kernel' at {frame_hw}, imgsz "
+                                  f"{model_cfg.image_size}: {why}")
             self.warp.pass1_window()  # the kernel's table, before any step or trace
         two_pass = isinstance(self.warp, TwoPassWarp)
         for name, asked, applies in (
@@ -352,7 +358,7 @@ class InspectionPipeline:
         if isinstance(self.warp, TwoPassWarp):
             if self.warp_pass1 == "kernel":
                 k = decimation_stride(self.spec)
-                i1 = warp_pass1_decimated(frames_u8, self.warp.w1, self.warp.w1_window,
+                i1 = warp_pass1_decimated(frames_u8, self.warp.w1, self.warp.pass1_window(),
                                           k=k, off=(k - 1) // 2,
                                           hs=self.spec.new_h, ws=self.spec.new_w,
                                           pad_value=self.warp.pad_value)

@@ -138,7 +138,7 @@ class TwoPassWarp:
         if block is not None:
             if s2d_out and block % 2:
                 raise ValueError("s2d_out blocked mode needs an even block")
-            self.w1 = self.w2 = None
+            self.w1 = self.w2 = self.w1_window = None
             # Each band's window starts at a multiple of 16, as the reference's.
             self.w1_blocks = []  # (first source column, (hs, columns, block))
             for o0 in range(0, wo, block):
@@ -160,7 +160,12 @@ class TwoPassWarp:
         warp_p1.pass1_window`): for each (y, o) the first source column with
         a non-zero weight and one past the last. Computed once, on the
         device, from the weights as this warp holds them (after the
-        rounding to the weight type), and kept as ``w1_window``."""
+        rounding to the weight type), and kept as ``w1_window``: ``w1`` is
+        not replaced after construction. The blocked mode holds no dense
+        ``w1`` and raises ValueError."""
+        if self.w1 is None:
+            raise ValueError("the pass-1 table needs the dense w1; this warp is blocked "
+                             f"(block={self.block})")
         if self.w1_window is None:
             from tti_torch.kernels.warp_p1 import pass1_window
 
