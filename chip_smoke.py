@@ -131,6 +131,27 @@ exits non-zero without printing the final result line:
    in turns; then each kernel's host microseconds per call on the batch-1
    steps' own calls, through its wrapper, its operator and the bare ctypes
    launch; the phase's wall time;
+5e. data-parallel (``tti_torch.parallel.mesh`` and ``dcn``) on the one card:
+   a one-rank NCCL job through ``init_distributed`` (the ``TTI_*`` triple's
+   arguments, 127.0.0.1 and a free port; NCCL or the run fails) and its
+   ``"data"`` mesh; the deploy step (batch 128), the headline kernel route
+   and the deploy int8 step (batch 8) on the mesh, each through ``step``
+   and ``process_batch_async``, every output equal to the step without a
+   mesh bit for bit and the one-card step's launches (A and D once; C, B
+   and D once; E and F 66 times, A and D once); the deploy mesh step with
+   no synchronising call at batch 128 and 1, and its frames/s and batch-1
+   p50 in turns with the plain step; the headline dual step on the mesh
+   against the dual step without one (B and D twice); r5s at full width,
+   3 steps of the synced ``TrainStep`` (the NCCL gradient all-reduce, and
+   BatchNorm's global-batch statistics forced on at one rank) against the
+   plain step (phase 6's bf16 bars on the loss terms; the first update
+   within 2.2 lr, under 0.5% of the parameters apart by more than 1e-4),
+   ms per step in turns, the all-reduces of one synced step counted and
+   the NCCL kernels' device ms; two gloo ranks sharing the card
+   (``--gloo-rank`` processes) on the deploy step at batch 8 against the
+   step without a mesh (valid equal, scores 1e-5, boxes 1e-3 px, mm 1e-4);
+   ``python -m tti_torch.cli train`` with the triple on 8 seeded scenes, 2
+   steps (exit 0, one checkpoint); the phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -193,7 +214,8 @@ exits non-zero without printing the final result line:
    1; C's bound counts what its weights need, W1's non-zeros and the table,
    beside the bound of reading W1 whole, with the share of W1 its boxes
    read);
-10. the ``kernels`` JSON line, then the final
+10. the whole script's wall time, the ``kernels`` JSON line (with each
+   kernel's launches per mesh step of phase 5e), then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Checks use seeded data only and need no network. Tolerances are stated
@@ -2831,6 +2853,440 @@ def check_frozen(torch, ms, wp, ik) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: data-parallel (tti_torch.parallel.mesh and dcn)
+# ---------------------------------------------------------------------------
+
+# The mesh steps, each against the same step without a mesh on the same
+# frames: (configuration, pipeline arguments, batch, kernel launches per
+# step, which must be the one-card step's).
+MESH_STEPS = {
+    "deploy": ("deploy", {}, BATCH, {"mask_stats_soft": 1, "greedy_keep": 1}),
+    "headline_kernel_route": ("headline", {"warp_pass1": "kernel"}, 8,
+                              {"warp_pass1_decimated": 1, "mask_stats_binary": 1,
+                               "greedy_keep": 1}),
+    "deploy_int8": ("deploy", {"quant": "int8"}, 8,
+                    {"int8_conv2d": 66, "act_scale_per_sample": 66, "mask_stats_soft": 1,
+                     "greedy_keep": 1}),
+}
+GLOO_BATCH = 8
+DP_DIR = os.path.join(HERE, "build", "dp_smoke")
+
+
+def same_tree(torch, got, ref, label) -> int:
+    """Every tensor of two output trees equal (NaN where NaN); the leaf count."""
+    from tti_torch.parallel.mesh import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(ref)
+    check(len(a) == len(b), f"{label}: {len(a)} outputs against {len(b)}")
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True, msg=label)
+    return len(a)
+
+
+def check_mesh_step(torch, ms, wp, mesh, tag) -> dict:
+    """One configuration on the one-card mesh: its outputs equal the step's
+    without a mesh, bit for bit, and it launches the kernels the one-card
+    step launches. The deploy step is also checked for synchronising calls
+    at batch 128 and 1 and timed in turns with the plain step."""
+    config, kw, batch, want = MESH_STEPS[tag]
+    hw, imgsz, ckpt = CONFIGS[config]
+    plain = build_pipeline(torch, hw, imgsz, ckpt, **kw)
+    sharded = build_pipeline(torch, hw, imgsz, ckpt, mesh=mesh, **kw)
+    host = textile(hw, batch)
+    frames = torch.from_numpy(host).cuda()
+    ref = plain.step(frames)
+    reset_launch_counts(ms, wp)
+    got = sharded.step(frames)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts(ms, wp).items() if v}
+    check(launches == want, f"mesh {tag}: launches per step {launches}, the one-card step's {want}")
+    n = same_tree(torch, got, ref, f"mesh {tag} step")
+    same_tree(torch, sharded.process_batch_async(host), ref, f"mesh {tag} process_batch_async")
+    out = {"launches": launches, "outputs": n, "batch": batch}
+    line = (f"mesh {tag} step ({hw[0]}x{hw[1]}, imgsz {imgsz}, {kw or 'bf16'}) at batch {batch}: "
+            f"{n} outputs equal to the plain step's (step and process_batch_async); launches per "
+            f"step {launches}")
+    if tag == "deploy":
+        one = frames[:1].contiguous()
+        out["syncs"] = {b: check_step_syncs(torch, sharded, f"mesh {tag}", f)["syncs"]
+                        for b, f in ((batch, frames), (1, one))}
+        out["turns"] = time_pair(torch, plain, sharded, frames, one, steps=5, p50_iters=10)
+        out["gather_ms"] = {b: gather_ms(torch, mesh, plain.step(f))
+                            for b, f in ((batch, frames), (1, one))}
+        t = out["turns"]
+        line += (f"; in turns with the plain step (plain, mesh, mesh, plain): mesh "
+                 f"{t['frames_per_s']:.1f} frames/s, plain {t['ref_frames_per_s']:.1f} "
+                 f"({100 * (t['frames_per_s'] / t['ref_frames_per_s'] - 1):+.2f}%); batch-1 p50 "
+                 f"mesh {t['p50_ms']:.3f} ms, plain {t['ref_p50_ms']:.3f}; the all-gather of one "
+                 f"step's outputs alone (host clock to a synchronise, median of 20): batch "
+                 f"{batch} {out['gather_ms'][batch]:.3f} ms, batch 1 {out['gather_ms'][1]:.3f} ms")
+    log(line)
+    return out
+
+
+def gather_ms(torch, mesh, outs, iters=20) -> float:
+    """Median ms of ``gather_batch`` on one step's outputs, host clock to a
+    synchronise."""
+    from tti_torch.parallel.mesh import gather_batch
+
+    lats = []
+    for _ in range(iters + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gather_batch(mesh, outs)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(lats[1:]))
+
+
+def check_mesh_dual(torch, ms, wp, mesh) -> dict:
+    """The headline dual step on the mesh against the dual step without one."""
+    from tti_torch.parallel.runtime import DualPipeline
+
+    hw, imgsz, ckpt = CONFIGS["headline"]
+    duals = {tag: DualPipeline(build_pipeline(torch, hw, imgsz, ckpt, mesh=m),
+                               build_pipeline(torch, hw, imgsz, "yolov8n_textile_960.msgpack",
+                                              mesh=m))
+             for tag, m in (("plain", None), ("mesh", mesh))}
+    frames = torch.from_numpy(textile(hw, BATCH)).cuda()
+    ref = duals["plain"].step(frames)
+    reset_launch_counts(ms, wp)
+    got = duals["mesh"].step(frames)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts(ms, wp).items() if v}
+    check(launches == {"mask_stats_binary": 2, "greedy_keep": 2},
+          f"mesh dual step: launches per step {launches}")
+    n = same_tree(torch, got, ref, "mesh dual step")
+    log(f"mesh dual step (headline, yolov8n_textile_960 beside it) at batch {BATCH}: {n} outputs "
+        f"equal to the plain dual step's; launches per step {launches}")
+    return {"launches": launches, "outputs": n}
+
+
+def param_bar(a, b, lr) -> tuple[float, float]:
+    """The largest |a - b| over the parameters, in learning rates, and the
+    share of parameters apart by more than 1e-4."""
+    d = np.concatenate([np.abs(x.detach().float().cpu().numpy() - y.detach().float().cpu().numpy())
+                        .ravel() for x, y in zip(a.parameters(), b.parameters())])
+    return float(d.max() / lr), float((d > 1e-4).mean())
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Counts ``torch.distributed``'s all-reduce and all-gather calls (the
+    names the port calls) while the block runs; yields the counts."""
+    import torch.distributed as dist
+
+    seen = {"all_reduce": 0, "all_gather": 0}
+    saved = {k: getattr(dist, k) for k in seen}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            seen[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for k in seen:
+        setattr(dist, k, wrap(k))
+    try:
+        yield seen
+    finally:
+        for k, fn in saved.items():
+            setattr(dist, k, fn)
+
+
+def nccl_device_ms(prof) -> tuple[float, int, dict]:
+    """Device ms of the NCCL kernels in a profile and how many ran; and, by
+    name, the count and device ms (what ran inside) of every event whose
+    name holds "nccl" (c10d's ``nccl:<collective>`` ranges included)."""
+    ms, n, seen = 0.0, 0, {}
+    for e in prof.key_averages():
+        if "nccl" not in e.key.lower():
+            continue
+        self_t = getattr(e, "self_device_time_total", None)
+        self_t = getattr(e, "self_cuda_time_total", 0.0) if self_t is None else self_t
+        total = getattr(e, "device_time_total", None)
+        total = getattr(e, "cuda_time_total", 0.0) if total is None else total
+        seen[e.key] = (e.count, total / 1e3)
+        if self_t and not e.key.startswith("nccl:"):
+            ms += self_t / 1e3
+            n += e.count
+    return ms, n, seen
+
+
+def synced_pair(torch, data, mesh, dtype, lr):
+    """The r5s trainer twice: plain, and data-parallel on the one-rank
+    ``mesh`` with BatchNorm's global-batch statistics forced on (a one-rank
+    group leaves them to ``F.batch_norm``)."""
+    plain = recipe_trainer(torch, data, R5S, dtype, CAM_CKPT, None, lr)
+    synced = recipe_trainer(torch, data, R5S, dtype, CAM_CKPT, None, lr, mesh=mesh)
+    check(synced.step_fn.group is not None and synced.step_fn.bn_group is None,
+          "a one-rank mesh must leave BatchNorm to F.batch_norm")
+    synced.step_fn.bn_group = mesh.get_group("data")
+    return plain, synced
+
+
+def check_mesh_training(torch, mesh) -> dict:
+    """r5s at full width, the synced ``TrainStep`` (the gradient all-reduce,
+    and BatchNorm's global-batch statistics) against the plain step at a
+    constant lr 1e-3. In bf16, 3 steps: the first step's loss terms (the
+    same parameters) within phase 6's bf16 bars; the later steps' and the
+    parameters' differences printed (a bf16 BatchNorm output rounds the
+    other way wherever the two formulas' statistics differ in the last
+    bits, and Adam's first update turns any gradient's sign flip into 2
+    lr). In float32, one step to ``__graft_entry__.py``'s bar: the loss
+    within 1e-3 relative, the update within 2.2 lr, under 0.5% of the
+    parameters apart by more than 1e-4. Then bf16 ms per step in turns, and
+    the collectives of one synced step, counted and timed on the card."""
+    lr = 1e-3
+    data = train_dataset(torch, R5S, seed=101)
+    plain, synced = synced_pair(torch, data, mesh, torch.float32, lr)
+    a = finite_losses(plain.train_step(1), "r5s float32 plain step")
+    b = finite_losses(synced.train_step(1), "r5s float32 synced step")
+    f32_rel = {k: abs(b[k] - a[k]) / abs(a[k]) for k in LOSS_KEYS}
+    f32_bar = param_bar(synced.state.model, plain.state.model, lr)
+    check(f32_rel["total"] <= 1e-3, f"r5s float32 synced against plain, loss: {f32_rel}")
+    check(f32_bar[0] <= 2.2 and f32_bar[1] < 5e-3,
+          f"r5s float32 synced against plain, the update: {f32_bar} (2.2 lr, 0.5%)")
+    del plain, synced
+    plain, synced = synced_pair(torch, data, mesh, torch.bfloat16, lr)
+    rels, bars = [], []
+    for i in (1, 2, 3):
+        a = finite_losses(plain.train_step(i), f"r5s plain step {i}")
+        b = finite_losses(synced.train_step(i), f"r5s synced step {i}")
+        rels.append({k: abs(b[k] - a[k]) / abs(a[k]) for k in LOSS_KEYS})
+        bars.append(param_bar(synced.state.model, plain.state.model, lr))
+    check(rels[0]["total"] <= BF16_TOTAL_LIMIT and max(rels[0].values()) <= BF16_TERM_LIMIT,
+          f"r5s bf16 synced against plain, first-step loss terms: {rels[0]}")
+
+    # In turns: plain; the gradient and loss all-reduces alone (BatchNorm
+    # per rank, as a one-rank group runs); both with the global-batch
+    # BatchNorm.
+    grads_only = recipe_trainer(torch, data, R5S, torch.bfloat16, CAM_CKPT, None, lr, mesh=mesh)
+    runs = {"plain": [], "grads_only": [], "synced": []}
+    step = 4
+    for who, tr in (("plain", plain), ("grads_only", grads_only), ("synced", synced),
+                    ("synced", synced), ("grads_only", grads_only), ("plain", plain)):
+        tr.train_step(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step += 1
+            tr.train_step(step)
+        torch.cuda.synchronize()
+        runs[who].append((time.perf_counter() - t0) / 5 * 1e3)
+    ms_per_step = {k: float(np.mean(v)) for k, v in runs.items()}
+    del grads_only
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with count_collectives() as calls, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synced.train_step(step + 1)
+        torch.cuda.synchronize()
+    nccl_ms, nccl_kernels, nccl_events = nccl_device_ms(prof)
+    traces = {}
+    for who, tr in (("plain", plain), ("synced", synced)):
+        step += 2
+        per_name, busy, kernels = device_time(torch, lambda: tr.train_step(step), 2)
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+        traces[who] = {"busy_ms": busy, "kernels_per_step": kernels,
+                       "top": [(k[:60], v) for k, v in top]}
+    n_bn = sum(1 for m in synced.state.model.modules() if type(m).__name__ == "BatchNorm")
+    log(f"r5s synced TrainStep (NCCL, one rank; BatchNorm's global-batch statistics forced on) "
+        f"against the plain step: float32, one step: loss terms' relative difference "
+        + ", ".join(f"{k} {v:.3g}" for k, v in f32_rel.items())
+        + f", the update's max |diff| {f32_bar[0]:.3g} lr, share > 1e-4 {f32_bar[1]:.3g}; "
+        f"bf16, by step: " + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+                                        for rel in rels)
+        + "; parameters after each bf16 step, max |diff| in lr and share > 1e-4: "
+        + ", ".join(f"({m:.3g}, {s:.3g})" for m, s in bars))
+    log(f"r5s ms per step in turns (plain, grads_only, synced, synced, grads_only, plain; 5 "
+        f"steps each): plain {ms_per_step['plain']:.2f}, the gradient and loss all-reduces "
+        f"alone {ms_per_step['grads_only']:.2f} "
+        f"({ms_per_step['grads_only'] - ms_per_step['plain']:+.2f} ms), with the global-batch "
+        f"BatchNorm {ms_per_step['synced']:.2f} "
+        f"({ms_per_step['synced'] - ms_per_step['plain']:+.2f} ms); per synced step "
+        f"{calls['all_reduce']} all-reduces ({n_bn} BatchNorm layers, forward and backward, the "
+        f"gradient bucket, the loss terms), NCCL kernels {nccl_kernels}, "
+        + (f"{nccl_ms:.3f} device ms" if nccl_kernels else "device ms not measured "
+           "(no NCCL kernel in the profile)")
+        + f"; events named nccl (count, device ms inside): {nccl_events}")
+    for who, t in traces.items():
+        log(f"r5s {who} step under the profiler (2 steps): device busy "
+            + (f"{t['busy_ms']:.2f} ms" if t["busy_ms"] is not None else "not measured")
+            + f" per step, {t['kernels_per_step']} kernels per step; the largest: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in t["top"]))
+    del plain, synced, data
+    torch.cuda.empty_cache()
+    return {"f32_loss_rel_diff": f32_rel, "f32_param_bar": f32_bar, "bf16_loss_rel_diff": rels,
+            "bf16_param_bars": bars, "ms_per_step": ms_per_step,
+            "runs_ms": runs, "all_reduces_per_step": calls["all_reduce"],
+            "batchnorm_layers": n_bn, "nccl_kernels_per_step": nccl_kernels,
+            "nccl_device_ms_per_step": nccl_ms if nccl_kernels else None,
+            "nccl_events": nccl_events, "traces": traces}
+
+
+def gloo_rank_main(torch, rank: int, coordinator: str, out_dir: str) -> int:
+    """One of two gloo ranks sharing the card (``--gloo-rank``): the deploy
+    step in float32 at batch GLOO_BATCH on a two-rank mesh; writes its
+    outputs."""
+    import torch.distributed as dist
+
+    from torch_dist import outputs_to_arrays
+    from tti_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}", world_size=2, rank=rank)
+    try:
+        torch.cuda.set_device(0)
+        hw, imgsz, ckpt = CONFIGS["deploy"]
+        pipe = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32",
+                              mesh=create_mesh(device_type="cuda"))
+        out = pipe.process_batch(textile(hw, GLOO_BATCH))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **outputs_to_arrays(out, "mesh"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_rank_argv(rank: int, coordinator: str, out_dir: str) -> list[str]:
+    return [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--gloo-rank", str(rank),
+            "--gloo-coordinator", coordinator, "--gloo-out", out_dir]
+
+
+def check_gloo_pair(torch) -> dict:
+    """Two gloo ranks on the one card (``--gloo-rank`` processes) run the
+    deploy step in float32 (TF32 off) at batch GLOO_BATCH, half of it each:
+    against the float32 step without a mesh on the whole batch,
+    ``__graft_entry__.py``'s bar (valid equal, scores 1e-5, boxes 1e-3 px,
+    mm 1e-4: the card's convolutions at batch 4 and 8 sum in other orders);
+    against that step on each rank's rows, bit for bit; the two ranks'
+    outputs equal."""
+    from tti_torch.parallel.dcn import free_local_coordinator
+    from torch_dist import arrays_to_outputs, outputs_to_arrays
+
+    hw, imgsz, ckpt = CONFIGS["deploy"]
+    plain = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32")
+    frames = textile(hw, GLOO_BATCH)
+    ref = plain.process_batch(frames)
+    half = GLOO_BATCH // 2
+    rows = [outputs_to_arrays(plain.process_batch(frames[r * half:(r + 1) * half]), "mesh")
+            for r in range(2)]
+    del plain
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(DP_DIR, "gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    coord = free_local_coordinator()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(gloo_rank_argv(r, coord, out_dir), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(2)]
+    for k, v in ranks[0].items():
+        np.testing.assert_array_equal(v, ranks[1][k], err_msg=k)
+    for k, v in ranks[0].items():  # each rank's rows: the plain step on those rows
+        np.testing.assert_array_equal(np.concatenate([rows[0][k], rows[1][k]]), v, err_msg=k)
+    got = arrays_to_outputs(ranks[0], "mesh")
+    np.testing.assert_array_equal(got.valid, ref.valid)
+    np.testing.assert_allclose(got.scores, ref.scores, atol=1e-5)
+    np.testing.assert_allclose(got.boxes_frame, ref.boxes_frame, atol=1e-3)
+    worst = {}
+    for key in ("edge_distance_mm", "stitch_width_mm", "raw_edge_mm", "raw_width_mm"):
+        a, b = getattr(got.measurements, key), getattr(ref.measurements, key)
+        np.testing.assert_allclose(a, b, atol=1e-4, equal_nan=True, err_msg=key)
+        both = np.isfinite(a) & np.isfinite(b)
+        worst[key] = float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0
+    score = float(np.abs(got.scores - ref.scores).max())
+    box = float(np.abs(got.boxes_frame - ref.boxes_frame).max())
+    log(f"two gloo ranks sharing the card, deploy step in float32 at batch {GLOO_BATCH} ({half} "
+        f"frames each, CUDA tensors through gloo's all-gather): equal to the plain step on each "
+        f"rank's rows; against it on the whole batch valid equal, max |diff| scores {score:.3g}, "
+        f"boxes {box:.3g} px, mm {max(worst.values()):.3g}; {time.perf_counter() - t0:.1f} s with "
+        f"the two processes' start")
+    return {"max_score_diff": score, "max_box_diff": box, "max_mm_diff": worst}
+
+
+def check_cli_train_triple() -> dict:
+    """``python -m tti_torch.cli train`` with the TTI_* triple (one process,
+    a one-rank NCCL job) on 8 seeded scenes, 2 steps: exit 0, one checkpoint."""
+    import cv2
+
+    from torch_scenes import textile_samples
+    from tti_torch.parallel.dcn import free_local_coordinator
+
+    root = os.path.join(DP_DIR, "cli")
+    images, labels, out = (os.path.join(root, d) for d in ("images", "labels", "run"))
+    for d in (images, labels):
+        os.makedirs(d, exist_ok=True)
+    for i, s in enumerate(textile_samples(8, 320, seed=7)):
+        cv2.imwrite(os.path.join(images, f"s_{i}.png"), np.ascontiguousarray(s.image[..., ::-1]))
+        with open(os.path.join(labels, f"s_{i}.txt"), "w") as f:
+            f.write("\n".join(f"{c} " + " ".join(f"{v:.6f}" for v in p.ravel())
+                              for p, c in zip(s.polygons, s.classes)))
+    env = dict(os.environ, TTI_COORDINATOR=free_local_coordinator(), TTI_NUM_PROCESSES="1",
+               TTI_PROCESS_ID="0", PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tti_torch.cli", "train", "--images", images,
+                           "--out", out, "--imgsz", "320", "--batch-size", "4", "--epochs", "1",
+                           "--max-gt", "8", "--log-every", "1"], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli train with the triple exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    written = sorted(os.listdir(out))
+    check(written == ["step_2.pt"], f"cli train with the triple wrote {written}")
+    check("process group up (nccl): rank 0 of 1" in proc.stderr + proc.stdout,
+          "cli train did not join the triple's NCCL job")
+    log(f"python -m tti_torch.cli train with TTI_COORDINATOR (one process, NCCL) on 8 scenes at "
+        f"imgsz 320, 2 steps: exit 0, {written}, {wall:.1f} s")
+    return {"exit": 0, "written": written, "wall_s": wall}
+
+
+def check_data_parallel(torch, ms, wp, card) -> dict:
+    """Phase 5e (see the module docstring)."""
+    import torch.distributed as dist
+
+    from tti_torch.parallel import dcn
+    from tti_torch.parallel.mesh import create_mesh
+
+    t_phase = time.perf_counter()
+    check(dcn.init_distributed(dcn.free_local_coordinator(), 1, 0, device="cuda"),
+          "init_distributed did not start the one-rank job")
+    try:
+        check(dist.get_backend() == "nccl", f"the card's group runs {dist.get_backend()}")
+        mesh = create_mesh(device_type="cuda")
+        result = {"card": card, "backend": dist.get_backend(), "steps": {}}
+        for tag in MESH_STEPS:
+            result["steps"][tag] = check_mesh_step(torch, ms, wp, mesh, tag)
+            torch.cuda.empty_cache()
+        result["dual"] = check_mesh_dual(torch, ms, wp, mesh)
+        torch.cuda.empty_cache()
+        result["training"] = check_mesh_training(torch, mesh)
+        result["gloo_pair"] = check_gloo_pair(torch)
+        result["cli_train"] = check_cli_train_triple()
+    finally:
+        dcn.shutdown()
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"data-parallel phase: {result['wall_s']:.1f} s")
+    log(card)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: training
 # ---------------------------------------------------------------------------
 
@@ -2852,13 +3308,13 @@ def train_dataset(torch, recipe, seed):
                                 soft_masks=recipe["soft_masks"], device="cuda")
 
 
-def recipe_trainer(torch, data, recipe, dtype, init, total_steps, lr=1e-3):
+def recipe_trainer(torch, data, recipe, dtype, init, total_steps, lr=1e-3, mesh=None):
     """The recipe's trainer on the card; ``total_steps`` None: a constant rate."""
     from tti_torch.train.loop import build_model, build_trainer
 
     model = build_model("n", 2, recipe["mask_stride"], recipe["proto_head"], dtype, "cuda", init)
     return build_trainer(data, model, recipe["batch"], recipe["max_gt"], total_steps, lr, dtype,
-                         recipe["gains"])
+                         recipe["gains"], mesh=mesh)
 
 
 def finite_losses(metrics, label) -> dict:
@@ -3827,13 +4283,21 @@ def main() -> int:
                              "to kernel C and timed beside it")
     parser.add_argument("--ablate", action="store_true",
                         help="time variants of maskstats.cu on synthetic inputs, and nothing else")
+    parser.add_argument("--gloo-rank", type=int, default=None,
+                        help="run as rank 0 or 1 of phase 5e's two gloo ranks on the card, "
+                             "and nothing else (phase 5e starts them)")
+    parser.add_argument("--gloo-coordinator", help="host:port of the gloo ranks' job")
+    parser.add_argument("--gloo-out", help="where a gloo rank writes its outputs")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     sys.path.insert(0, HERE)
     sys.path.append(os.path.join(HERE, "tests"))
     sys.path.append(os.path.join(HERE, "tools"))
+    if opts.gloo_rank is not None:
+        return gloo_rank_main(torch, opts.gloo_rank, opts.gloo_coordinator, opts.gloo_out)
     from tti_torch import native
     from tti_torch.kernels import build as kbuild
     from tti_torch.kernels import int8conv as ik
@@ -3931,6 +4395,13 @@ def main() -> int:
     frozen_launches = {tag: v["launches"] for tag, v in frozen.items()
                        if isinstance(v, dict) and "launches" in v}
     log(card)
+
+    # Phase 5e: data-parallel, on the one card.
+    log("data-parallel (tti_torch.parallel: a one-rank NCCL mesh, two gloo ranks, cli train "
+        "with the TTI_* triple):")
+    data_parallel = check_data_parallel(torch, ms, wp, card)
+    mesh_launches = {**{tag: v["launches"] for tag, v in data_parallel["steps"].items()},
+                     "dual": data_parallel["dual"]["launches"]}
 
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
@@ -4077,10 +4548,13 @@ def main() -> int:
     for k in kernels:  # every kernel is an operator: its launches per frozen call, host cost
         k["frozen_launches"] = {tag: n.get(k["name"], 0) for tag, n in frozen_launches.items()}
         k["host_us_per_call"] = frozen["host_us_per_call"].get(k["name"])
+        # Launches per mesh step (phase 5e), by configuration: the one-card step's.
+        k["mesh_launches"] = {tag: n.get(k["name"], 0) for tag, n in mesh_launches.items()}
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
-        "modes": modes, "int8": int8, "frozen": frozen},
+        "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel},
         "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))

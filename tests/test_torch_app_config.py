@@ -166,6 +166,7 @@ def test_load_pipeline_builds_under_the_switches(tmp_path, monkeypatch):
     """``load_pipeline`` hands the switches to the pipeline and logs each
     set name that has no counterpart."""
     import tti_torch.cli.__main__ as cli
+    from tti_torch.parallel import dcn
     import tti_torch.parallel.runtime as rt
 
     seen = []
@@ -202,24 +203,32 @@ CLI_COMMANDS = {
 
 
 @pytest.mark.parametrize("command", sorted(CLI_COMMANDS))
-def test_cli_refuses_multi_host(command, tmp_path, monkeypatch, capsys):
+def test_cli_refuses_multi_host(command, tmp_path, monkeypatch):
     """tti joins a multi-host job before every command when TTI_COORDINATOR
-    is set (its init_distributed); the port refuses every command, naming
-    the ROADMAP item that ports multi-host, before it reads or writes
-    anything."""
-    from tti_torch.cli.__main__ import main as port_main
+    is set (its init_distributed); so does the port, which once refused the
+    triple: every command runs inside the job's process group (a one-process
+    job on this host, gloo on the CPU), read as tti reads the triple, and
+    the group is gone when the command returns. The other two alone start
+    no group."""
+    import torch.distributed as dist
 
+    import tti_torch.cli.__main__ as cli
+    from tti_torch.parallel import dcn
+
+    seen = []
+    monkeypatch.setattr(cli, "cmd_" + command.replace("-", "_"), lambda args: seen.append(
+        (dist.is_initialized() and (dist.get_world_size(), dist.get_rank(),
+                                    dist.get_backend()))) or 0)
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("TTI_COORDINATOR", "10.0.0.1:1234")
-    monkeypatch.setenv("TTI_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TTI_NUM_PROCESSES", "1")
     monkeypatch.setenv("TTI_PROCESS_ID", "0")
-    assert port_main(CLI_COMMANDS[command]) == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 3" in err and "TTI_COORDINATOR" in err
+    assert cli.main(CLI_COMMANDS[command]) == 0
+    assert seen == [False] and not dist.is_initialized()
+    monkeypatch.setenv("TTI_COORDINATOR", dcn.free_local_coordinator())
+    assert cli.main(CLI_COMMANDS[command]) == 0
+    assert seen[1] == (1, 0, "gloo") and not dist.is_initialized()
     assert not any(tmp_path.iterdir())
-    with pytest.raises(terr.ConfigError, match="ROADMAP Queue 1 item 3"):
-        tcfg.check_process_switches({"TTI_COORDINATOR": "h:1"})
-    # As in tti, the other two alone do not turn multi-host on.
+    assert tcfg.check_process_switches({"TTI_COORDINATOR": "h:1"}) == ()
     assert tcfg.check_process_switches({"TTI_NUM_PROCESSES": "2", "TTI_PROCESS_ID": "1"}) == ()
 
 

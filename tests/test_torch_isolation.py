@@ -28,7 +28,7 @@ for name in names:
 for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.streams",
              "tti_torch.kernels.warp_p1", "tti_torch.kernels.nms", "tti_torch.kernels.int8conv",
              "tti_torch.model.quantize", "tti_torch.core.logging", "tti_torch.cli.__main__",
-             "tti_torch.model.convert",
+             "tti_torch.model.convert", "tti_torch.parallel.mesh", "tti_torch.parallel.dcn",
              *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
                                                "checkpoint", "loop", "eval")),
              *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
@@ -126,7 +126,7 @@ def test_port_sources_name_no_forbidden_module():
                          r"|tools\.measure_report|measure_report)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
     sources += [REPO / "chip_smoke.py", REPO / "tests" / "torch_scenes.py",
-                REPO / "tests" / "torch_synth.py"]
+                REPO / "tests" / "torch_synth.py", REPO / "tests" / "torch_dist.py"]
     sources += sorted((REPO / "tools").glob("*_torch.py"))
     names = {p.name for p in sources}
     assert len(sources) > 10 and {"maskstats.cu", "warp_p1.cu", "nms.cu", "framering.cpp", "loop.py",
@@ -137,7 +137,8 @@ def test_port_sources_name_no_forbidden_module():
                                   "step_latency_torch.py", "fused_head_copies_torch.py",
                                   "int8conv.cu", "int8conv.py", "quantize.py",
                                   "calibrate_int8_torch.py", "export.py", "convert.py",
-                                  "parity_report_torch.py"} <= names
+                                  "parity_report_torch.py", "mesh.py", "dcn.py",
+                                  "torch_dist.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -19,18 +19,10 @@ import tti.core.config as jcfg
 from tti.parallel.runtime import InspectionPipeline as JaxPipeline
 import tti_torch.calib.io as tio
 import tti_torch.core.config as tcfg
-from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
+from tti_torch.model.checkpoint import load_flax_msgpack
 from tti_torch.parallel.runtime import InspectionPipeline
+from tests.torch_dist import GEOMETRIES, RVEC, TVEC, pipeline_settings  # noqa: F401
 from tests.torch_synth import textile_frames
-
-RVEC = np.array([-0.8631369244225452, -0.3919482615538663, -1.3591256137314185])
-TVEC = np.array([0.005016396186926285, 0.03590342712705542, 0.09382141278570659])
-
-GEOMETRIES = {
-    "deploy": ("yolov8n_textile_cam", (240, 320), 240),
-    "headline": ("yolov8n_textile", (216, 384), 128),
-    "headline_b": ("yolov8n_textile_960", (216, 384), 128),
-}
 
 
 def pipelines(name, ref_intrinsics, calibrated=True, dist=None, port_kw=None, ref_kw=None,
@@ -38,29 +30,18 @@ def pipelines(name, ref_intrinsics, calibrated=True, dist=None, port_kw=None, re
     """(port pipeline, tti pipeline, frames). ``port_kw`` / ``ref_kw`` are
     extra constructor arguments of either side; tti's environment switches
     are the caller's to set (they are read at construction)."""
-    ckpt, hw, imgsz = GEOMETRIES[name]
-    path = f"checkpoints/{ckpt}.msgpack"
-    meta = checkpoint_metadata(path)
-    K, dist0 = ref_intrinsics
-    K = K.copy()
-    K[0] *= hw[1] / 1280.0
-    K[1] *= hw[0] / 960.0
-    model_kw = dict(variant="n", num_classes=2, image_size=imgsz, dtype="float32",
-                    conf_thresh=0.05, mask_stride=meta.get("mask_stride", 4),
-                    proto_head=meta.get("proto_head", "deconv"))
-    roi_kw = dict(enabled=True, x_min=10, x_max=hw[1] - 10, y_min=min(300, hw[0] // 3),
-                  y_max=hw[0] - min(200, hw[0] // 5))
-    calib = dict(K=K, dist=dist0 if dist is None else dist, rvec=RVEC, tvec=TVEC)
+    s = pipeline_settings(name, ref_intrinsics, dist)
+    path, meta, hw, calib = s["path"], s["meta"], s["hw"], s["calib"]
     with open(path, "rb") as f:
         variables = serialization.msgpack_restore(f.read())
-    ref = JaxPipeline(jcfg.ModelConfig(**model_kw), variables, hw,
+    ref = JaxPipeline(jcfg.ModelConfig(**s["model"]), variables, hw,
                       jio.CalibrationData(**calib) if calibrated else None,
                       jcfg.MeasureConfig(min_stitches=1).with_subcell_from(meta),
-                      jcfg.RoiConfig(**roi_kw), **(ref_kw or {}))
-    got = InspectionPipeline(tcfg.ModelConfig(**model_kw), load_flax_msgpack(path), hw,
+                      jcfg.RoiConfig(**s["roi"]), **(ref_kw or {}))
+    got = InspectionPipeline(tcfg.ModelConfig(**s["model"]), load_flax_msgpack(path), hw,
                              tio.CalibrationData(**calib) if calibrated else None,
                              tcfg.MeasureConfig(min_stitches=1).with_subcell_from(meta),
-                             tcfg.RoiConfig(**roi_kw), device="cpu", **(port_kw or {}))
+                             tcfg.RoiConfig(**s["roi"]), device="cpu", **(port_kw or {}))
     return got, ref, textile_frames(n_frames, *hw, seed=5)
 
 

@@ -37,9 +37,16 @@ apply is refused with ``tti``'s message (another value, unfolded BN, the
 fused head, ``int8s`` without its scales file). ``export`` writes the
 port's own artifact (:mod:`tti_torch.app.export`; ``--platforms`` defaults to
 ``cuda,cpu``), which ``tti`` does not load, nor the port ``tti``'s. Refused,
-naming the reason or the ROADMAP item that ports them: ``train --host-aug``,
-``TTI_APPROX_TOPK=1`` and, before every command, ``tti``'s multi-host mode
-(``TTI_COORDINATOR``, with ``TTI_NUM_PROCESSES`` and ``TTI_PROCESS_ID``).
+naming the reason or the ROADMAP item that ports them: ``train --host-aug``
+and ``TTI_APPROX_TOPK=1``. Before every command, as ``tti`` does, the
+process joins the multi-host job of ``TTI_COORDINATOR`` (with
+``TTI_NUM_PROCESSES`` and ``TTI_PROCESS_ID``;
+:func:`tti_torch.parallel.dcn.init_distributed`, NCCL for ``--device cuda``,
+gloo otherwise) as its host's one process, on card 0; ``train`` instead
+starts one process per local card when the host has more than one, each
+joining under the global numbering (:func:`tti_torch.train.loop.train`),
+and trains data-parallel over every rank with ``--batch-size`` as the
+global batch. Only rank 0 of ``train`` prints and writes checkpoints.
 ``train`` reads ``tti``'s trainer switches ``TTI_SEG_DTYPE``,
 ``TTI_SEG_CHUNK`` and ``TTI_AUGMENT_DTYPE`` from the process environment
 (:func:`tti_torch.train.loop.train_switches`); ``TTI_READOUT_CAL=0`` drops
@@ -57,6 +64,7 @@ import sys
 from tti_torch.core.config import AppConfig, check_process_switches, load_config
 from tti_torch.core.errors import ConfigError
 from tti_torch.core.logging import get_logger
+from tti_torch.parallel import dcn
 
 log = get_logger("cli")
 
@@ -378,7 +386,8 @@ def cmd_train(args) -> int:
                  stitch_seg_gain=args.stitch_seg_gain, soft_masks=args.soft_masks,
                  dtype=args.dtype, device=args.device, init=args.init,
                  log=lambda line: print(line, flush=True))
-    print("final checkpoint:", path)
+    if dcn.rank() == 0:
+        print("final checkpoint:", path)
     return 0
 
 
@@ -675,9 +684,24 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     try:
         _log_no_counterpart(check_process_switches(os.environ))
+        _join_job(args)
         return args.func(args)
     except ConfigError as e:  # a setting that cannot apply (a TTI_QUANT, ...): its reason
         return _refuse(str(e))
+    finally:
+        dcn.shutdown()
+
+
+def _join_job(args) -> None:
+    """``tti``'s ``init_distributed`` before the command: join the
+    ``TTI_*`` triple's job, if one is set, as this host's one process on
+    the command's device (the host's commands without ``--device``: gloo).
+    ``train`` on several local cards joins in its per-card processes."""
+    from tti_torch.train.loop import launches_per_card
+
+    device = getattr(args, "device", "cpu")
+    if not (args.command == "train" and launches_per_card(device)):
+        dcn.init_distributed(device=device)
 
 
 if __name__ == "__main__":

@@ -387,7 +387,7 @@ class RuntimeConfig:
     extrinsics_file: str = "extrinsics.json"
     batch_size: int = 8  # frames per device step
     num_streams: int = 1  # camera streams
-    mesh_shape: tuple[int, ...] = ()  # the reference's device mesh; one card here
+    mesh_shape: tuple[int, ...] = ()  # the reference's field; neither package reads it
 
 
 # Reference switches with no counterpart in the port, and why; the CLI logs
@@ -416,14 +416,10 @@ PROCESS_SWITCHES = ("TTI_JAX_CACHE_DIR",)
 
 
 def check_process_switches(env: Mapping[str, str]) -> tuple[str, ...]:
-    """Raise ConfigError when ``env`` asks for the reference's multi-host
-    mode (``TTI_COORDINATOR`` set), which the port has not ported yet;
-    return the set names of :data:`PROCESS_SWITCHES`."""
-    if env.get("TTI_COORDINATOR"):
-        raise ConfigError(
-            "multi-host is not ported: TTI_COORDINATOR, TTI_NUM_PROCESSES and TTI_PROCESS_ID "
-            "(tti's init_distributed) wait for ROADMAP Queue 1 item 3 (multi-GPU). Unset "
-            "TTI_COORDINATOR to run on this host's card.")
+    """The set names of :data:`PROCESS_SWITCHES`. The reference's other
+    process-level switches, the multi-host triple (``TTI_COORDINATOR``,
+    ``TTI_NUM_PROCESSES``, ``TTI_PROCESS_ID``), are served:
+    :func:`tti_torch.parallel.dcn.init_distributed` reads them."""
     return tuple(name for name in PROCESS_SWITCHES if name in env)
 
 

@@ -19,10 +19,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from tti_torch.kernels.int8conv import act_scale_per_sample, int8_conv2d, pack_qweight
+from tti_torch.parallel.mesh import all_reduce_sum
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -61,10 +63,21 @@ class BatchNorm(nn.Module):
     buffer for the variance and the biased value is recovered from it. In
     eval mode the running statistics normalise. The output has the input's
     dtype; weight and bias stay float32.
+
+    ``group`` (a process group; None by default, set by
+    :func:`set_batchnorm_group`): training normalises with the statistics
+    of the global batch, every rank's rows, as ``tti``'s BatchNorm does
+    under a ``"data"`` sharding. Each rank sums ``x`` and ``x * x`` per
+    channel in float32, one differentiable all-reduce adds the ranks' sums
+    (its backward adds the ranks' gradients), and flax's formula follows:
+    ``mean``, ``var = max(mean(x^2) - mean^2, 0)``, ``(x - mean) *
+    rsqrt(var + eps) * weight + bias``; the running statistics move with
+    those. Every rank holds the same number of rows (the mesh's split).
     """
 
     momentum = 0.03  # torch convention: flax's 0.97 is the weight of the old value
     eps = 1e-3
+    group = None
 
     def __init__(self, c: int) -> None:
         super().__init__()
@@ -77,6 +90,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            return self._global_batch(x)
         scratch = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias, True,
                          self.momentum, self.eps)
@@ -85,6 +100,29 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_var.mul_(1.0 - self.momentum).add_(scratch * ((n - 1) / n))
         return y
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.float()
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]),
+                              self.group)
+        count = (x.numel() // c) * dist.get_world_size(self.group)
+        mean = sums[:c] / count
+        var = (sums[c:] / count - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean * self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var * self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group) -> None:
+    """Every :class:`BatchNorm` of ``model`` normalises in training with the
+    global batch's statistics over ``group`` (None: its own rows)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 QMODES = ("", "int8", "int8s")

@@ -26,6 +26,13 @@ ideal.
 Host-fed callers use ``process_batch_async`` + ``outputs_to_host``: the
 upload goes from a pinned buffer on a side stream, the step waits on the
 copy's event only, and nothing synchronises before ``outputs_to_host``.
+
+With a ``mesh`` (:func:`tti_torch.parallel.mesh.create_mesh`, one process
+per card) the entry points take the global batch, as the reference's
+sharded step does: each rank runs the unchanged step on its rows
+(:func:`tti_torch.parallel.mesh.batch_slice`) on its own card, with the
+weights, warp and calibration replicated, and one all-gather gives every
+rank the global batch's outputs. Callers never branch.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from tti_torch.model.quantize import check_quant, load_act_scales, quantize_weig
 from tti_torch.model.yolo import (
     RawPredictions, create_model, depth_to_space2, space_to_depth2,
 )
+from tti_torch.parallel.mesh import SPACE_REFUSED, batch_slice, gather_batch
 from tti_torch.postprocess.decode import Detections, decode_predictions
 from tti_torch.postprocess.masks import assemble_masks
 from tti_torch.postprocess.nms import batched_nms, nms_from_raw, raw_candidate_counts
@@ -241,6 +249,8 @@ class InspectionPipeline:
     ``maskstats_logits``: "auto" (bf16 soft, f32 binary) | "f32" | "bf16",
     the mask-logit dtype of both readouts.
     ``return_masks``: also return proto-resolution binary masks.
+    ``mesh``: a data-parallel ``DeviceMesh`` of this process's card type
+    (the module's docstring); a ``"space"`` axis is refused.
     """
 
     def __init__(self, model_cfg: ModelConfig, variables: dict, frame_hw: tuple[int, int],
@@ -253,7 +263,7 @@ class InspectionPipeline:
                  warp_col_expand: bool = False, lazy_decode: bool = False,
                  fused_head: bool = False, fold_bn: bool = True,
                  maskstats_logits: str = "auto", quant: str = "",
-                 quant_scales: str | None = None) -> None:
+                 quant_scales: str | None = None, mesh=None) -> None:
         if remap not in ("twopass", "packed"):
             raise ConfigError(f"remap must be 'twopass' or 'packed', got {remap!r}")
         if warp_pass1 not in ("einsum", "kernel"):
@@ -274,6 +284,13 @@ class InspectionPipeline:
         if undistort_interp not in ("bilinear", "nearest"):
             raise ConfigError(f"undistort_interp must be bilinear|nearest, got {undistort_interp!r}")
         self.device = torch.device(device)
+        if mesh is not None:
+            if "space" in (mesh.mesh_dim_names or ()):
+                raise ConfigError(SPACE_REFUSED)
+            if mesh.device_type != self.device.type:
+                raise ConfigError(f"a {mesh.device_type} mesh cannot serve a pipeline on "
+                                  f"{self.device}")
+        self.mesh = mesh
         self.model_cfg = model_cfg
         self.measure_cfg = measure_cfg or MeasureConfig()
         self.frame_hw = frame_hw
@@ -420,8 +437,22 @@ class InspectionPipeline:
 
     @torch.inference_mode()
     def step(self, frames_u8: torch.Tensor) -> dict:
-        """One device step on frames already on the device."""
-        return self.postprocess_chain(self.preprocess(frames_u8))
+        """One device step on frames already on the device (with a mesh: the
+        global batch, of which this rank runs its rows)."""
+        return self._local_step(self.local_frames(frames_u8))
+
+    @torch.inference_mode()
+    def _local_step(self, frames_u8: torch.Tensor) -> dict:
+        """The step on this rank's rows, then (with a mesh) the all-gather."""
+        outs = self.postprocess_chain(self.preprocess(frames_u8))
+        return outs if self.mesh is None else gather_batch(self.mesh, outs)
+
+    def local_frames(self, frames):
+        """This rank's rows of a batch (array or tensor): the whole batch
+        without a mesh, or when the mesh's data axis is one rank."""
+        n = len(frames)
+        rows = slice(0, n) if self.mesh is None else batch_slice(self.mesh, n)
+        return frames if rows == slice(0, n) else frames[rows]
 
     # -- host API ----------------------------------------------------------
 
@@ -439,14 +470,14 @@ class InspectionPipeline:
 
     def process_batch(self, frames_bgr_u8: np.ndarray) -> PipelineOutputs:
         """frames (B, H, W, 3) uint8 BGR -> host results (blocking)."""
-        frames = torch.from_numpy(np.ascontiguousarray(frames_bgr_u8)).to(self.device)
-        return self.outputs_to_host(self.step(frames))
+        frames = torch.from_numpy(np.ascontiguousarray(self.local_frames(frames_bgr_u8)))
+        return self.outputs_to_host(self._local_step(frames.to(self.device)))
 
     def process_batch_async(self, frames_bgr_u8: np.ndarray) -> dict:
         """Dispatch without blocking: device tensors come back, to be read
         later with :meth:`outputs_to_host`, so the host can prepare the next
         batch under the device's work on this one."""
-        return self.step(self.uploader.upload(frames_bgr_u8))
+        return self._local_step(self.uploader.upload(self.local_frames(frames_bgr_u8)))
 
     @staticmethod
     def outputs_to_host(outs: dict) -> PipelineOutputs:
@@ -473,9 +504,15 @@ class DualPipeline:
     where calibrated, measurement) on the same device buffer. Each model's
     step is built by its caller; under ``tti``'s switches both take the same
     arguments (``RuntimeSwitches.pipeline_kwargs``), ``quant`` and
-    ``quant_scales`` included, as ``tti``'s environment gives both."""
+    ``quant_scales`` included, as ``tti``'s environment gives both. With a
+    mesh, both pipelines hold the same one: each rank runs both chains on
+    its rows of one preprocessed slab, and one all-gather returns both
+    models' global outputs."""
 
     def __init__(self, primary: InspectionPipeline, secondary: InspectionPipeline) -> None:
+        if secondary.mesh is not primary.mesh:
+            raise ValueError("dual pipelines must share one mesh (the preprocessed batch is "
+                             "a single sharded buffer)")
         if primary.spec != secondary.spec:
             raise ValueError("dual pipelines must share letterbox geometry")
         if primary.device != secondary.device:
@@ -506,21 +543,28 @@ class DualPipeline:
 
     @torch.inference_mode()
     def step(self, frames_u8: torch.Tensor) -> tuple[dict, dict]:
-        """One device step on frames already on the device."""
+        """One device step on frames already on the device (with a mesh: the
+        global batch)."""
+        return self._local_step(self.primary.local_frames(frames_u8))
+
+    @torch.inference_mode()
+    def _local_step(self, frames_u8: torch.Tensor) -> tuple[dict, dict]:
         x = self.primary.preprocess(frames_u8)
         s2d_a, s2d_b = self.primary.model.s2d_input, self.secondary.model.s2d_input
         xb = x
         if s2d_a != s2d_b:  # the exact permutation either way
             xb = depth_to_space2(x) if s2d_a else space_to_depth2(x)
-        return self.primary.postprocess_chain(x), self.secondary.postprocess_chain(xb)
+        outs = (self.primary.postprocess_chain(x), self.secondary.postprocess_chain(xb))
+        return outs if self.primary.mesh is None else gather_batch(self.primary.mesh, outs)
 
     def process_batch(self, frames_bgr_u8: np.ndarray) -> tuple[PipelineOutputs, PipelineOutputs]:
-        frames = torch.from_numpy(np.ascontiguousarray(frames_bgr_u8)).to(self.primary.device)
-        outs_a, outs_b = self.step(frames)
+        frames = torch.from_numpy(np.ascontiguousarray(self.primary.local_frames(frames_bgr_u8)))
+        outs_a, outs_b = self._local_step(frames.to(self.primary.device))
         return (InspectionPipeline.outputs_to_host(outs_a),
                 InspectionPipeline.outputs_to_host(outs_b))
 
     def process_batch_async(self, frames_bgr_u8: np.ndarray) -> tuple[dict, dict]:
         """Dispatch without blocking; read each element later with
         ``InspectionPipeline.outputs_to_host``."""
-        return self.step(self.primary.uploader.upload(frames_bgr_u8))
+        return self._local_step(
+            self.primary.uploader.upload(self.primary.local_frames(frames_bgr_u8)))

@@ -289,15 +289,20 @@ def apply(data: DeviceDataset, params: dict[str, Tensor], max_gt: int,
 def make_augment_fn(batch_size: int, max_gt: int, scale: float = 0.5, translate: float = 0.1,
                     mosaic_p: float = 1.0, flip_p: float = 0.5,
                     hsv_gains: tuple[float, float, float] = (0.015, 0.7, 0.4),
-                    image_dtype: torch.dtype | None = None):
+                    image_dtype: torch.dtype | None = None, rows: slice | None = None):
     """``fn(data, generator) -> (images, Targets)``: one fresh augmented
     batch. ``image_dtype``: the image chain's dtype (None: float32; the
-    trainer passes its compute dtype)."""
+    trainer passes its compute dtype). ``rows``: a data-parallel rank's
+    rows (:func:`tti_torch.parallel.mesh.batch_slice`): the draws are the
+    whole batch's and only these rows are made, so a rank's samples are
+    rows of the unsharded batch."""
     dt = image_dtype or torch.float32
 
     def batch_fn(data: DeviceDataset, generator: torch.Generator) -> tuple[Tensor, Targets]:
         params = draw_params(generator, batch_size, data.images.shape[0], scale, translate,
                              mosaic_p, flip_p, hsv_gains)
+        if rows is not None:
+            params = {k: v[rows] for k, v in params.items()}
         return apply(data, params, max_gt, dt)
 
     return batch_fn

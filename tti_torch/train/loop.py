@@ -1,7 +1,8 @@
 """The training run: dataset on the device, augmented batches, steps,
 checkpoints, resume, and the export of the deploy checkpoint. The command
 line (``python -m tti_torch.cli train`` / ``export-weights``) and the card's
-smoke script both call these functions.
+smoke script both call these functions. ``train`` runs on every card of the
+host, and of every host of a ``TTI_COORDINATOR`` job, data-parallel.
 """
 
 from __future__ import annotations
@@ -11,11 +12,16 @@ from dataclasses import dataclass
 from typing import Callable, Mapping
 
 import torch
+import torch.distributed as dist
 
 from tti_torch.core.config import ModelConfig
+from tti_torch.core.errors import ConfigError
 from tti_torch.model.checkpoint import (from_flax_variables, load_flax_msgpack,
                                         save_flax_msgpack, to_flax_variables)
 from tti_torch.model.yolo import create_model, init_model
+from tti_torch.parallel.dcn import (Job, free_local_coordinator, init_distributed, job_from_env,
+                                    rank, shutdown)
+from tti_torch.parallel.mesh import batch_slice, create_mesh, replicate
 from tti_torch.train.augment import DeviceDataset, make_augment_fn, step_generator
 from tti_torch.train.checkpoint import (latest_checkpoint, load_train_payload,
                                         restore_train_state, save_train_state)
@@ -88,33 +94,54 @@ def train_switches(env: Mapping[str, str]) -> dict:
 
 
 def step_and_augment(imgsz: int, batch_size: int, max_gt: int, dtype: torch.dtype,
-                     seg_class_gains=None, env: Mapping[str, str] | None = None
-                     ) -> tuple[TrainStep, Callable]:
+                     seg_class_gains=None, env: Mapping[str, str] | None = None,
+                     mesh=None) -> tuple[TrainStep, Callable]:
     """The train step and the augment function of a run at ``imgsz``, under
     the switches of ``env`` (the process environment by default; see
     :func:`train_switches`). The augment's image chain runs in ``dtype``
-    unless ``TTI_AUGMENT_DTYPE`` says otherwise."""
+    unless ``TTI_AUGMENT_DTYPE`` says otherwise. With a data-parallel
+    ``mesh``, ``batch_size`` is the global batch: the augment makes this
+    rank's rows of it and the step averages over the mesh's ranks."""
     sw = train_switches(os.environ if env is None else env)
+    rows = None if mesh is None else batch_slice(mesh, batch_size)
     step = TrainStep((imgsz, imgsz), seg_class_gains=seg_class_gains, seg_dtype=sw["seg_dtype"],
-                     seg_chunk=sw["seg_chunk"])
-    return step, make_augment_fn(batch_size, max_gt, image_dtype=sw["augment_dtype"] or dtype)
+                     seg_chunk=sw["seg_chunk"],
+                     group=None if mesh is None else mesh.get_group("data"))
+    return step, make_augment_fn(batch_size, max_gt, image_dtype=sw["augment_dtype"] or dtype,
+                                 rows=rows)
 
 
 def build_trainer(data: DeviceDataset, model: torch.nn.Module, batch_size: int, max_gt: int,
                   total_steps: int | None, lr: float = 1e-3, dtype: torch.dtype = torch.bfloat16,
-                  seg_class_gains=None, seed: int = 0) -> Trainer:
+                  seg_class_gains=None, seed: int = 0, mesh=None) -> Trainer:
     """The trainer for a model already on the dataset's device, under the
-    process environment's switches (:func:`train_switches`)."""
+    process environment's switches (:func:`train_switches`); with a
+    ``mesh``, this rank's part of the data-parallel run
+    (:func:`step_and_augment`)."""
     state = create_train_state(model, learning_rate=lr, total_steps=total_steps)
-    step, augment = step_and_augment(data.imgsz, batch_size, max_gt, dtype, seg_class_gains)
+    step, augment = step_and_augment(data.imgsz, batch_size, max_gt, dtype, seg_class_gains,
+                                     mesh=mesh)
     return Trainer(data, state, step, augment, seed)
+
+
+def save_checkpoint(state: TrainState, out: str, step: int) -> str:
+    """Rank 0 writes ``out/step_N.pt`` (any process outside a group does);
+    every rank of a group waits for it. Returns the path."""
+    if rank() == 0:
+        path = save_train_state(state, out, step=step)
+    else:
+        path = os.path.join(out, f"step_{step}.pt")
+    if dist.is_initialized():
+        dist.barrier()
+    return path
 
 
 def run(trainer: Trainer, start: int, total: int, out: str | None = None, log_every: int = 10,
         checkpoint_every: int = 0, log: Callable[[str], None] = print) -> int:
     """Steps ``start + 1`` .. ``total`` (batch index = step number), with a
     log line every ``log_every`` and a checkpoint in ``out`` every
-    ``checkpoint_every`` steps. Returns the last step number."""
+    ``checkpoint_every`` steps (:func:`save_checkpoint`). Returns the last
+    step number."""
     seen = start
     for seen in range(start + 1, total + 1):
         metrics = trainer.train_step(seen)
@@ -122,32 +149,95 @@ def run(trainer: Trainer, start: int, total: int, out: str | None = None, log_ev
             log(f"step {seen}/{total}: "
                 + " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()))
         if out and checkpoint_every and seen % checkpoint_every == 0:
-            save_train_state(trainer.state, out, step=seen)
+            save_checkpoint(trainer.state, out, seen)
     return seen
 
 
-def train(samples, out: str, variant: str = "n", num_classes: int = 2, imgsz: int = 640,
-          batch_size: int = 16, epochs: int = 100, lr: float = 1e-3, max_gt: int = 32,
-          log_every: int = 10, checkpoint_every: int = 500, resume: bool = False,
-          mask_stride: int = 4, proto_head: str = "deconv", stitch_seg_gain: float = 1.0,
-          soft_masks=None, dtype: str = "bf16", device: str = "cuda", init: str | None = None,
-          seed: int = 0, log: Callable[[str], None] = print) -> str:
-    """``tti train`` on one card: returns the final checkpoint's path.
-    ``resume`` continues the newest checkpoint in ``out`` and replays the
-    same batch stream. No data parallelism."""
+def launches_per_card(device: str | torch.device) -> bool:
+    """Whether ``train`` on ``device`` starts one process per local card: a
+    CUDA device without an index on a host with more than one card, in a
+    process outside any group."""
+    device = torch.device(device)
+    return (device.type == "cuda" and device.index is None and not dist.is_initialized()
+            and torch.cuda.device_count() > 1)
+
+
+def train(samples, out: str, device: str = "cuda", log: Callable[[str], None] = print,
+          **recipe) -> str:
+    """``tti train``: returns the final checkpoint's path. ``recipe``: the
+    keyword arguments of :func:`train_rank` (``batch_size`` is the global
+    batch; ``resume`` continues the newest checkpoint in ``out`` and
+    replays the same batch stream).
+
+    Like ``tti train``, it uses every card: with more than one local card
+    (:func:`launches_per_card`) it starts one process per card, which join
+    the ``TTI_*`` triple's job under the global numbering
+    (:mod:`tti_torch.parallel.dcn`) or, without one, a job on this host. A
+    process already in a group (the CLI joins the triple's job before
+    every command) is one rank. The ranks form a ``"data"`` mesh
+    (:func:`train_rank`)."""
+    if not launches_per_card(device):
+        return train_rank(samples, out, device=device, log=log, **recipe)
+    cards = torch.cuda.device_count()
+    job = job_from_env() or Job(free_local_coordinator())
+    log(f"training on {cards} local cards (process {job.process_id} of {job.num_processes})")
+    torch.multiprocessing.spawn(_card_main, args=(job, cards, samples, out, recipe),
+                                nprocs=cards, join=True)
+    return latest_checkpoint(out)
+
+
+def _card_main(local_rank: int, job: Job, cards: int, samples, out: str, recipe: dict) -> None:
+    """One card's process of :func:`train`."""
+    init_distributed(job.coordinator, job.num_processes, job.process_id, device="cuda",
+                     local_rank=local_rank, local_cards=cards)
+    try:
+        train_rank(samples, out, device=f"cuda:{local_rank}",
+                   log=lambda line: print(line, flush=True), **recipe)
+    finally:
+        shutdown()
+
+
+def train_rank(samples, out: str, variant: str = "n", num_classes: int = 2, imgsz: int = 640,
+               batch_size: int = 16, epochs: int = 100, lr: float = 1e-3, max_gt: int = 32,
+               log_every: int = 10, checkpoint_every: int = 500, resume: bool = False,
+               mask_stride: int = 4, proto_head: str = "deconv", stitch_seg_gain: float = 1.0,
+               soft_masks=None, dtype: str = "bf16", device: str = "cuda",
+               init: str | None = None, seed: int = 0,
+               log: Callable[[str], None] = print) -> str:
+    """The run in this process: alone, or as one rank of the initialised
+    group of more than one, where the ranks form a ``"data"`` mesh. There
+    the dataset is on every card, the model starts as rank 0's, each rank
+    steps on its rows of the global batch, only rank 0 logs and writes
+    checkpoints (every rank waits for each), and ``resume`` restores on
+    every rank from ``out``, which every host must see (a shared directory)."""
     from tti_torch.train.augment import build_device_dataset
 
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if batch_size % world:
+        raise ConfigError(f"--batch-size {batch_size} is the global batch: it must be a "
+                          f"multiple of the {world} ranks")
+    mesh = create_mesh(device_type=torch.device(device).type) if world > 1 else None
+    if rank():
+        log = lambda line: None
     compute = DTYPES[dtype]
     model = build_model(variant, num_classes, mask_stride, proto_head, compute, device, init,
                         seed)
+    if mesh is not None:
+        replicate(mesh, model)
     total = max(len(samples) // batch_size, 1) * epochs
     data = build_device_dataset(samples, imgsz, max_gt, mask_stride=mask_stride,
                                 soft_masks=soft_masks, device=device)
     trainer = build_trainer(data, model, batch_size, max_gt, total, lr, compute,
-                            seg_gains(stitch_seg_gain, num_classes), seed)
+                            seg_gains(stitch_seg_gain, num_classes), seed, mesh=mesh)
     start = 0
     if resume:
         ckpt = latest_checkpoint(out)
+        if world > 1:
+            found = [None] * world
+            dist.all_gather_object(found, None if ckpt is None else os.path.basename(ckpt))
+            if len(set(found)) > 1:
+                raise ConfigError(f"--resume: the ranks see different checkpoints in {out} "
+                                  f"({found}); every host needs the same --out")
         if ckpt is None:
             log(f"--resume: no checkpoint under {out}; starting fresh")
         else:
@@ -155,7 +245,7 @@ def train(samples, out: str, variant: str = "n", num_classes: int = 2, imgsz: in
             start = trainer.state.step
             log(f"resumed {ckpt} at step {start}/{total}")
     seen = run(trainer, start, total, out, log_every, checkpoint_every, log)
-    return save_train_state(trainer.state, out, step=seen)
+    return save_checkpoint(trainer.state, out, seen)
 
 
 def export_weights(train_dir: str, out: str, variant: str = "n", num_classes: int = 2,

@@ -8,8 +8,13 @@ weights that are deployed).
 The step mutates a :class:`TrainState` in place. Mixed precision follows the
 reference: a model built with ``dtype=torch.bfloat16`` runs its convolutions
 in bfloat16 on float32 parameters (the casts give float32 gradients) and the
-loss runs in float32, outside any autocast region. Data parallelism over
-several cards (the reference's mesh) is not part of this module.
+loss runs in float32, outside any autocast region.
+
+Data parallelism (the reference's ``"data"`` mesh) is a process group given
+to :class:`TrainStep`: each rank steps on its rows of the global batch, its
+BatchNorm normalises with the global batch's statistics, and the gradients
+are averaged over the ranks before the clip, so every rank takes the same
+update as the reference's sharded step does once.
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from tti_torch.model.layers import set_batchnorm_group
 from tti_torch.model.yolo import REG_MAX, STRIDES, RawPredictions, YOLOv8Seg
 from tti_torch.postprocess.decode import dfl_expectation, flatten_predictions, make_anchors
 from tti_torch.train.assigner import task_aligned_assign
@@ -180,20 +187,34 @@ class TrainStep:
 
     ``seg_class_gains``: per-class seg-loss gains (index = class id), None
     for the plain recipe. ``seg_dtype`` and ``seg_chunk`` (the ``chunk`` of
-    :func:`tti_torch.train.losses.seg_loss`): see there."""
+    :func:`tti_torch.train.losses.seg_loss`): see there.
+
+    ``group``: the process group of a data-parallel run, each rank calling
+    the step on its rows of the global batch. The loss is the mean over the
+    rank's rows; after the backward pass the gradients are summed over the
+    ranks in one flat all-reduce and divided by the ranks, before the clip
+    (which then sees the global gradient); the returned terms are the
+    ranks' means. ``bn_group`` is the group BatchNorm sums its statistics
+    over (:func:`tti_torch.model.layers.set_batchnorm_group`): ``group``
+    when it has more than one rank, else None, so that a one-rank group
+    normalises exactly as no group does."""
 
     def __init__(self, input_hw: tuple[int, int], seg_class_gains=None,
-                 seg_dtype: torch.dtype = torch.float32, seg_chunk: int | None = None) -> None:
+                 seg_dtype: torch.dtype = torch.float32, seg_chunk: int | None = None,
+                 group=None) -> None:
         self.input_hw = input_hw
         self.gains = tuple(seg_class_gains) if seg_class_gains is not None else None
         self.seg_dtype = seg_dtype
         self.seg_chunk = seg_chunk
+        self.group = group
+        self.bn_group = group if group is not None and dist.get_world_size(group) > 1 else None
 
     def loss(self, model: YOLOv8Seg, images: Tensor, targets: Targets
              ) -> tuple[Tensor, dict[str, Tensor]]:
         """Train-mode forward (BatchNorm running statistics move) and the
         loss: (total, mean of each term over the batch)."""
         model.train()
+        set_batchnorm_group(model, self.bn_group)
         raw = model(images)
         raw = RawPredictions(*(tuple(t.float() for t in getattr(raw, k))
                                for k in ("box", "cls", "mcoef")), raw.protos.float())
@@ -220,11 +241,30 @@ class TrainStep:
         torch._foreach_add_(ema, [p.detach() for _, p in state.model.named_parameters()],
                             alpha=float(one - d))
 
+    def all_reduce_grads(self, state: TrainState) -> None:
+        """Average the gradients over ``group``: one flat bucket, summed,
+        divided by the ranks."""
+        grads = [p.grad for group in state.optimizer.param_groups for p in group["params"]
+                 if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat.div_(dist.get_world_size(self.group))
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view(g.shape))
+
     def __call__(self, state: TrainState, images: Tensor, targets: Targets
                  ) -> dict[str, Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
         total, losses = self.loss(state.model, images, targets)
         total.backward()
+        if self.group is not None:
+            self.all_reduce_grads(state)
         self.update(state)
-        return {"total": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        terms = {"total": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        if self.group is None:
+            return terms
+        mean = torch.stack(list(terms.values()))
+        dist.all_reduce(mean, group=self.group)
+        mean /= dist.get_world_size(self.group)
+        return dict(zip(terms, mean.unbind()))
 
