@@ -169,7 +169,13 @@ exits non-zero without printing the final result line:
    10 steps); and, at both recipes, images/s, ms per step, peak memory and
    the device's idle share of the trainer's own loop (``train_step``, one
    synchronisation per window), then per-part iteration times in a
-   separate loop;
+   separate loop; then the host recipe (``--host-aug``) at r5s on the same
+   32 scenes written as PNG files: the host's ms per batch of ``batches``,
+   the host loop (``run_host``: pinned upload, the same ``TrainStep``) in
+   images/s beside the device augment's loop, no kernel launched, and
+   ``python -m tti_torch.cli train --host-aug`` in a subprocess (one epoch,
+   4 steps at batch 8: exit 0, one checkpoint, finite losses logged), with
+   the wall time;
 7. the application at the deployed geometry (960x1280 frames, imgsz 960,
    the cam checkpoint, bf16, through the CLI's ``load_pipeline``): 32 seeded
    textile frames through the ``Orchestrator``'s own loop at inference
@@ -207,7 +213,15 @@ exits non-zero without printing the final result line:
    finite, stitches >= min(truth, 3), an edge on most frames, edge error
    < 1.0 mm, width error < 0.8 mm), recovered against true within 0.05 mm
    per frame, kernel A against its plain version within 0.01 mm; coverage,
-   p50, p95 and bias printed;
+   p50, p95 and bias printed; then the report's rectified rows on the same
+   scenes (``undistort=True``: the two-pass warp ahead of the step, frames
+   undistorted once), float32 and bf16: kernels A and D once per step, the
+   same gate, the plain versions within 0.01 mm, rectified minus native
+   p50, p95 and bias printed; meanwhile ``tools/calibrate_offsets_torch.py``
+   in a subprocess on a copy of the deploy checkpoint and its sidecar under
+   ``build/calib_smoke/offsets/`` over 32 scenes: exit 0, every other key
+   of the sidecar unchanged, both constants finite, printed beside the
+   sidecar's; each part's wall time;
 9. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
    on the inputs the batch-128 step gives it (kernels C and D also at batch
@@ -3223,20 +3237,12 @@ def check_gloo_pair(torch) -> dict:
 def check_cli_train_triple() -> dict:
     """``python -m tti_torch.cli train`` with the TTI_* triple (one process,
     a one-rank NCCL job) on 8 seeded scenes, 2 steps: exit 0, one checkpoint."""
-    import cv2
-
     from torch_scenes import textile_samples
     from tti_torch.parallel.dcn import free_local_coordinator
 
     root = os.path.join(DP_DIR, "cli")
-    images, labels, out = (os.path.join(root, d) for d in ("images", "labels", "run"))
-    for d in (images, labels):
-        os.makedirs(d, exist_ok=True)
-    for i, s in enumerate(textile_samples(8, 320, seed=7)):
-        cv2.imwrite(os.path.join(images, f"s_{i}.png"), np.ascontiguousarray(s.image[..., ::-1]))
-        with open(os.path.join(labels, f"s_{i}.txt"), "w") as f:
-            f.write("\n".join(f"{c} " + " ".join(f"{v:.6f}" for v in p.ravel())
-                              for p, c in zip(s.polygons, s.classes)))
+    images = write_yolo_dataset(textile_samples(8, 320, seed=7), root)
+    out = os.path.join(root, "run")
     env = dict(os.environ, TTI_COORDINATOR=free_local_coordinator(), TTI_NUM_PROCESSES="1",
                TTI_PROCESS_ID="0", PYTHONPATH=HERE)
     t0 = time.perf_counter()
@@ -3559,6 +3565,110 @@ def time_training(torch, trainer, label, start, n, iters=10, part_iters=5) -> di
             "top_kernels_ms": dict(top)}
 
 
+def write_yolo_dataset(samples, root: str) -> str:
+    """``samples`` (decoded ``Sample``s) as a YOLO-format set under ``root``:
+    ``images/s_i.png`` and ``labels/s_i.txt``. Returns the images directory."""
+    import cv2
+
+    images, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    for d in (images, labels):
+        os.makedirs(d, exist_ok=True)
+    for i, s in enumerate(samples):
+        cv2.imwrite(os.path.join(images, f"s_{i}.png"), np.ascontiguousarray(s.image[..., ::-1]))
+        with open(os.path.join(labels, f"s_{i}.txt"), "w") as f:
+            f.write("\n".join(f"{c} " + " ".join(f"{v:.6f}" for v in p.ravel())
+                              for p, c in zip(s.polygons, s.classes)))
+    return images
+
+
+def check_host_aug(torch, ms, wp, device_timing: dict) -> dict:
+    """Phase 6's host recipe (``train --host-aug``) at r5s on phase 6's 32
+    seeded scenes, written as PNG files: the host's ms per batch of
+    ``batches`` (one epoch, files decoded on first use), the host loop
+    (``run_host``: each batch through pinned memory into the same
+    ``TrainStep``) in images/s beside the device augment's loop, and
+    ``python -m tti_torch.cli train --host-aug`` in a subprocess (one epoch,
+    4 steps at batch 8: exit 0, one checkpoint, finite losses on every
+    logged step). Training launches no kernel."""
+    from torch_scenes import textile_samples
+    from tti_torch.train.data import batches, discover_dataset
+    from tti_torch.train.loop import build_model, run_host, step_and_augment
+    from tti_torch.train.step import create_train_state
+
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "train_smoke", "host_aug")
+    shutil.rmtree(root, ignore_errors=True)
+    images = write_yolo_dataset(textile_samples(R5S["n_scenes"], R5S["imgsz"], seed=101), root)
+    samples = discover_dataset(images)
+    recipe = dict(max_gt=R5S["max_gt"], mask_stride=R5S["mask_stride"],
+                  soft_masks=R5S["soft_masks"])
+    n = R5S["batch"]
+    marks = [time.perf_counter()]
+    for _ in batches(samples, n, R5S["imgsz"], seed=0, epochs=1, **recipe):
+        marks.append(time.perf_counter())
+    per_batch = np.diff(marks) * 1e3
+    # The host loop in this process: one warm-up step, then one epoch timed.
+    reset_launch_counts(ms, wp)
+    model = build_model("n", 2, R5S["mask_stride"], R5S["proto_head"], torch.bfloat16, "cuda",
+                        CAM_CKPT)
+    state = create_train_state(model, learning_rate=1e-3, total_steps=R5S["total_steps"])
+    step, _ = step_and_augment(R5S["imgsz"], n, R5S["max_gt"], torch.bfloat16, R5S["gains"])
+    run_host(state, step, batches(samples[:n], n, R5S["imgsz"], seed=1, epochs=1, **recipe),
+             "cuda", log_every=0)
+    logged = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = run_host(state, step, batches(samples, n, R5S["imgsz"], seed=0, epochs=1, **recipe),
+                     "cuda", log_every=1, log=logged.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(ms, wp)
+    check(not any(launches.values()), f"host-aug training launched a kernel: {launches}")
+    for line in logged:
+        terms = dict(kv.split("=") for kv in line.split(": ")[1].split())
+        check(all(np.isfinite(float(v)) for v in terms.values()), f"host-aug: {line}")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "run")
+    argv = [sys.executable, "-m", "tti_torch.cli", "train", "--host-aug", "--images", images,
+            "--out", out, "--imgsz", str(R5S["imgsz"]), "--batch-size", str(n), "--epochs", "1",
+            "--max-gt", str(R5S["max_gt"]), "--log-every", "1", "--checkpoint-every", "0",
+            "--mask-stride", str(R5S["mask_stride"]), "--proto-head", R5S["proto_head"],
+            "--soft-masks", "--stitch-seg-gain", "2.0", "--init", CAM_CKPT]
+    t1 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                          capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t1
+    check(proc.returncode == 0, f"cli train --host-aug exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    written = sorted(os.listdir(out))
+    check(written == [f"step_{len(samples) // n}.pt"], f"cli train --host-aug wrote {written}")
+    step_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
+    check(len(step_lines) == len(samples) // n, f"cli train --host-aug logged {step_lines}")
+    for line in step_lines:
+        terms = {k: float(v) for k, v in (kv.split("=") for kv in line.split(": ")[1].split())}
+        check(all(np.isfinite(v) for v in terms.values()), f"cli --host-aug: {line}")
+    images_per_s = n * steps / wall
+    log(f"r5s host augment (--host-aug recipe, {len(samples)} PNG scenes at "
+        f"{R5S['imgsz']} px): batches() {per_batch.mean():.1f} ms per batch of {n} on the host "
+        f"(min {per_batch.min():.1f}, max {per_batch.max():.1f}, first includes decoding); "
+        f"the host loop (batches, pinned upload, TrainStep) {images_per_s:.1f} images/s, "
+        f"{1e3 * wall / steps:.2f} ms per step over {steps} steps; the device augment's loop "
+        f"{device_timing['images_per_s']:.1f} images/s, {device_timing['step_ms']:.2f} ms per "
+        f"step (this phase); kernel launches {launches}")
+    log(f"python -m tti_torch.cli train --host-aug (r5s, batch {n}, 1 epoch): exit 0, "
+        f"{written}, {len(step_lines)} steps logged, last: {step_lines[-1]}; {cli_s:.1f} s")
+    wall_s = time.perf_counter() - t_phase
+    log(f"host augment checks: {wall_s:.1f} s")
+    return {"host_ms_per_batch": per_batch.tolist(), "images_per_s": images_per_s,
+            "step_ms": 1e3 * wall / steps, "device_images_per_s": device_timing["images_per_s"],
+            "device_step_ms": device_timing["step_ms"], "cli_s": cli_s, "cli_written": written,
+            "cli_last_step": step_lines[-1], "wall_s": wall_s}
+
+
 def check_training(torch, ms, wp, card) -> dict:
     """Phase 6 (see the module docstring). Launch counts are set to 0 before
     the training path and read after it: training launches no kernel; the
@@ -3605,6 +3715,7 @@ def check_training(torch, ms, wp, card) -> dict:
     result["r5s_timing"] = time_training(torch, trainer, "r5s", 31, R5S["batch"])
     del trainer, data
     torch.cuda.empty_cache()
+    result["r5s_host_aug"] = check_host_aug(torch, ms, wp, result["r5s_timing"])
 
     # Back into the inspection step: the EMA through export-weights.
     deploy = os.path.join(out_dir, "r5s_ema.msgpack")
@@ -4123,6 +4234,115 @@ def error_summary(measured, truth) -> dict:
             "bias": float(err.mean()) if ok.any() else None}
 
 
+def check_rectified_rows(torch, ms, wp, frames, summary) -> dict:
+    """The mm report's rectified rows (``undistort=True``: the two-pass
+    warp ahead of the deploy step, frames undistorted once) on phase 8's
+    scenes, float32 and bf16: kernels A and D once per step, the per-frame
+    gate, the plain statistics bound in the kernels' place within 0.01 mm,
+    and rectified minus reference-native p50, p95 and bias."""
+    import measure_report_torch as mr
+
+    t0 = time.perf_counter()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        label = f"rectified {dtype}"
+        pipe = mr.build_pipeline(CAM_CKPT, undistort=True, dtype=dtype, device="cuda")
+        check(pipe.warp is not None and pipe.measure_cfg.undistort_iters == 0,
+              f"{label}: not rectified once (warp {pipe.warp}, point undistortion "
+              f"{pipe.measure_cfg.undistort_iters} iterations)")
+        reset_launch_counts(ms, wp)
+        meas = pipe.process_batch(frames).measurements
+        launches = launch_counts(ms, wp)
+        check(launches["mask_stats_soft"] == 1 and launches["greedy_keep"] == 1
+              and sum(launches.values()) == 2, f"{label}: kernels A and D once expected: "
+              f"{launches}")
+        stats = report_gate(meas, label)
+        with plain_routes(ms, wp):
+            plain = pipe.process_batch(frames).measurements
+        check(launch_counts(ms, wp) == launches, f"{label}: the plain step launched")
+        for key in MM_KEYS:
+            a, r = getattr(meas, key).astype(float), getattr(plain, key).astype(float)
+            check((np.isnan(a) == np.isnan(r)).all(), f"{label}: plain NaN pattern")
+            stats[f"plain_{key}"] = float(np.nanmax(np.abs(a - r), initial=0.0))
+        plain_mm = max(stats["plain_raw_edge_mm"], stats["plain_raw_width_mm"])
+        check(plain_mm <= 1e-2, f"{label}: kernel A and its plain version differ by {plain_mm} mm")
+        native = summary[f"{dtype}/true"]
+        stats["minus_native"] = {
+            k: {q: stats[k][q] - native[k][q] for q in ("p50", "p95", "bias")}
+            for k in ("edge", "width")}
+        out[dtype] = stats
+        log(f"{label} ({REPORT_SCENES} scenes, A {launches['mask_stats_soft']} and D "
+            f"{launches['greedy_keep']} launches): " + "; ".join(
+                f"{k} {stats[k]['coverage']} p50 {stats[k]['p50']:.4f} p95 "
+                f"{stats[k]['p95']:.4f} bias {stats[k]['bias']:+.4f} mm (rectified - native: "
+                f"p50 {stats['minus_native'][k]['p50']:+.4f}, p95 "
+                f"{stats['minus_native'][k]['p95']:+.4f}, bias "
+                f"{stats['minus_native'][k]['bias']:+.4f})" for k in ("edge", "width"))
+            + f"; kernel A against its plain version {plain_mm:.2e} mm")
+        del pipe
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"rectified rows: {out['seconds']:.1f} s")
+    return out
+
+
+OFFSET_SCENES = 32  # phase 8's calibrate_offsets_torch run (the tool's default is 96)
+
+
+def start_calibrate_offsets():
+    """``tools/calibrate_offsets_torch.py`` on a copy of the deploy
+    checkpoint and its sidecar under build/, over OFFSET_SCENES scenes, in a
+    subprocess (it renders on the host while the card runs the rectified
+    rows)."""
+    import shutil
+
+    d = os.path.join(CAL_DIR, "offsets")
+    os.makedirs(d, exist_ok=True)
+    weights = os.path.join(d, os.path.basename(CAM_CKPT))
+    shutil.copy(CAM_CKPT, weights)
+    shutil.copy(CAM_CKPT + ".json", weights + ".json")
+    argv = [sys.executable, os.path.join(HERE, "tools", "calibrate_offsets_torch.py"),
+            "--weights", weights, "--scenes", str(OFFSET_SCENES)]
+    proc = subprocess.Popen(argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, weights, time.perf_counter()
+
+
+def finish_calibrate_offsets(proc, weights, t0) -> dict:
+    """Wait for :func:`start_calibrate_offsets`: exit 0, every key of the
+    sidecar but the calibration's unchanged, both constants finite; printed
+    beside the deploy sidecar's."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"calibrate_offsets_torch exited {proc.returncode}:\n"
+          f"{stdout[-2000:]}\n{stderr[-3000:]}")
+    with open(CAM_CKPT + ".json") as f:
+        before = json.load(f)
+    with open(weights + ".json") as f:
+        after = json.load(f)
+    cal_keys = {k for k in after if k.startswith("cal_")}
+    check(set(after) == set(before) and {k: v for k, v in after.items() if k not in cal_keys}
+          == {k: v for k, v in before.items() if k not in cal_keys},
+          "calibrate_offsets_torch changed a sidecar key besides the calibration's")
+    edge, width = after["cal_edge_mm"], after["cal_width_mm"]
+    check(np.isfinite(edge) and np.isfinite(width), f"offsets not finite: {edge}, {width}")
+    check(after["cal_scenes"] == OFFSET_SCENES, f"cal_scenes {after['cal_scenes']}")
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("wrote ")), "")
+    log(f"calibrate_offsets_torch ({OFFSET_SCENES} scenes, seed {after['cal_seed']}, float32, "
+        f"reference-native): cal_edge_mm {edge:+.4f} (deploy sidecar {before['cal_edge_mm']:+.4f}, "
+        f"{before['cal_scenes']} scenes), cal_width_mm {width:+.4f} (sidecar "
+        f"{before['cal_width_mm']:+.4f}); raw bias {after['cal_edge_bias_raw']:+.4f} / "
+        f"{after['cal_width_bias_raw']:+.4f}, edge coverage {after['cal_coverage']}; every other "
+        f"key kept; exit 0, {wall:.1f} s: {line}")
+    return {"cal": {k: after[k] for k in sorted(cal_keys)},
+            "sidecar": {k: before[k] for k in sorted(cal_keys)}, "wall_s": wall}
+
+
 def check_calibrate_measure(torch, ms, wp) -> dict:
     """Phase 8 (see the module docstring)."""
     import shutil
@@ -4262,6 +4482,9 @@ def check_calibrate_measure(torch, ms, wp) -> dict:
             f"(limit 0.05)")
         check(worst <= 0.05, f"measure {dtype}: recovered extrinsics move a reading by {worst} mm")
     torch.cuda.empty_cache()
+    offsets = start_calibrate_offsets()
+    summary["rectified"] = check_rectified_rows(torch, ms, wp, frames, summary)
+    summary["calibrate_offsets"] = finish_calibrate_offsets(*offsets)
     summary["seconds"] = time.perf_counter() - t0
     log(f"calibrate, then measure: {summary['seconds']:.1f} s")
     return summary

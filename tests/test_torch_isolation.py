@@ -3,7 +3,8 @@ nor anything of tti, and a tiny CPU inspection step, one frame of the
 measurement loop and a training step run with all of them blocked, and with
 the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too.
 The calibration modules import without OpenCV (it is imported where it is
-used), and ``tools/measure_report_torch.py`` and ``tools/calibrate_int8_torch.py``
+used), and ``tools/measure_report_torch.py``, ``tools/calibrate_int8_torch.py``,
+``tools/calibrate_offsets_torch.py`` and ``tools/proto_ceiling_torch.py``
 import neither tti nor the tools they stand beside."""
 
 import os
@@ -41,8 +42,13 @@ sys.path.insert(0, "tools")
 import measure_report_torch
 import calibrate_int8_torch
 import parity_report_torch
+import calibrate_offsets_torch
+import proto_ceiling_torch
 assert "measure_report" not in sys.modules and "tools.measure_report" not in sys.modules
 assert "calibrate_int8" not in sys.modules
+for name in ("calibrate_offsets", "tools.calibrate_offsets", "proto_ceiling",
+             "tools.proto_ceiling"):
+    assert name not in sys.modules, name
 assert "parity_report" not in sys.modules and "test_predict_parity" not in sys.modules
 from tti_torch.calib.charuco import create_charuco_board
 from tti_torch.core.errors import CalibrationError
@@ -123,7 +129,8 @@ def test_port_imports_nothing_of_jax_or_tti():
 
 def test_port_sources_name_no_forbidden_module():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti"
-                         r"|tools\.measure_report|measure_report)\b", re.M)
+                         r"|tools\.measure_report|measure_report|tools\.calibrate_offsets"
+                         r"|calibrate_offsets|tools\.proto_ceiling|proto_ceiling)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
     sources += [REPO / "chip_smoke.py", REPO / "tests" / "torch_scenes.py",
                 REPO / "tests" / "torch_synth.py", REPO / "tests" / "torch_dist.py"]
@@ -138,7 +145,8 @@ def test_port_sources_name_no_forbidden_module():
                                   "int8conv.cu", "int8conv.py", "quantize.py",
                                   "calibrate_int8_torch.py", "export.py", "convert.py",
                                   "parity_report_torch.py", "mesh.py", "dcn.py",
-                                  "torch_dist.py"} <= names
+                                  "torch_dist.py", "calibrate_offsets_torch.py",
+                                  "proto_ceiling_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -4,10 +4,16 @@
   truths for seed 0 (2 scenes), and its plane map equals the original's.
 - The port's ``run_pipeline`` (CPU, float32) against tti's on those two
   full-size deploy scenes (1280x960, imgsz 960, the cam checkpoint,
-  reference-native): per-frame raw_edge_mm / raw_width_mm within 1e-3 mm,
-  as tests/torch_pair.py holds the step, NaN pattern and n_stitches equal
+  reference-native, and rectified: the two-pass undistort warp ahead of the
+  model): per-frame raw_edge_mm / raw_width_mm within 1e-3 mm, as
+  tests/torch_pair.py holds the step, NaN pattern and n_stitches equal
   (conftest sets jax_default_matmul_precision="highest").
+- ``main``'s ``--paths`` and ``--dtype`` select among the four
+  configurations.
 """
+
+import gc
+import json
 
 import numpy as np
 import pytest
@@ -48,12 +54,13 @@ def test_oracle_copy_renders_the_same_scenes(scenes):
     assert port_tool.error_stats(m, np.ones(3)) == ref_tool.error_stats(m, np.ones(3))
 
 
-def _both_runs(scenes):
+def _both_runs(scenes, undistort=False):
     """(port, tti) ``run_pipeline`` results on the two deploy scenes."""
     frames = np.stack([f for f, _ in scenes[0][1]])
-    got = port_tool.run_pipeline(frames, WEIGHTS, undistort=False, dtype="float32",
+    got = port_tool.run_pipeline(frames, WEIGHTS, undistort=undistort, dtype="float32",
                                  batch=len(frames), device="cpu")
-    want = ref_tool.run_pipeline(frames, WEIGHTS, undistort=False, dtype="float32",
+    gc.collect()  # the rectified step's float32 warp weights are several GB
+    want = ref_tool.run_pipeline(frames, WEIGHTS, undistort=undistort, dtype="float32",
                                  batch=len(frames))
     return got, want
 
@@ -90,6 +97,34 @@ def test_run_pipeline_equals_tti_with_readout_cal_off(scenes, default_runs, monk
         shift = default_runs[0][i] - got[i]
         assert np.isfinite(shift).any(), what
         np.testing.assert_allclose(shift[np.isfinite(shift)], offset, atol=1e-5, err_msg=what)
+
+
+def test_run_pipeline_rectified_equals_tti(scenes, default_runs, monkeypatch):
+    """The rectified path (``undistort=True``: the two-pass warp ahead of
+    the model, the points not undistorted again) against tti's on the same
+    two scenes, at the same bar; its readings are not the native path's."""
+    monkeypatch.delenv("TTI_READOUT_CAL", raising=False)
+    got, want = _both_runs(scenes, undistort=True)
+    _assert_runs_agree(got, want)
+    native = default_runs[0]
+    assert not np.allclose(got[1], native[1], atol=1e-3)  # the warp ran
+
+
+def test_main_paths_select_configurations(tmp_path, capsys):
+    """``--paths rectified --dtype float32`` runs that configuration alone
+    (one small scene at imgsz 320 on the CPU); the JSON holds its per-frame
+    readings and its launch counts."""
+    out = tmp_path / "report.md"
+    assert port_tool.main(["--weights", WEIGHTS, "--scenes", "1", "--imgsz", "320",
+                           "--paths", "rectified", "--dtype", "float32", "--device", "cpu",
+                           "--out", str(out)]) == 0
+    report = json.loads(out.with_suffix(".json").read_text())
+    assert list(report["per_frame"]) == ["rectified/float32"]
+    assert [(r["path"], r["dtype"]) for r in report["protocol"]] == [("rectified", "float32")]
+    assert list(report["kernel_launches"]) == ["rectified/float32"]
+    assert report["rectified_vs_native"] == []
+    assert "| rectified | float32 | " in out.read_text()
+    assert "rectified/float32: " in capsys.readouterr().out
 
 
 def test_ring_smoothed_is_the_production_ring():

@@ -121,9 +121,34 @@ def test_module_command_line(dataset, tmp_path):
 
 
 def test_host_aug_is_refused(dataset, tmp_path, capsys):
-    assert main(_args(dataset, tmp_path, 1) + ["--host-aug"]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    """``--host-aug`` with ``--resume`` is refused with tti's message (the
+    host batch stream has no step index to re-enter), before anything is
+    built or written."""
+    assert main(_args(dataset, tmp_path, 1) + ["--host-aug", "--resume"]) == 1
+    assert capsys.readouterr().out.splitlines() == [
+        "--resume requires the device-aug path (the host batch iterator has no "
+        "step-indexed stream to re-enter)"]
     assert not os.listdir(tmp_path)
+
+
+def test_host_aug_trains(dataset, tmp_path, capsys):
+    """``--host-aug`` trains on the host recipe's batches: tti's log line
+    (``step N:``, no total) with finite losses, a checkpoint every step and
+    the final one."""
+    out = tmp_path / "host"
+    assert main(_args(dataset, out, 2) + ["--host-aug"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    assert [ln.split(":")[0] for ln in steps] == ["step 1", "step 2"]
+    for ln in steps:
+        terms = dict(kv.split("=") for kv in ln.split(": ")[1].split())
+        assert set(terms) == {"total", "cls", "box", "dfl", "seg"}
+        assert all(np.isfinite(float(v)) for v in terms.values()), ln
+    assert lines[-1] == f"final checkpoint: {out / 'step_2.pt'}"
+    assert sorted(os.listdir(out)) == ["step_1.pt", "step_2.pt"]
+    state = _payload(out / "step_2.pt")
+    assert state["step"] == 2 and not torch.equal(state["ema"]["m1.conv.weight"],
+                                                  state["model"]["m1.conv.weight"])
 
 
 def test_export_weights_loads_in_tti_and_serves(uninterrupted, tmp_path, capsys):

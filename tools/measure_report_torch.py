@@ -13,11 +13,14 @@ nothing of ``tti`` and no jax:
    through the deployment's real camera (intrinsics + extrinsics), so every
    stitch's protocol-exact seam allowance and width are known (f64).
 2. The port's deploy step (``tti_torch.parallel.runtime.InspectionPipeline``:
-   the checkpoint's sidecar architecture and sub-cell readout, kernel A for
-   the mask statistics on a CUDA device) runs over the frames in the
-   reference-native geometry: 1280x960, imgsz 960, the deployment ROI, point
-   undistortion (``undistort=False``); per-frame raw_edge_mm/raw_width_mm
-   are compared with the frame's truth.
+   the checkpoint's sidecar architecture and sub-cell readout, kernels A and
+   D on a CUDA device) runs over the frames at 1280x960, imgsz 960, the
+   deployment ROI, in the reference's four configurations: reference-native
+   (point undistortion, ``undistort=False``) and rectified (the two-pass
+   undistort warp ahead of the model, ``undistort=True``, and no point
+   undistortion after it: frames are undistorted once), each in float32 and
+   bfloat16; ``--paths`` and ``--dtype`` select among them. Per-frame
+   raw_edge_mm/raw_width_mm are compared with the frame's truth.
 3. ``--smoothing N`` also renders N temporal variants of each of
    ``--smoothed-scenes`` scenes (same geometry, fresh appearance) and feeds
    each scene's N raw readings in order through the production ring
@@ -448,6 +451,29 @@ def error_stats(measured: np.ndarray, truth: np.ndarray) -> dict:
     }
 
 
+def rectified_vs_native(rows: list, per_frame: dict) -> list[str]:
+    """Per dtype with both paths in ``rows``: rectified minus
+    reference-native in edge and width p50, p95 and bias, and the largest
+    per-frame difference where both have a value."""
+    stats = {(name, dtype): (es, ws) for name, dtype, es, ws, _ in rows}
+    lines = []
+    for dtype in dict.fromkeys(d for _, d, *_ in rows):
+        if not {("rectified", dtype), ("reference-native", dtype)} <= stats.keys():
+            continue
+        parts = []
+        for i, what in enumerate(("edge", "width")):
+            r, n = stats["rectified", dtype][i], stats["reference-native", dtype][i]
+            a = np.asarray(per_frame[f"rectified/{dtype}"][f"{what}_measured"], float)
+            b = np.asarray(per_frame[f"reference-native/{dtype}"][f"{what}_measured"], float)
+            both = np.isfinite(a) & np.isfinite(b)
+            worst = float(np.abs(a - b)[both].max()) if both.any() else float("nan")
+            parts.append(f"{what} p50 {r['p50'] - n['p50']:+.4f} p95 {r['p95'] - n['p95']:+.4f} "
+                         f"bias {r['bias'] - n['bias']:+.4f} (frames with a value {r['n']} "
+                         f"vs {n['n']}; per frame max |rectified - native| {worst:.4f})")
+        lines.append(f"rectified - reference-native, {dtype}, mm: " + "; ".join(parts))
+    return lines
+
+
 def card_line(device: str) -> str:
     """The card's name and power limit (nvidia-smi), or the host's device."""
     if not device.startswith("cuda"):
@@ -464,6 +490,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--imgsz", type=int, default=960)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--paths", default="",
+                    help="comma list to restrict configs (reference-native,rectified) — "
+                         "outlier-hunting reruns")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], action="append",
                     help="compute dtype of the step (repeatable; default both)")
     ap.add_argument("--device", default="cuda", help="torch device (cpu only when asked)")
@@ -511,23 +540,29 @@ def main(argv=None) -> int:
     gt_n = np.array([t.n_stitches for t in truths])
     # The reference's deployment correction constants (config.py:156-157).
     SEAM_OFFSET, WIDTH_OFFSET = -1.3, -1.0
-    name = "reference-native"
+    configs = [(name, und, dtype) for name, und in (("reference-native", False),
+                                                    ("rectified", True)) for dtype in dtypes]
+    if args.paths:
+        keep = set(args.paths.split(","))
+        configs = [c for c in configs if c[0] in keep]
+
+    from tti_torch.kernels import maskstats, nms
 
     pipes, launches = {}, {}
     rows, rows_corr, per_frame = [], [], {}
-    for dtype in dtypes:
+    for name, und, dtype in configs:
         t1 = time.time()
-        pipes[dtype] = build_pipeline(args.weights, undistort=False, dtype=dtype,
-                                      imgsz=args.imgsz, device=args.device)
+        key = f"{name}/{dtype}"
+        pipes[key] = pipe = build_pipeline(args.weights, undistort=und, dtype=dtype,
+                                           imgsz=args.imgsz, device=args.device)
         readout = ("sub-cell 0.5-crossing (soft-mask checkpoint)"
-                   if pipes[dtype].measure_cfg.subcell_edge else "binary 0.5-threshold")
-        from tti_torch.kernels import maskstats
-
+                   if pipe.measure_cfg.subcell_edge else "binary 0.5-threshold")
         maskstats.reset_launch_counts()
-        edge_m, width_m, n_det = run_pipeline(frames, args.weights, undistort=False,
-                                              dtype=dtype, batch=args.batch, pipe=pipes[dtype])
-        launches[dtype] = dict(maskstats.LAUNCHES)
-        per_frame[f"{name}/{dtype}"] = {
+        nms.reset_launch_counts()
+        edge_m, width_m, n_det = run_pipeline(frames, args.weights, undistort=und,
+                                              dtype=dtype, batch=args.batch, pipe=pipe)
+        launches[key] = {**maskstats.LAUNCHES, **nms.LAUNCHES}
+        per_frame[key] = {
             "edge_measured": edge_m.tolist(), "width_measured": width_m.tolist(),
             "n_detected": n_det.tolist()}
         es, ws = error_stats(edge_m, gt_edge), error_stats(width_m, gt_width)
@@ -537,8 +572,11 @@ def main(argv=None) -> int:
                           error_stats(width_m + WIDTH_OFFSET, gt_width_nom), det_ratio))
         print(f"{name}/{dtype}: {es['n']}/{args.scenes} frames; edge p50 {es['p50']:.4f} "
               f"p95 {es['p95']:.4f} bias {es['bias']:+.4f}; width p50 {ws['p50']:.4f} "
-              f"p95 {ws['p95']:.4f} bias {ws['bias']:+.4f}; mask-stats launches "
-              f"{launches[dtype]} ({time.time()-t1:.0f}s)", flush=True)
+              f"p95 {ws['p95']:.4f} bias {ws['bias']:+.4f}; kernel launches "
+              f"{launches[key]} ({time.time()-t1:.0f}s)", flush=True)
+    versus = rectified_vs_native(rows, per_frame)
+    for line in versus:
+        print(line, flush=True)
 
     smooth_rows = []
     if args.smoothing:
@@ -560,10 +598,10 @@ def main(argv=None) -> int:
         sframes = np.stack(sframes)
         sg_edge = np.array([t.frame_edge for t in struths])
         sg_width = np.array([t.frame_width for t in struths])
-        for dtype in dtypes:
+        for name, und, dtype in configs:
             t1 = time.time()
-            pipe = pipes[dtype]
-            edge_m, width_m, _ = run_pipeline(sframes, args.weights, undistort=False,
+            pipe = pipes[f"{name}/{dtype}"]
+            edge_m, width_m, _ = run_pipeline(sframes, args.weights, undistort=und,
                                               dtype=dtype, batch=args.batch, pipe=pipe)
             sm_edge, sm_width = ring_smoothed(edge_m.reshape(S, T), width_m.reshape(S, T),
                                               pipe.measure_cfg.frame_buffer, args.device)
@@ -595,14 +633,16 @@ def main(argv=None) -> int:
         "  deployment's calibration), rendered through the exact camera model",
         f"  (tools/measure_report_torch.py). Centre scale {scale:.4f} mm/px.",
         f"- Weights: `{args.weights}` (architecture from the sidecar). Boundary readout:",
-        f"  {readout}. The port's deploy step at imgsz={args.imgsz}, reference-native",
-        "  (point undistortion); per-frame raw values vs protocol-exact truth.",
+        f"  {readout}. The port's deploy step at imgsz={args.imgsz}: reference-native",
+        "  (point undistortion) and rectified (the two-pass undistort warp ahead of",
+        "  the model); per-frame raw values vs protocol-exact truth.",
         "",
         *table_head,
         *[fr(*r) for r in rows],
         "",
         "All error columns in mm, |measured - truth| per frame; bias = mean",
         "signed error. det ratio = detected/rendered stitches (capped at 1).",
+        *([""] + [f"- {line}" for line in versus] if versus else []),
         "",
         "## With the deployment offsets, against physical truth",
         "",
@@ -634,7 +674,8 @@ def main(argv=None) -> int:
     with open(os.path.splitext(args.out)[0] + ".json", "w") as f:
         json.dump({
             "card": card, "torch": torch.__version__, "seed": args.seed,
-            "weights": args.weights, "readout": readout, "mask_stats_launches": launches,
+            "weights": args.weights, "readout": readout, "kernel_launches": launches,
+            "rectified_vs_native": versus,
             "protocol": [{"path": n, "dtype": d, "edge": es, "width": ws, "det_ratio": det}
                          for n, d, es, ws, det in rows],
             "offset_corrected_vs_physical": [

@@ -16,6 +16,11 @@
     validate-reference
                      the reference's trained .pt end to end: convert, strict
                      structural check, parity and mm reports [, eval]
+    capture          timed dataset capture from the camera [--out] [--interval]
+    view             live camera view ('q' quits)
+    tune-camera      exposure/brightness/contrast tuning [--set PROP=VALUE ...]
+    bench, tune-device
+                     not ported yet: refused, naming their ROADMAP items
 
 The flags are ``tti``'s, plus ``--device`` (default cuda; ``run``,
 ``check-model``, ``eval``, ``train``, ``export``, ``validate-reference``)
@@ -36,9 +41,13 @@ does (the plain-stem folded model, quantized). A ``TTI_QUANT`` that cannot
 apply is refused with ``tti``'s message (another value, unfolded BN, the
 fused head, ``int8s`` without its scales file). ``export`` writes the
 port's own artifact (:mod:`tti_torch.app.export`; ``--platforms`` defaults to
-``cuda,cpu``), which ``tti`` does not load, nor the port ``tti``'s. Refused,
-naming the reason or the ROADMAP item that ports them: ``train --host-aug``
-and ``TTI_APPROX_TOPK=1``. Before every command, as ``tti`` does, the
+``cuda,cpu``), which ``tti`` does not load, nor the port ``tti``'s.
+``train --host-aug`` trains on the reference's host recipe
+(:func:`tti_torch.train.data.batches`) and refuses ``--resume`` as ``tti``
+does. ``capture``, ``view`` and ``tune-camera`` are host OpenCV tools on the
+camera and touch no device. Refused, naming the reason or the ROADMAP item
+that ports them: ``bench``, ``tune-device`` and ``TTI_APPROX_TOPK=1``.
+Before every command, as ``tti`` does, the
 process joins the multi-host job of ``TTI_COORDINATOR`` (with
 ``TTI_NUM_PROCESSES`` and ``TTI_PROCESS_ID``;
 :func:`tti_torch.parallel.dcn.init_distributed`, NCCL for ``--device cuda``,
@@ -372,11 +381,10 @@ def cmd_eval(args) -> int:
 
 def cmd_train(args) -> int:
     from tti_torch.train.data import discover_dataset
-    from tti_torch.train.loop import train
+    from tti_torch.train.loop import HOST_AUG_RESUME, train
 
-    if args.host_aug:
-        print("--host-aug is not ported: tti_torch augments on the device. The host "
-              "recipe is ROADMAP Queue 1 item 4 (--host-aug).", file=sys.stderr)
+    if args.resume and args.host_aug:
+        print(HOST_AUG_RESUME)
         return 1
     path = train(discover_dataset(args.images), args.out, variant=args.variant,
                  num_classes=args.num_classes, imgsz=args.imgsz, batch_size=args.batch_size,
@@ -385,10 +393,120 @@ def cmd_train(args) -> int:
                  mask_stride=args.mask_stride, proto_head=args.proto_head,
                  stitch_seg_gain=args.stitch_seg_gain, soft_masks=args.soft_masks,
                  dtype=args.dtype, device=args.device, init=args.init,
-                 log=lambda line: print(line, flush=True))
+                 host_aug=args.host_aug, log=lambda line: print(line, flush=True))
     if dcn.rank() == 0:
         print("final checkpoint:", path)
     return 0
+
+
+def cmd_capture(args) -> int:
+    """Timed dataset capture (reference: Utils/auto_capture.py)."""
+    import time
+
+    import cv2
+
+    from tti_torch.app.sources import OpenCVCameraSource
+
+    cfg = load_config(validate=False)
+    source = OpenCVCameraSource(cfg.camera)
+    os.makedirs(args.out, exist_ok=True)
+    count = 0
+    try:
+        while count < args.max_frames:
+            ok, frame = source.read()
+            if not ok:
+                continue
+            path = os.path.join(args.out, f"capture_{count:05d}.jpg")
+            cv2.imwrite(path, frame)
+            print("saved", path)
+            count += 1
+            time.sleep(args.interval)
+    finally:
+        source.release()
+    return 0
+
+
+def _show_loop(source, window: str, on_no_frame: str = "break") -> int:
+    """The read / imshow / 'q' loop of the live-view tools. ``on_no_frame``:
+    "break" ends on the first failed read (reference Utils/usb_camera.py),
+    "skip" keeps polling (the tuning tool)."""
+    import cv2
+
+    try:
+        while True:
+            ok, frame = source.read()
+            if ok:
+                cv2.imshow(window, frame)
+            elif on_no_frame == "break":
+                log.error("no frame from camera")
+                return 1
+            if cv2.waitKey(1) & 0xFF == ord("q"):
+                return 0
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        source.release()
+        cv2.destroyAllWindows()
+
+
+def cmd_view(args) -> int:
+    """Live camera view (reference: Utils/usb_camera.py). 'q' quits."""
+    from tti_torch.app.sources import OpenCVCameraSource
+
+    cfg = load_config(validate=False)
+    return _show_loop(OpenCVCameraSource(cfg.camera), "tti view (q to quit)")
+
+
+def cmd_tune_camera(args) -> int:
+    """Interactive exposure/brightness/contrast tuning (reference:
+    Testing/test1.py's trackbar tool); ``--set`` applies values without a
+    window."""
+    import cv2
+
+    from tti_torch.app.sources import OpenCVCameraSource
+
+    cfg = load_config(validate=False)
+    source = OpenCVCameraSource(cfg.camera)
+    cap = source.cap
+    props = {
+        "exposure": cv2.CAP_PROP_EXPOSURE,
+        "brightness": cv2.CAP_PROP_BRIGHTNESS,
+        "contrast": cv2.CAP_PROP_CONTRAST,
+        "gain": cv2.CAP_PROP_GAIN,
+    }
+    try:
+        if args.set:
+            for assignment in args.set:
+                key, _, value = assignment.partition("=")
+                if key not in props:
+                    print(f"unknown property {key!r}; choose from {sorted(props)}")
+                    return 1
+                cap.set(props[key], float(value))
+                print(f"{key} = {cap.get(props[key])}")
+            return 0
+        window = "tti tune-camera (q to quit)"
+        cv2.namedWindow(window)
+        for name, prop in props.items():
+            current = int(max(0, cap.get(prop)))
+            cv2.createTrackbar(name, window, current, 255,
+                               lambda v, p=prop: cap.set(p, float(v)))
+        # Exposure changes often stall a read or two: keep polling.
+        return _show_loop(source, window, on_no_frame="skip")
+    finally:
+        source.release()  # the --set return; a second release is harmless
+
+
+def cmd_bench(args) -> int:
+    return _refuse("bench is not ported yet: the port's bench script (bench_torch.py, both "
+                   "configurations timed in repeated pairs) is ROADMAP Queue 1 item 1, and "
+                   "tune-device, which times its trials the same way, Queue 1 item 5.3. "
+                   "python3 chip_smoke.py times the steps on the card meanwhile.")
+
+
+def cmd_tune_device(args) -> int:
+    return _refuse("tune-device is not ported yet: it times its trials with the bench's "
+                   "repeated pairs, ROADMAP Queue 1 item 1 (the bench script), which comes "
+                   "first; tune-device itself is Queue 1 item 5.3.")
 
 
 def cmd_export_weights(args) -> int:
@@ -602,7 +720,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="extra seg-loss weight on stitch-class positives")
     _soft_masks_flag(p, "area-occupancy mask targets for these classes")
     p.add_argument("--host-aug", action="store_true",
-                   help="the reference's cv2 host augmentation: not ported, refused")
+                   help="cv2 host-side augmentation instead of the default "
+                        "device-side (device-resident) pipeline")
     p.add_argument("--dtype", default="bf16", choices=["f32", "bf16"],
                    help="convolution compute dtype (parameters and loss stay float32)")
     _device_flag(p)
@@ -680,6 +799,45 @@ def main(argv: list[str] | None = None) -> int:
                    help="comma-separated devices to trace for (default cuda,cpu)")
     _device_flag(p)
     p.set_defaults(func=cmd_export)
+
+    p = sub.add_parser("capture", help="timed dataset capture")
+    p.add_argument("--out", default="captures")
+    p.add_argument("--interval", type=float, default=2.0)
+    p.add_argument("--max-frames", type=int, default=1000)
+    p.set_defaults(func=cmd_capture)
+
+    p = sub.add_parser("view", help="live camera view")
+    p.set_defaults(func=cmd_view)
+
+    p = sub.add_parser("tune-camera", help="exposure/brightness/contrast tuning")
+    p.add_argument("--set", nargs="*", metavar="PROP=VALUE",
+                   help="headless: apply values and exit (e.g. exposure=3.5)")
+    p.set_defaults(func=cmd_tune_camera)
+
+    p = sub.add_parser("bench", help="run the throughput benchmark (not ported yet)")
+    p.set_defaults(func=cmd_bench)
+
+    p = sub.add_parser("tune-device", help="auto-tune the env-gated perf variants on this "
+                       "device; writes winning .env lines (not ported yet)")
+    p.add_argument("--batches", default="1,128")
+    p.add_argument("--imgsz", type=int, default=640)
+    p.add_argument("--frame-h", type=int, default=1080)
+    p.add_argument("--frame-w", type=int, default=1920)
+    p.add_argument("--variant", default="n")
+    p.add_argument("--mask-stride", type=int, default=4, choices=[2, 4],
+                   help="proto-head stride (2 = the hi-res deploy arch)")
+    p.add_argument("--proto-head", default="deconv", choices=["deconv", "subpixel"])
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--iters", type=int, default=30)
+    p.add_argument("--trials", default="", help="comma list (default: all)")
+    p.add_argument("--allow-approx", action="store_true",
+                   help="let approximate/quantized variants win")
+    p.add_argument("--subcell", action="store_true",
+                   help="time the sub-cell (soft-checkpoint) boundary readout")
+    p.add_argument("--int8-scales", default="",
+                   help="calibrated activation-scale JSON — adds quant=int8s")
+    p.add_argument("--out", default="tune.env")
+    p.set_defaults(func=cmd_tune_device)
 
     args = parser.parse_args(argv)
     try:

@@ -3,6 +3,11 @@ checkpoints, resume, and the export of the deploy checkpoint. The command
 line (``python -m tti_torch.cli train`` / ``export-weights``) and the card's
 smoke script both call these functions. ``train`` runs on every card of the
 host, and of every host of a ``TTI_COORDINATOR`` job, data-parallel.
+
+With ``host_aug`` the batches come from the host recipe instead
+(:func:`tti_torch.train.data.batches`, the reference's ``--host-aug``): each
+goes to the card through pinned memory (:func:`run_host`), into the same
+:class:`TrainStep`.
 """
 
 from __future__ import annotations
@@ -25,12 +30,16 @@ from tti_torch.parallel.mesh import batch_slice, create_mesh, replicate
 from tti_torch.train.augment import DeviceDataset, make_augment_fn, step_generator
 from tti_torch.train.checkpoint import (latest_checkpoint, load_train_payload,
                                         restore_train_state, save_train_state)
-from tti_torch.train.data import soft_class_ids
-from tti_torch.train.step import TrainState, TrainStep, create_train_state
+from tti_torch.train.data import batches, soft_class_ids
+from tti_torch.train.step import Targets, TrainState, TrainStep, create_train_state
 
 Tensor = torch.Tensor
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+# The reference's refusal of --resume with --host-aug.
+HOST_AUG_RESUME = ("--resume requires the device-aug path (the host batch iterator has no "
+                   "step-indexed stream to re-enter)")
 
 
 def seg_gains(stitch_seg_gain: float, num_classes: int,
@@ -153,6 +162,43 @@ def run(trainer: Trainer, start: int, total: int, out: str | None = None, log_ev
     return seen
 
 
+def host_batch_to_device(images, targets: Targets, device: str | torch.device,
+                         rows: slice | None = None) -> tuple[Tensor, Targets]:
+    """One host batch (:func:`tti_torch.train.data.batches`) on ``device``,
+    through pinned memory on a CUDA device; with ``rows``, only this rank's
+    rows of it (:func:`tti_torch.parallel.mesh.batch_slice`)."""
+    device = torch.device(device)
+    pinned = device.type == "cuda"
+
+    def put(t: Tensor) -> Tensor:
+        if rows is not None:
+            t = t[rows]
+        if pinned:
+            t = t.pin_memory()
+        return t.to(device, non_blocking=pinned)
+
+    return put(torch.from_numpy(images)), Targets(*(put(t) for t in (
+        targets.boxes, targets.classes, targets.masks, targets.valid)))
+
+
+def run_host(state: TrainState, step: TrainStep, host_batches, device: str | torch.device,
+             out: str | None = None, log_every: int = 10, checkpoint_every: int = 0,
+             rows: slice | None = None, log: Callable[[str], None] = print) -> int:
+    """One step per host batch of ``host_batches`` (``rows`` of each on a
+    data-parallel rank), with the reference's log line (``step N:``, no
+    total) every ``log_every`` steps and a checkpoint every
+    ``checkpoint_every``. Returns the number of steps."""
+    seen = 0
+    for images, targets in host_batches:
+        metrics = step(state, *host_batch_to_device(images, targets, device, rows))
+        seen += 1
+        if log_every and seen % log_every == 0:
+            log(f"step {seen}: " + " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()))
+        if out and checkpoint_every and seen % checkpoint_every == 0:
+            save_checkpoint(state, out, seen)
+    return seen
+
+
 def launches_per_card(device: str | torch.device) -> bool:
     """Whether ``train`` on ``device`` starts one process per local card: a
     CUDA device without an index on a host with more than one card, in a
@@ -202,16 +248,21 @@ def train_rank(samples, out: str, variant: str = "n", num_classes: int = 2, imgs
                log_every: int = 10, checkpoint_every: int = 500, resume: bool = False,
                mask_stride: int = 4, proto_head: str = "deconv", stitch_seg_gain: float = 1.0,
                soft_masks=None, dtype: str = "bf16", device: str = "cuda",
-               init: str | None = None, seed: int = 0,
+               init: str | None = None, seed: int = 0, host_aug: bool = False,
                log: Callable[[str], None] = print) -> str:
     """The run in this process: alone, or as one rank of the initialised
     group of more than one, where the ranks form a ``"data"`` mesh. There
     the dataset is on every card, the model starts as rank 0's, each rank
     steps on its rows of the global batch, only rank 0 logs and writes
     checkpoints (every rank waits for each), and ``resume`` restores on
-    every rank from ``out``, which every host must see (a shared directory)."""
+    every rank from ``out``, which every host must see (a shared directory).
+    ``host_aug``: the host recipe's batches (:func:`run_host`); every rank
+    makes the whole global batch from ``seed`` and steps on its rows. It
+    cannot resume."""
     from tti_torch.train.augment import build_device_dataset
 
+    if host_aug and resume:
+        raise ConfigError(HOST_AUG_RESUME)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if batch_size % world:
         raise ConfigError(f"--batch-size {batch_size} is the global batch: it must be a "
@@ -225,6 +276,15 @@ def train_rank(samples, out: str, variant: str = "n", num_classes: int = 2, imgs
     if mesh is not None:
         replicate(mesh, model)
     total = max(len(samples) // batch_size, 1) * epochs
+    if host_aug:
+        state = create_train_state(model, learning_rate=lr, total_steps=total)
+        step, _ = step_and_augment(imgsz, batch_size, max_gt, compute,
+                                   seg_gains(stitch_seg_gain, num_classes), mesh=mesh)
+        host = batches(samples, batch_size, imgsz, max_gt=max_gt, seed=seed, epochs=epochs,
+                       mask_stride=mask_stride, soft_masks=soft_masks)
+        seen = run_host(state, step, host, device, out, log_every, checkpoint_every,
+                        None if mesh is None else batch_slice(mesh, batch_size), log)
+        return save_checkpoint(state, out, seen)
     data = build_device_dataset(samples, imgsz, max_gt, mask_stride=mask_stride,
                                 soft_masks=soft_masks, device=device)
     trainer = build_trainer(data, model, batch_size, max_gt, total, lr, compute,
