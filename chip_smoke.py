@@ -152,6 +152,23 @@ exits non-zero without printing the final result line:
    step without a mesh (valid equal, scores 1e-5, boxes 1e-3 px, mm 1e-4);
    ``python -m tti_torch.cli train`` with the triple on 8 seeded scenes, 2
    steps (exit 0, one checkpoint); the phase's wall time;
+5f. spatial partitioning (``tti_torch.parallel.spatial``, a ``("data",
+   "space")`` mesh): a ``(1, 1)`` mesh over a one-rank NCCL job serves
+   the plain deploy step (every output equal at batch 8, A and D once, no
+   exchange, no synchronising call at batch 1); two gloo ranks sharing the
+   card (``tools/space_cards_torch.py`` workers, a ``(1, 2)`` mesh) run the
+   deploy and headline steps at full width against the step without a
+   mesh: float32 (TF32 off) at batch 1 and 2 at ``__graft_entry__.py``'s
+   bar, bf16 at batch 128 at phase 5b's bar (counts equal on 99% of the
+   frames, mm within 0.25, median 0.01; batch 1 and 2 printed), the
+   deploy int8 step (float32) at batch 2 and the headline kernel route
+   (kernel C on each slab's band of source rows) at batch 1 and 2 at the
+   float32 bar; per rank and step A or B once and D once (C once on the
+   kernel route; E and F 66 times under int8, with 66 MAX all-reduces), 44
+   halo exchanges and one gather; each rank's slab and
+   pass-1 source rows, batch-1 p50 and device busy per rank against the
+   plain step's, the host ms in the exchanges, the copies' device ms and
+   the bytes each gather moves; the phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -1240,12 +1257,13 @@ def check_step(torch, ms, wp, label, frame_hw, imgsz, ckpt, kernels, batch=4, **
 STAGES = ("preprocess", "forward", "detect", "measure")
 
 
-def device_time(torch, fn, steps):
+def device_time(torch, fn, steps, skip=None):
     """``fn`` run ``steps`` times under the profiler: device ms per step by
     kernel name, the device's busy ms per step (the union of its kernels'
     intervals) and its ops per step; busy is None without device events.
     User annotations on the device's timeline (``Optimizer.step#...``) span
-    the gaps between their kernels and are left out."""
+    the gaps between their kernels and are left out, and so are the events
+    whose name holds ``skip`` (lower case), from busy only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1257,7 +1275,8 @@ def device_time(torch, fn, steps):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-            spans.append((e.time_range.start, e.time_range.end))
+            if skip is None or skip not in e.name.lower():
+                spans.append((e.time_range.start, e.time_range.end))
     if not spans:
         return per_name, None, 0
     spans.sort()
@@ -3293,6 +3312,65 @@ def check_data_parallel(torch, ms, wp, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5f: spatial partitioning (the "space" mesh axis)
+# ---------------------------------------------------------------------------
+
+SPACE_DIR = os.path.join(HERE, "build", "space_smoke")
+
+
+def check_space(torch, ms, wp, card) -> dict:
+    """Phase 5f (see the module docstring)."""
+    import torch.distributed as dist
+
+    from space_cards_torch import launch, summary_lines
+    from tti_torch.parallel import dcn, spatial
+    from tti_torch.parallel.mesh import create_mesh
+
+    t_phase = time.perf_counter()
+    result = {"card": card}
+    check(dcn.init_distributed(dcn.free_local_coordinator(), 1, 0, device="cuda"),
+          "init_distributed did not start the one-rank job")
+    try:
+        check(dist.get_backend() == "nccl", f"the card's group runs {dist.get_backend()}")
+        grid = create_mesh((1, 1), ("data", "space"), device_type="cuda")
+        hw, imgsz, ckpt = CONFIGS["deploy"]
+        plain = build_pipeline(torch, hw, imgsz, ckpt)
+        one_rank = build_pipeline(torch, hw, imgsz, ckpt, mesh=grid)
+        check(one_rank.space is None, "a space axis of one rank must run the plain step")
+        frames = torch.from_numpy(textile(hw, 8)).cuda()
+        ref = plain.step(frames)
+        reset_launch_counts(ms, wp)
+        spatial.reset_counts()
+        got = one_rank.step(frames)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts(ms, wp).items() if v}
+        check(launches == {"mask_stats_soft": 1, "greedy_keep": 1},
+              f"(1, 1) space mesh: launches per step {launches}")
+        check(not any(spatial.COUNTS.values()), f"(1, 1) space mesh exchanged: {spatial.COUNTS}")
+        n = same_tree(torch, got, ref, "(1, 1) space mesh step")
+        syncs = check_step_syncs(torch, one_rank, "(1, 1) space mesh deploy step",
+                                 frames[:1].contiguous())["syncs"]
+        result["one_rank_nccl"] = {"outputs": n, "launches": launches, "syncs": syncs}
+        log(f"(1, 1) (data, space) mesh over a one-rank NCCL job, deploy bf16 at batch 8: {n} "
+            f"outputs equal to the plain step's, launches {launches}, no exchange, {syncs} "
+            "synchronising calls at batch 1")
+        del plain, one_rank, frames, ref, got
+        torch.cuda.empty_cache()
+    finally:
+        dcn.shutdown()
+    t0 = time.perf_counter()
+    ranks = launch(2, "gloo", os.path.join(SPACE_DIR, "space2"))
+    result["gloo_2"] = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+    for line in summary_lines(ranks, "space 2, two gloo ranks sharing the card"):
+        log(line)
+    log(f"space 2: {result['gloo_2']['wall_s']:.1f} s with the processes' start")
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"spatial phase: {result['wall_s']:.1f} s")
+    log(card)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: training
 # ---------------------------------------------------------------------------
 
@@ -4626,6 +4704,13 @@ def main() -> int:
     mesh_launches = {**{tag: v["launches"] for tag, v in data_parallel["steps"].items()},
                      "dual": data_parallel["dual"]["launches"]}
 
+    # Phase 5f: spatial partitioning, on the one card.
+    log("spatial partitioning (a (data, space) mesh: a one-rank NCCL job, then two gloo ranks "
+        "sharing the card):")
+    space = check_space(torch, ms, wp, card)
+    space_launches = {tag: run["launches"]
+                      for tag, run in space["gloo_2"]["ranks"][0]["runs"].items()}
+
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
 
@@ -4773,11 +4858,14 @@ def main() -> int:
         k["host_us_per_call"] = frozen["host_us_per_call"].get(k["name"])
         # Launches per mesh step (phase 5e), by configuration: the one-card step's.
         k["mesh_launches"] = {tag: n.get(k["name"], 0) for tag, n in mesh_launches.items()}
+        # Launches per rank and step of the space step (phase 5f, two ranks).
+        k["space_launches"] = {tag: n.get(k["name"], 0) for tag, n in space_launches.items()}
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
-        "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel},
+        "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
+        "space": space},
         "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ measurement loop and a training step run with all of them blocked, and with
 the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too.
 The calibration modules import without OpenCV (it is imported where it is
 used), and ``tools/measure_report_torch.py``, ``tools/calibrate_int8_torch.py``,
-``tools/calibrate_offsets_torch.py`` and ``tools/proto_ceiling_torch.py``
-import neither tti nor the tools they stand beside."""
+``tools/calibrate_offsets_torch.py``, ``tools/proto_ceiling_torch.py`` and
+``tools/space_cards_torch.py`` import neither tti nor the tools they stand
+beside."""
 
 import os
 import re
@@ -30,6 +31,7 @@ for name in ("tti_torch.native", "tti_torch.app.sources", "tti_torch.parallel.st
              "tti_torch.kernels.warp_p1", "tti_torch.kernels.nms", "tti_torch.kernels.int8conv",
              "tti_torch.model.quantize", "tti_torch.core.logging", "tti_torch.cli.__main__",
              "tti_torch.model.convert", "tti_torch.parallel.mesh", "tti_torch.parallel.dcn",
+             "tti_torch.parallel.spatial",
              *(f"tti_torch.train.{m}" for m in ("assigner", "losses", "step", "augment", "data",
                                                "checkpoint", "loop", "eval")),
              *(f"tti_torch.services.{m}" for m in ("hardware", "serial_reader", "database",
@@ -44,6 +46,7 @@ import calibrate_int8_torch
 import parity_report_torch
 import calibrate_offsets_torch
 import proto_ceiling_torch
+import space_cards_torch
 assert "measure_report" not in sys.modules and "tools.measure_report" not in sys.modules
 assert "calibrate_int8" not in sys.modules
 for name in ("calibrate_offsets", "tools.calibrate_offsets", "proto_ceiling",

@@ -1,10 +1,12 @@
 """The port's mesh and multi-host helpers (``tti_torch.parallel.mesh`` and
 ``dcn``) on the CPU: ``tti``'s ``TTI_*`` triple read as ``tti`` reads it,
-the rank mapping (one process per card), ``create_mesh``'s shapes and
-refusals on a one-rank gloo group in this process, ``batch_slice`` and its
-refusal, and ``gather_batch`` on a tree of every dtype the step returns.
-Two ranks run in ``test_torch_runtime_mesh.py``, ``test_torch_train_sharded.py``
-and ``test_torch_dcn.py``."""
+the rank mapping (one process per card), ``create_mesh``'s shapes (a
+``("data", "space")`` mesh included) and refusals on a one-rank gloo group
+in this process, ``batch_slice`` and its refusal, what a pipeline on a
+space mesh refuses, and ``gather_batch`` on a tree of every dtype the step
+returns. Two and four ranks run in ``test_torch_runtime_mesh.py``,
+``test_torch_runtime_space.py``, ``test_torch_train_sharded.py`` and
+``test_torch_dcn.py``; the space axis's halos in ``test_torch_spatial.py``."""
 
 from dataclasses import dataclass
 
@@ -15,8 +17,8 @@ import torch.distributed as dist
 
 from tti_torch.core.errors import ConfigError
 from tti_torch.parallel import dcn
-from tti_torch.parallel.mesh import (SPACE_REFUSED, batch_slice, create_mesh, gather_batch,
-                                     replicate)
+from tti_torch.parallel.mesh import (batch_slice, create_mesh, gather_batch, replicate,
+                                     space_group)
 
 TRIPLE = (dcn.ENV_COORD, dcn.ENV_NPROC, dcn.ENV_PID)
 
@@ -89,9 +91,12 @@ def test_create_mesh_shapes_and_refusals(one_rank):
     assert create_mesh((1, 1), ("data", "model"), device_type="cpu").mesh.shape == (1, 1)
     with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
         create_mesh((2,), device_type="cpu")
-    with pytest.raises(ConfigError, match="ROADMAP Queue 1 item 6") as e:
-        create_mesh((1, 1), ("data", "space"), device_type="cpu")
-    assert str(e.value) == SPACE_REFUSED
+    assert space_group(mesh) is None
+    # The (data, space) mesh of spatial partitioning: this rank's space group.
+    grid = create_mesh((1, 1), ("data", "space"), device_type="cpu")
+    assert grid.mesh_dim_names == ("data", "space") and grid.mesh.shape == (1, 1)
+    group, rank, size = space_group(grid)
+    assert (rank, size) == (0, 1) and dist.get_world_size(group) == 1
     with pytest.raises(ValueError, match="does not match"):
         create_mesh((1,), ("data", "model"), device_type="cpu")
 
@@ -126,18 +131,54 @@ def test_batch_slice_refusals():
         batch_slice(_Mesh(("data",), (2,), (0,)), 5)
     # A mesh without a data axis serves every row on every rank (a P(None) sharding).
     assert batch_slice(_Mesh(("model",), (2,), (1,)), 5) == slice(0, 5)
-    with pytest.raises(ConfigError, match="ROADMAP Queue 1 item 6"):
-        batch_slice(_Mesh(("data", "space"), (1, 2), (0, 0)), 4)
+    # A (data, space) mesh: the ranks of a space group serve the same rows.
+    grid = [[batch_slice(_Mesh(("data", "space"), (2, 2), (d, s)), 4) for s in (0, 1)]
+            for d in (0, 1)]
+    assert grid == [[slice(0, 2)] * 2, [slice(2, 4)] * 2]
+    with pytest.raises(ValueError, match="a batch of 3 does not split"):
+        batch_slice(_Mesh(("data", "space"), (2, 2), (0, 1)), 3)
 
 
-def test_pipeline_refuses_a_space_mesh():
+def test_pipeline_refuses_a_space_mesh(monkeypatch):
+    """What a space mesh cannot serve is refused by name, before any weight
+    is read: the banded warp (ROADMAP Queue 1 item 7), and more ranks than
+    the model input has P5 rows (a 64-row input has 2)."""
     from tti_torch.core.config import ModelConfig
-    from tti_torch.parallel.runtime import InspectionPipeline
+    from tti_torch.parallel import runtime
+    from tti_torch.parallel.spatial import Space, slab_plan
 
     mesh = _Mesh(("data", "space"), (1, 2), (0, 0))
     mesh.device_type = "cpu"
-    with pytest.raises(ConfigError, match="ROADMAP Queue 1 item 6"):
-        InspectionPipeline(ModelConfig(image_size=64), {}, (48, 64), device="cpu", mesh=mesh)
+    for size, kw, match in ((2, {"warp_block": 16}, "ROADMAP Queue 1 item 7"),
+                            (4, {}, "4 ranks over a model input of 2 P5 rows")):
+        monkeypatch.setattr(runtime, "space_of",
+                            lambda m, h, size=size: Space(slab_plan(h, size), 0, None))
+        with pytest.raises(ConfigError, match=match):
+            runtime.InspectionPipeline(ModelConfig(image_size=64), {}, (48, 64), device="cpu",
+                                       mesh=mesh, **kw)
+
+
+def test_one_rank_space_mesh_serves_the_plain_step(one_rank, ref_intrinsics):
+    """A space axis of one rank is no partitioning (as XLA inserts nothing on
+    it): the step on a (1, 1) mesh equals the step without a mesh, bit for
+    bit, and exchanges nothing."""
+    from tests.torch_dist import _port_pipeline
+    from tests.torch_synth import textile_frames
+    from tti_torch.parallel.spatial import COUNTS, reset_counts
+
+    mesh = create_mesh((1, 1), ("data", "space"), device_type="cpu")
+    pipe = _port_pipeline("headline", ref_intrinsics, mesh)
+    assert pipe.space is None and pipe.input_rows is None
+    frames = textile_frames(2, *pipe.frame_hw, seed=5)
+    reset_counts()
+    got = pipe.process_batch(frames)
+    assert COUNTS == dict.fromkeys(COUNTS, 0)
+    want = _port_pipeline("headline", ref_intrinsics).process_batch(frames)
+    for key in ("boxes_frame", "scores", "classes", "valid", "envelope"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+    for key in ("raw_edge_mm", "raw_width_mm", "n_stitches"):
+        np.testing.assert_array_equal(getattr(got.measurements, key),
+                                      getattr(want.measurements, key), err_msg=key)
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""Two-rank data-parallel checks of the port on the CPU: the launcher the
-tests call and the worker each rank runs.
+"""Multi-rank checks of the port on the CPU (data-parallel and spatial):
+the launcher the tests call and the worker each rank runs.
 
 ``run_ranks(case, ...)`` starts ``python -m tests.torch_dist <case> <dir>``
 twice, as ranks 0 and 1 of a gloo job on 127.0.0.1 (a free port, ``tti``'s
@@ -15,6 +15,11 @@ Cases (inputs in ``dir/inputs.npz``):
   the two ranks against the same step without a mesh on the whole batch
   (``process_batch``, and the mesh step's ``process_batch_async`` and
   ``step`` entries);
+- ``space_<kind>`` (kind ``step``, ``dual``, ``int8s``, ``int8``) and
+  ``grid_step``: the same on a ``("data", "space")`` mesh of ``(1, 2)``
+  and ``(2, 2)`` ranks (``MESHES``), on the geometry and batch of the
+  inputs file, with each rank's counts of the spatial exchanges of one
+  step;
 - ``train``: the data-parallel ``TrainStep`` and its trainer.
 """
 
@@ -101,6 +106,9 @@ def launch(argv_of_rank, world: int = 2, env_extra: dict | None = None,
     return results
 
 
+MESHES = {"space": ((1, 2), ("data", "space")), "grid": ((2, 2), ("data", "space"))}
+
+
 def run_ranks(case: str, workdir: Path, world: int = 2) -> list[dict]:
     """Run ``case`` on ``world`` gloo ranks; each rank's arrays."""
     results = launch(lambda r: [sys.executable, "-m", "tests.torch_dist", case, str(workdir)],
@@ -164,14 +172,18 @@ def _inference(case: str, inputs: dict, mesh) -> dict:
     a mesh on the whole batch."""
     import torch
 
+    from tti_torch.parallel import spatial
     from tti_torch.parallel.runtime import DualPipeline, InspectionPipeline
 
+    case = case.split("_", 1)[-1]
     frames = inputs["frames"]
     intrinsics = (inputs["K"], inputs["dist"])
-    kw = {"quant": "int8s", "quant_scales": str(inputs["scales"])} if case == "int8s" else {}
+    geometry = str(inputs["geometry"]) if "geometry" in inputs else "headline"
+    kw = ({"quant": "int8s", "quant_scales": str(inputs["scales"])} if case == "int8s"
+          else {"quant": "int8"} if case == "int8" else {})
 
     def build(m):
-        pipe = _port_pipeline("headline", intrinsics, m, **kw)
+        pipe = _port_pipeline(geometry, intrinsics, m, **kw)
         if case != "dual":
             return pipe
         return DualPipeline(pipe, _port_pipeline("headline_b", intrinsics, m))
@@ -179,7 +191,10 @@ def _inference(case: str, inputs: dict, mesh) -> dict:
     arrays = {}
     for tag, m in (("mesh", mesh), ("single", None)):
         step = build(m)
+        spatial.reset_counts()
         outs = step.process_batch(frames)
+        if m is not None:
+            arrays.update({f"counts/{k}": np.array(v) for k, v in spatial.COUNTS.items()})
         if case == "dual":
             arrays.update(outputs_to_arrays(outs[0], f"{tag}_a"))
             arrays.update(outputs_to_arrays(outs[1], f"{tag}_b"))
@@ -276,7 +291,8 @@ def main(argv: list[str]) -> int:
     torch.set_num_threads(2)
     assert dcn.init_distributed(device="cpu")  # the TTI_* triple, gloo
     try:
-        mesh = create_mesh(device_type="cpu")
+        shape = MESHES.get(case.split("_", 1)[0])
+        mesh = create_mesh(*shape, device_type="cpu") if shape else create_mesh(device_type="cpu")
         if case == "train":
             arrays = _train(os.path.join(workdir, "ckpt"), mesh)
         else:

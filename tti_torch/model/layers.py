@@ -36,11 +36,14 @@ def autopad(k: int, d: int = 1) -> int:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its input's dtype."""
+    """``nn.Conv2d`` that computes in its input's dtype; ``padding``
+    overrides the module's own."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding: int | None = None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        if padding is None:
+            return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, padding)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -143,7 +146,15 @@ class Conv(nn.Module):
     and ``qpacked``, the (co, Kp) layout kernel E reads, packed once when
     the state dict is loaded (not saved). The float32 buffers stay float32
     when the model is cast (:func:`tti_torch.parallel.runtime.inference_model`).
+
+    ``space`` (None unless :func:`tti_torch.parallel.spatial.set_space`
+    gives one): the input is this rank's slab of the frame's rows. A
+    'same'-padded conv then takes its :meth:`halo_rows` from the
+    neighbouring slabs and runs unpadded on them; under "int8" each
+    sample's scale is the maximum over the group (the whole sample's).
     """
+
+    space = None
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  pad: int | None = None, act: bool = True, folded: bool = True,
@@ -154,10 +165,10 @@ class Conv(nn.Module):
         self.act = act
         self.qmode = qmode
         p = autopad(k) if pad is None else pad
+        self.k, self.s, self.p = k, s, p
         if qmode:
             if not folded:
                 raise ValueError(f"qmode={qmode!r} requires folded BatchNorm")
-            self.k, self.s, self.p = k, s, p
             self.register_buffer("qweight", torch.zeros(c2, k, k, c1, dtype=torch.int8))
             self.register_buffer("qscale", torch.ones(c2))
             self.register_buffer("bias", torch.zeros(c2))
@@ -174,12 +185,28 @@ class Conv(nn.Module):
         if self.qmode:
             self.qpacked = pack_qweight(self.qweight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def halo_rows(self) -> tuple[int, int]:
+        """Rows a slab needs from above and below: ``p`` and ``k - s - p``
+        for 'same' padding ``p`` (1, 1 at k3/s1; 1, 0 at k3/s2 on an
+        even-aligned slab); none unpadded (a caller that pads, as the s2d
+        stem's, gives the halo itself)."""
+        return (self.p, self.k - self.s - self.p) if self.p else (0, 0)
+
+    def forward(self, x: torch.Tensor, xh: torch.Tensor | None = None) -> torch.Tensor:
+        """``xh`` (with ``space``): ``x`` with its halo rows and zero
+        columns, when the caller exchanged once for several convs that
+        read ``x``."""
+        pad, xin = self.p, x
+        if self.space is not None and pad:
+            xin = xh if xh is not None else self.space.halo(x, *self.halo_rows(), wpad=pad)
+            pad = 0
         if self.qmode:
             xscale = self.ascale if self.qmode == "int8s" else act_scale_per_sample(x)
-            return int8_conv2d(x, self.qpacked, self.qscale, self.bias, xscale, self.k,
-                               self.s, self.p, self.act)
-        x = self.conv(x)
+            if self.space is not None and self.qmode == "int8":
+                xscale = self.space.max(xscale)
+            return int8_conv2d(xin, self.qpacked, self.qscale, self.bias, xscale, self.k,
+                               self.s, pad, self.act)
+        x = self.conv(xin) if pad == self.p else self.conv(xin, padding=pad)
         if hasattr(self, "bn"):
             x = self.bn(x)
         return F.silu(x) if self.act else x
@@ -223,7 +250,11 @@ class C2f(nn.Module):
 
 
 class SPPF(nn.Module):
-    """Spatial pyramid pooling (fast): 3 chained k-pools, concat, project."""
+    """Spatial pyramid pooling (fast): 3 chained k-pools, concat, project.
+    With ``space`` (see :class:`Conv`) each pool takes ``k // 2`` rows each
+    way from the neighbouring slabs, -inf beyond the frame as its padding."""
+
+    space = None
 
     def __init__(self, c1: int, c2: int, k: int = 5, folded: bool = True,
                  qmode: str = "") -> None:
@@ -234,8 +265,13 @@ class SPPF(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pools = [self.cv1(x)]
+        r = self.k // 2
         for _ in range(3):
-            pools.append(F.max_pool2d(pools[-1], self.k, 1, self.k // 2))
+            if self.space is None:
+                pools.append(F.max_pool2d(pools[-1], self.k, 1, r))
+            else:
+                xh = self.space.halo(pools[-1], r, r, float("-inf"))
+                pools.append(F.max_pool2d(xh, self.k, 1, (0, r)))
         return self.cv2(torch.cat(pools, dim=1))
 
 

@@ -80,7 +80,11 @@ class Segment(nn.Module):
     :func:`tti_torch.model.checkpoint.fuse_head_entries`), whose output is
     sliced into the box, class and coefficient groups. Exact. ``qmode``
     quantizes every ``Conv`` block; the exit 1x1 convs ``*_{level}_2`` and
-    the proto head's upsamples stay float, as in the reference."""
+    the proto head's upsamples stay float, as in the reference. With
+    ``space`` (see :class:`tti_torch.model.layers.Conv`) a level's three
+    entry convs share one halo exchange."""
+
+    space = None
 
     def __init__(self, nc: int = 2, nm: int = 32, npr: int = 64,
                  ch: tuple[int, int, int] = (64, 128, 256), mask_stride: int = 4,
@@ -115,7 +119,10 @@ class Segment(nn.Module):
             if self.fused_entry:  # channel slices of one conv (strided views)
                 entries = getattr(self, f"cvh_{level}")(x).split(self.split, dim=1)
             else:
-                entries = [getattr(self, f"{name}_{level}_0")(x) for name in ("cv2", "cv3", "cv4")]
+                convs = [getattr(self, f"{name}_{level}_0") for name in ("cv2", "cv3", "cv4")]
+                xh = (None if self.space is None
+                      else self.space.halo(x, *convs[0].halo_rows(), wpad=convs[0].p))
+                entries = [conv(x, xh) for conv in convs]
             box.append(self._branch("cv2", level, entries[0]))
             cls.append(self._branch("cv3", level, entries[1]))
             coef.append(self._branch("cv4", level, entries[2]))
@@ -151,8 +158,12 @@ class YOLOv8Seg(nn.Module):
     convs. ``dtype``: the compute dtype the input is cast to
     (None: the parameters' dtype). ``qmode``: "" (float) | "int8" | "int8s",
     the W8A8 ``Conv`` blocks of :mod:`tti_torch.model.quantize` (folded BN
-    only).
+    only). ``space`` (see :class:`tti_torch.model.layers.Conv`): the input
+    is this rank's slab of rows, and the s2d stem's top padding row comes
+    from the slab above.
     """
+
+    space = None
 
     def __init__(self, variant: str = "n", nc: int = 2, nm: int = 32,
                  mask_stride: int = 4, proto_head: str = "deconv",
@@ -193,7 +204,12 @@ class YOLOv8Seg(nn.Module):
         if self.s2d_stem and not self.s2d_input:
             x = space_to_depth2(x)
         z = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x0 = self.m0s2d(F.pad(z, (1, 0, 1, 0))) if self.s2d_stem else self.m0(z)
+        if not self.s2d_stem:
+            x0 = self.m0(z)
+        elif self.space is None:
+            x0 = self.m0s2d(F.pad(z, (1, 0, 1, 0)))
+        else:
+            x0 = self.m0s2d(F.pad(self.space.halo(z, 1, 0), (1, 0, 0, 0)))
         x2 = self.m2(self.m1(x0))
         x4 = self.m4(self.m3(x2))  # P3
         x6 = self.m6(self.m5(x4))  # P4

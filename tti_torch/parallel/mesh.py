@@ -9,9 +9,12 @@ each rank serves the rows :func:`batch_slice` gives it, and
 into the global batch, as a ``P("data")``-sharded output read whole.
 
 No model parallelism, as in ``tti``: YOLOv8n-seg fits on one card many
-times over. A ``"space"`` axis (``tti``'s spatial partitioning of the frame
-height, whose halo exchanges XLA's SPMD partitioner inserts) has no
-counterpart here and is refused, never run as data parallelism.
+times over. A second axis ``"space"`` is ``tti``'s spatial partitioning of
+the frame height (``create_mesh(shape, ("data", "space"))``): every rank of
+a space group holds the same frames and computes a slab of their rows,
+with the halo exchanges that XLA's SPMD partitioner inserts in ``tti``
+done by hand (:mod:`tti_torch.parallel.spatial`; :func:`space_group` is
+this rank's group of that axis).
 """
 
 from __future__ import annotations
@@ -23,14 +26,6 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from tti_torch.core.errors import ConfigError
-
-SPACE_REFUSED = (
-    "a 'space' mesh axis (tti's spatial partitioning of the frame height, "
-    "tti/parallel/mesh.py:43 frame_sharding) is not ported: PyTorch has no SPMD partitioner "
-    "to insert the convolutions' halo exchanges; it waits for ROADMAP Queue 1 item 6 "
-    "(spatial partitioning). Use a mesh with the 'data' axis alone.")
-
 
 def create_mesh(shape: tuple[int, ...] | None = None,
                 axis_names: tuple[str, ...] = ("data",), device_type: str = "cuda"):
@@ -40,8 +35,6 @@ def create_mesh(shape: tuple[int, ...] | None = None,
     one that needs fewer (each rank drives one card of the mesh)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if "space" in axis_names:
-        raise ConfigError(SPACE_REFUSED)
     if not dist.is_initialized():
         raise ValueError("create_mesh needs the process group: call "
                          "tti_torch.parallel.dcn.init_distributed first")
@@ -58,15 +51,23 @@ def create_mesh(shape: tuple[int, ...] | None = None,
 
 def _axis_of(mesh, axis: str) -> int | None:
     names = mesh.mesh_dim_names or ()
-    if "space" in names:
-        raise ConfigError(SPACE_REFUSED)
     return names.index(axis) if axis in names else None
+
+
+def space_group(mesh):
+    """(process group, rank in it, size) of this rank's row of the mesh's
+    ``"space"`` axis: the ranks that hold the same frames, each a slab of
+    their rows. None on a mesh without that axis."""
+    if mesh is None or _axis_of(mesh, "space") is None:
+        return None
+    group = mesh.get_group("space")
+    return group, dist.get_rank(group), dist.get_world_size(group)
 
 
 def batch_slice(mesh, n: int, axis: str = "data") -> slice:
     """The rows of a global batch of ``n`` that this rank serves: its block
     of ``n / size`` along the mesh's ``axis`` (all ``n`` rows on a mesh
-    without it). A batch that is not a multiple of the axis raises
+    without it). Every rank of a ``"space"`` group gets the same rows. A batch that is not a multiple of the axis raises
     ``ValueError``, as a ``P("data")`` sharding does."""
     dim = _axis_of(mesh, axis)
     if dim is None:

@@ -33,6 +33,17 @@ sharded step does: each rank runs the unchanged step on its rows
 (:func:`tti_torch.parallel.mesh.batch_slice`) on its own card, with the
 weights, warp and calibration replicated, and one all-gather gives every
 rank the global batch's outputs. Callers never branch.
+
+On a ``("data", "space")`` mesh (``tti``'s ``frame_sharding``: the frame's
+height over the ``space`` axis, the one mesh shape that cuts the latency of
+one frame) every rank of a space group takes the same frames and computes
+one slab of the model input's rows (:mod:`tti_torch.parallel.spatial`):
+the preprocess emits only those rows (the warp's :meth:`TwoPassWarp.rows`,
+the gather's :meth:`PackedRemap.rows`, the letterbox's ``rows``), the
+forward exchanges each convolution's and pool's halo rows with the
+neighbouring slabs, and each head level's output and the protos are
+gathered along H before detect and measure, which then run whole on every
+rank of the group. The banded warp (``warp_block``) is refused there.
 """
 
 from __future__ import annotations
@@ -60,7 +71,8 @@ from tti_torch.model.quantize import check_quant, load_act_scales, quantize_weig
 from tti_torch.model.yolo import (
     RawPredictions, create_model, depth_to_space2, space_to_depth2,
 )
-from tti_torch.parallel.mesh import SPACE_REFUSED, batch_slice, gather_batch
+from tti_torch.parallel.mesh import batch_slice, gather_batch
+from tti_torch.parallel.spatial import set_space, space_of
 from tti_torch.postprocess.decode import Detections, decode_predictions
 from tti_torch.postprocess.masks import assemble_masks
 from tti_torch.postprocess.nms import batched_nms, nms_from_raw, raw_candidate_counts
@@ -249,8 +261,9 @@ class InspectionPipeline:
     ``maskstats_logits``: "auto" (bf16 soft, f32 binary) | "f32" | "bf16",
     the mask-logit dtype of both readouts.
     ``return_masks``: also return proto-resolution binary masks.
-    ``mesh``: a data-parallel ``DeviceMesh`` of this process's card type
-    (the module's docstring); a ``"space"`` axis is refused.
+    ``mesh``: a ``DeviceMesh`` of this process's card type, ``("data",)``
+    or ``("data", "space")`` (the module's docstring); on a space axis of
+    more than one rank ``warp_block`` is refused (ROADMAP Queue 1 item 7).
     """
 
     def __init__(self, model_cfg: ModelConfig, variables: dict, frame_hw: tuple[int, int],
@@ -285,8 +298,6 @@ class InspectionPipeline:
             raise ConfigError(f"undistort_interp must be bilinear|nearest, got {undistort_interp!r}")
         self.device = torch.device(device)
         if mesh is not None:
-            if "space" in (mesh.mesh_dim_names or ()):
-                raise ConfigError(SPACE_REFUSED)
             if mesh.device_type != self.device.type:
                 raise ConfigError(f"a {mesh.device_type} mesh cannot serve a pipeline on "
                                   f"{self.device}")
@@ -301,11 +312,19 @@ class InspectionPipeline:
         self.spec: LetterboxSpec = make_letterbox_spec(
             frame_hw[0], frame_hw[1], model_cfg.image_size, model_cfg.letterbox)
         self.dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
+        # This rank's slab of the model input's rows on a space mesh, else None.
+        self.space = space_of(mesh, self.spec.dst_h) if mesh is not None else None
+        if self.space is not None and warp_block is not None:
+            raise ConfigError(
+                f"warp_block={warp_block} on a space mesh: the banded warp's bands are not cut "
+                "on the slabs' rows; it waits for ROADMAP Queue 1 item 7 (the banded warp on a "
+                "space mesh). Use the dense two-pass warp (warp_block=None)")
 
         self.quant = quant
         self.model = inference_model(model_cfg, variables, self.device, s2d_input=warp_s2d,
                                      fused_head=fused_head, fold_bn=fold_bn, quant=quant,
                                      quant_scales=quant_scales)
+        set_space(self.model, self.space)
 
         self.roi_bounds: tuple[float, float, float, float] | None = None
         if roi is not None and roi.enabled:
@@ -339,6 +358,12 @@ class InspectionPipeline:
                 raise ConfigError(f"warp_pass1='kernel' at {frame_hw}, imgsz "
                                   f"{model_cfg.image_size}: {why}")
             self.warp.pass1_window()  # the kernel's table, before any step or trace
+        # What this rank's preprocess emits: the model input's rows
+        # [r0, r1) of its slab (with the warp's weights of those rows only),
+        # or all of them.
+        self.input_rows = None if self.space is None else self.space.input_rows()
+        if self.input_rows is not None and self.warp is not None:
+            self.warp = self.warp.rows(*self.input_rows)
         two_pass = isinstance(self.warp, TwoPassWarp)
         for name, asked, applies in (
                 ("warp_block", warp_block is not None, two_pass),
@@ -370,23 +395,28 @@ class InspectionPipeline:
         """uint8 BGR (B, H, W, 3) on the device -> the model input in the
         compute dtype: (B, H/2, W/2, 12) blocked when the model takes it so
         (the s2d-emitting warp gives that for free, every other path blocks
-        here), else (B, H, W, 3)."""
+        here), else (B, H, W, 3). On a space mesh: this rank's slab of
+        those rows."""
         want_s2d = self.model.s2d_input
-        if isinstance(self.warp, TwoPassWarp):
+        warp = self.warp
+        if isinstance(warp, TwoPassWarp):
             if self.warp_pass1 == "kernel":
                 k = decimation_stride(self.spec)
-                i1 = warp_pass1_decimated(frames_u8, self.warp.w1, self.warp.pass1_window(),
+                y0, y1 = warp.src_rows
+                if (y0, y1) != (0, self.spec.new_h):  # the frames' rows of the slab's band
+                    frames_u8 = frames_u8[:, k * y0:k * y1].contiguous()
+                i1 = warp_pass1_decimated(frames_u8, warp.w1, warp.pass1_window(),
                                           k=k, off=(k - 1) // 2,
-                                          hs=self.spec.new_h, ws=self.spec.new_w,
-                                          pad_value=self.warp.pad_value)
-                out = self.warp.apply_pass2_ycbo(i1, self.dtype)
+                                          hs=y1 - y0, ws=self.spec.new_w,
+                                          pad_value=warp.pad_value)
+                out = warp.apply_pass2_ycbo(i1, self.dtype)
             else:
-                out = letterbox_then_undistort(frames_u8, self.spec, self.warp, self.dtype)
+                out = letterbox_then_undistort(frames_u8, self.spec, warp, self.dtype)
             return out  # blocked iff the model takes it so: both follow ``warp_s2d``
-        if self.warp is not None:
-            out = letterbox_then_undistort(frames_u8, self.spec, self.warp, self.dtype)
+        if warp is not None:
+            out = letterbox_then_undistort(frames_u8, self.spec, warp, self.dtype)
         else:
-            out = letterbox_u8(frames_u8, self.spec, self.dtype)
+            out = letterbox_u8(frames_u8, self.spec, self.dtype, rows=self.input_rows)
         return space_to_depth2(out) if want_s2d else out
 
     def detect(self, raw: RawPredictions) -> tuple[Detections, dict]:
@@ -422,8 +452,12 @@ class InspectionPipeline:
     def postprocess_chain(self, x: torch.Tensor) -> dict:
         """Model input -> forward, detect, measure, optional masks and frame
         boxes (device tensors). ``DualPipeline`` runs it once per model on
-        one preprocessed batch."""
+        one preprocessed batch. On a space mesh ``x`` is this rank's slab,
+        and the forward's outputs are gathered along H, level by level,
+        before detect."""
         raw = self.model(x)
+        if self.space is not None:
+            raw = self.space.gather_rows(raw)
         dets, telemetry = self.detect(raw)
         outs: dict[str, Any] = {"dets": dets, "telemetry": telemetry}
         if self.cam is not None:
@@ -507,7 +541,8 @@ class DualPipeline:
     ``quant_scales`` included, as ``tti``'s environment gives both. With a
     mesh, both pipelines hold the same one: each rank runs both chains on
     its rows of one preprocessed slab, and one all-gather returns both
-    models' global outputs."""
+    models' global outputs; on a space mesh that slab is also this rank's
+    rows of the frame, and each chain gathers its own head outputs."""
 
     def __init__(self, primary: InspectionPipeline, secondary: InspectionPipeline) -> None:
         if secondary.mesh is not primary.mesh:
@@ -536,7 +571,8 @@ class DualPipeline:
             # Same lens, geometry, blocking, bands and column expansion:
             # identical weights. Only the
             # primary's preprocess runs here, so the secondary's copy is
-            # dropped (and freed) and its standalone step shares this one.
+            # dropped (and freed) and its standalone step shares this one
+            # (on one mesh, the same slab of it).
             secondary.warp = primary.warp
         self.primary = primary
         self.secondary = secondary

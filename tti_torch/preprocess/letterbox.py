@@ -91,28 +91,39 @@ def decimation_stride(spec: LetterboxSpec) -> int | None:
 
 
 def letterbox_content(frames_bgr_u8: Tensor, spec: LetterboxSpec, dtype=torch.float32,
-                      decimate: bool = False) -> Tensor:
+                      decimate: bool = False, rows: tuple[int, int] | None = None) -> Tensor:
     """uint8 BGR (B, H, W, 3) -> normalized RGB content (B, new_h, new_w, 3),
     the letterbox without its padding. ``decimate=True`` takes the exact
     strided slice when the geometry is an odd-integer decimation (bit-exact
-    against the bilinear resize)."""
+    against the bilinear resize). ``rows=(y0, y1)``: content rows [y0, y1)
+    only; the decimation reads those source rows alone, the bilinear resize
+    runs on the whole frame first."""
+    y0, y1 = rows if rows is not None else (0, spec.new_h)
     k = decimation_stride(spec) if decimate else None
     if k is not None:
         off = (k - 1) // 2
-        small = frames_bgr_u8[:, off::k, off::k, :][:, :spec.new_h, :spec.new_w, :]
+        small = frames_bgr_u8[:, off + k * y0::k, off::k, :][:, :y1 - y0, :spec.new_w, :]
         return normalize(bgr_to_rgb(small), dtype)
     x = normalize(bgr_to_rgb(frames_bgr_u8), dtype).permute(0, 3, 1, 2)
     x = F.interpolate(x, size=(spec.new_h, spec.new_w), mode="bilinear",
                       align_corners=False, antialias=False)
-    return x.permute(0, 2, 3, 1)
+    x = x.permute(0, 2, 3, 1)
+    return x if rows is None else x[:, y0:y1]
 
 
-def letterbox_u8(frames_bgr_u8: Tensor, spec: LetterboxSpec, dtype=torch.float32) -> Tensor:
-    """uint8 BGR -> padded, normalized RGB letterbox (B, dst_h, dst_w, 3)."""
-    content = letterbox_content(frames_bgr_u8, spec, dtype, decimate=True)
-    pad_bottom = spec.dst_h - spec.new_h - spec.pad_top
+def letterbox_u8(frames_bgr_u8: Tensor, spec: LetterboxSpec, dtype=torch.float32,
+                 rows: tuple[int, int] | None = None) -> Tensor:
+    """uint8 BGR -> padded, normalized RGB letterbox (B, dst_h, dst_w, 3);
+    ``rows=(r0, r1)``: its rows [r0, r1) only (B, r1 - r0, dst_w, 3)."""
+    r0, r1 = rows if rows is not None else (0, spec.dst_h)
+    y0 = min(max(r0 - spec.pad_top, 0), spec.new_h)
+    y1 = max(min(r1 - spec.pad_top, spec.new_h), y0)
+    content = letterbox_content(frames_bgr_u8, spec, dtype, decimate=True,
+                                rows=None if rows is None else (y0, y1))
+    pad_top = y0 + spec.pad_top - r0
+    pad_bottom = r1 - (y1 + spec.pad_top)
     pad_right = spec.dst_w - spec.new_w - spec.pad_left
-    return F.pad(content, (0, 0, spec.pad_left, pad_right, spec.pad_top, pad_bottom),
+    return F.pad(content, (0, 0, spec.pad_left, pad_right, pad_top, pad_bottom),
                  value=PAD_VALUE / 255.0)
 
 

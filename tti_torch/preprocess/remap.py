@@ -17,6 +17,8 @@ resize it skips.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -161,6 +163,22 @@ class PackedRemap:
         self.dst_hw = tuple(map_xy.shape[:2])
         self.live_hw = (self.row_stop - self.row_start, map_xy.shape[1])
 
+    def rows(self, r0: int, r1: int) -> "PackedRemap":
+        """The same gather for output rows [r0, r1) only (a space mesh's
+        slab): the index maps and weights of those rows, the pad rows
+        around them; the source stays the whole packed frame."""
+        out = copy.copy(self)
+        a, b = max(r0, self.row_start), min(r1, self.row_stop)
+        b = max(a, b)
+        w = self.dst_hw[1]
+        live = slice((a - self.row_start) * w, (b - self.row_start) * w)
+        out.idx = tuple(i[live] for i in self.idx)
+        out.wx8, out.wy8 = self.wx8[:, live], self.wy8[:, live]
+        out.row_start, out.row_stop = a - r0, b - r0
+        out.dst_hw = (r1 - r0, w)
+        out.live_hw = (b - a, w)
+        return out
+
     def __call__(self, x: Tensor) -> Tensor:
         """(B, H, W, 3) float [0,1] -> (B, dst_h, dst_w, 3), same dtype."""
         h, w = self.src_hw
@@ -221,11 +239,13 @@ def letterbox_then_undistort(frames_bgr_u8: Tensor, spec: LetterboxSpec, small_r
     from tti_torch.preprocess.warp2pass import TwoPassWarp
 
     if isinstance(small_remap, TwoPassWarp):
+        y0, y1 = small_remap.src_rows  # the whole content, or a slab's band
         if small_remap.col_expand is not None:
             k, off, _ = small_remap.col_expand
-            rows = frames_bgr_u8[:, off::k, :, :][:, :spec.new_h]
+            rows = frames_bgr_u8[:, off + k * y0::k, :, :][:, :y1 - y0]
             return small_remap(normalize(bgr_to_rgb(rows), dtype))
-        return small_remap(letterbox_content(frames_bgr_u8, spec, dtype, decimate=True))
+        return small_remap(letterbox_content(frames_bgr_u8, spec, dtype, decimate=True,
+                                             rows=(y0, y1)))
     if isinstance(small_remap, PackedRemap):
         if small_remap.src_hw == (spec.new_h, spec.new_w):
             k = decimation_stride(spec)

@@ -17,6 +17,9 @@ so the zeros outside the band are neither stored nor read; ``col_expand``
 scatters pass 1's kernels onto the full-resolution columns of an exact
 integer decimation, so pass 1 takes row-sliced full-width frames.
 
+A rank of a space mesh takes :meth:`TwoPassWarp.rows`: pass 2 sliced to its
+slab's output rows, pass 1 to the source rows that slab reads.
+
 The shift back is part of pass 2, so that the result is rounded once, as the
 reference adds the pad to its float32 accumulator: ``W2`` carries
 ``PAD_ROWS`` more source rows, whose weights are the float32 pad value split
@@ -26,6 +29,8 @@ intermediate. The product's own float32 accumulator then adds the pad.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -71,6 +76,7 @@ class TwoPassWarp:
         self.src_hw = src_hw
         self.pad_value = float(pad_value)
         hs, ws = src_hw
+        self.src_rows = (0, hs)  # the source rows pass 1 reads (rows(): a band)
         dst_h, dst_w = map_xy.shape[:2]
         self.dst_hw = (dst_h, dst_w)
 
@@ -172,6 +178,36 @@ class TwoPassWarp:
             self.w1_window = pass1_window(self.w1)
         return self.w1_window
 
+    def rows(self, r0: int, r1: int) -> "TwoPassWarp":
+        """The same warp for output rows [r0, r1) of the model input only
+        (a space mesh's slab; even bounds in ``s2d_out`` mode): pass 2's
+        weights sliced to those rows, pass 1's to the band of source rows
+        [y0, y1) = ``src_rows`` that they read (one row when they read
+        none: its weights there are zero). The kept weights are the same
+        values; pass 2 sums fewer zero terms. Dense weights only."""
+        if self.block is not None:
+            raise ValueError("a row slab of the warp needs the dense weights (block=None)")
+        hs = self.src_hw[0]
+        out = copy.copy(self)
+        if self.s2d_out:
+            if r0 % 2 or r1 % 2:
+                raise ValueError(f"s2d_out slabs start and end on even rows, got [{r0}, {r1})")
+            w2 = self.w2[:, :, r0 // 2:r1 // 2]
+        else:
+            a, b = max(r0, self.row_start), min(r1, self.row_stop)
+            b = max(a, b)
+            w2 = self.w2[:, a - self.row_start:b - self.row_start]
+            out.row_start, out.row_stop = a - r0, b - r0
+            out.dst_hw = (r1 - r0, self.dst_hw[1])
+        live = torch.nonzero((w2[..., :hs] != 0).flatten(0, -2).any(0)).flatten().tolist()
+        y0, y1 = (live[0], live[-1] + 1) if live else (0, 1)
+        out.src_rows = (y0, y1)
+        out.w2 = torch.cat([w2[..., y0:y1], w2[..., hs:]], dim=-1)
+        out.w1 = self.w1[y0:y1].clone()  # copies: the whole warp's weights can go
+        if self.w1_window is not None:
+            out.w1_window = self.w1_window[y0:y1].clone()
+        return out
+
     def _with_pad_terms(self, w2: torch.Tensor) -> torch.Tensor:
         """(..., y) pass-2 weights -> (..., y + PAD_ROWS): the warp's weights,
         then the pad's terms on every output row (a zero-weight row resolves
@@ -196,7 +232,8 @@ class TwoPassWarp:
     def apply(self, content: torch.Tensor) -> torch.Tensor:
         """(B, hs, ws, C) content (or (B, hs, full_w, C) rows with
         ``col_expand``) -> (B, dst_h, dst_w, C) warped + padded, or
-        (B, dst_h/2, dst_w/2, 4C) blocked in ``s2d_out`` mode."""
+        (B, dst_h/2, dst_w/2, 4C) blocked in ``s2d_out`` mode. A
+        :meth:`rows` slab takes its ``src_rows`` of the content."""
         wdt = (self.w1 if self.block is None else self.w1_blocks[0][1]).dtype
         x = content.to(wdt) - torch.tensor(self.pad_value, dtype=wdt)
         b, hs, ws, c = x.shape
