@@ -168,7 +168,26 @@ exits non-zero without printing the final result line:
    halo exchanges and one gather; each rank's slab and
    pass-1 source rows, batch-1 p50 and device busy per rank against the
    plain step's, the host ms in the exchanges, the copies' device ms and
-   the bytes each gather moves; the phase's wall time;
+   the bytes each gather moves; then the same two ranks with the banded
+   warp (``warp_block=64``, its pass-2 bands cut at each slab's rows):
+   the deploy and headline steps in float32 at batch 1 and 2 against the
+   banded step without a mesh at ``__graft_entry__.py``'s bar, per rank and
+   step A or B once, D once, 44 halo exchanges and one gather, each rank's
+   pass-2 bands and their bytes beside the dense slab's, and the bf16
+   batch-1 p50 per rank beside the dense space step's; the phase's wall
+   time;
+5g. the tools that time the card, each in a subprocess:
+   ``python -m tti_torch.cli tune-device`` at the headline geometry
+   (batches 1 and 32, 5 + 5 steps, the trials baseline, warp_blocked=64,
+   approx_topk=1, maskstats=pallas2, quant=int8 and quant=int8s on phase
+   5c's headline scales, under ``build/tune_smoke/``: exit 0, the ``.env``
+   written, the refused and unported trials' rows carrying their reasons,
+   every other row's frames/s and p50 printed),
+   ``tools/profile_forward_torch.py --batch 8 --full --iters 2`` (its top
+   five ops and category totals), ``tools/profile_train_torch.py --batch 8
+   --iters 2`` (ms per program beside the floors) and
+   ``tools/host_overhead_torch.py --streams 4 --iters 20`` (its JSON line:
+   the pinned upload and the device step measured); the phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -3359,15 +3378,133 @@ def check_space(torch, ms, wp, card) -> dict:
     finally:
         dcn.shutdown()
     t0 = time.perf_counter()
-    ranks = launch(2, "gloo", os.path.join(SPACE_DIR, "space2"))
+    ranks = launch(2, "gloo", os.path.join(SPACE_DIR, "space2"), runs="checked,banded")
     result["gloo_2"] = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
     for line in summary_lines(ranks, "space 2, two gloo ranks sharing the card"):
         log(line)
-    log(f"space 2: {result['gloo_2']['wall_s']:.1f} s with the processes' start")
+    log(f"space 2, dense and banded: {result['gloo_2']['wall_s']:.1f} s with the processes' "
+        "start")
+    result["banded_p50_ms"] = check_space_banded(ranks)
     result["wall_s"] = time.perf_counter() - t_phase
     log(f"spatial phase: {result['wall_s']:.1f} s")
     log(card)
     return result
+
+
+def check_space_banded(ranks: list) -> dict:
+    """Phase 5f, the banded warp (``warp_block=64``) on the space mesh, from
+    the two gloo ranks' ``space_cards_torch.BANDED`` runs (each rank holds
+    its float32 outputs to the banded step without a mesh at the bar, and
+    checks its launches and exchanges per step): each rank's pass-2 bands
+    and bytes against the dense slab's, and its bf16 batch-1 p50 beside the
+    dense space step's of the same processes. Returns the p50s."""
+    for r, rank in enumerate(ranks):
+        for tag, run in rank["runs"].items():
+            if "_banded/" not in tag:
+                continue
+            p2 = run["pass2"]
+            check(p2["bands"] > 1 and p2["bytes"] < p2["dense_bytes"],
+                  f"rank {r} {tag}: pass-2 weights {p2}")
+            log(f"  rank {r}, {tag}: launches per step {run['launches']}; per step at batch "
+                + ", ".join(f"{b}: {c['halo']} halo exchanges, {c['gather']} gather"
+                            for b, c in run["counts"].items())
+                + f"; pass-2 bands {p2['bands']}, {p2['bytes']} bytes against the dense slab's "
+                f"{p2['dense_bytes']} ({p2['bytes'] / p2['dense_bytes']:.3f})")
+    p50 = {}
+    for config in ("deploy", "headline"):
+        dense = [x["runs"][f"{config}/bfloat16"]["p50_ms"] for x in ranks]
+        banded = [x["runs"][f"{config}_banded/bfloat16"]["p50_ms"] for x in ranks]
+        p50[config] = {"dense": dense, "banded": banded}
+        log(f"  {config} bf16 batch-1 p50 per rank, banded (warp_block=64) "
+            + ", ".join(f"{v:.3f}" for v in banded) + " ms against the dense space step's "
+            + ", ".join(f"{v:.3f}" for v in dense) + " ms (the same processes, dense first)")
+    return p50
+
+
+# ---------------------------------------------------------------------------
+# Phase 5g: the tools that time the card (tune-device, profile, host overhead)
+# ---------------------------------------------------------------------------
+
+TOOLS_DIR = os.path.join(HERE, "build", "tune_smoke")
+TUNE_TRIALS = "baseline,warp_blocked=64,approx_topk=1,maskstats=pallas2,quant=int8,quant=int8s"
+
+
+def run_tool(argv: list, label: str, timeout: float = 300.0) -> str:
+    """Run one tool in a subprocess from the repository's root; its
+    standard output. A non-zero exit fails the script."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=HERE, capture_output=True, text=True,
+                          timeout=timeout, env=dict(os.environ, PYTHONPATH=HERE))
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    log(f"{label}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def section(text: str, head: str, n: int | None = None) -> list[str]:
+    """The lines after the line that starts with ``head`` up to the next
+    blank line (at most ``n``)."""
+    lines = text.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith(head)) + 1
+    out = []
+    for line in lines[start:]:
+        if not line.strip() or (n is not None and len(out) == n):
+            break
+        out.append(line)
+    return out
+
+
+def check_tools(card) -> dict:
+    """Phase 5g (see the module docstring)."""
+    t_phase = time.perf_counter()
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    out = os.path.join(TOOLS_DIR, "tune.env")
+    scales = os.path.join(INT8_DIR, "scales_headline.json")  # phase 5c's calibration
+    run_tool(["-m", "tti_torch.cli", "tune-device", "--batches", "1,32", "--iters", "5",
+              "--lat-iters", "5", "--trials", TUNE_TRIALS, "--int8-scales", scales, "--out",
+              out], "python -m tti_torch.cli tune-device (headline 1080x1920, imgsz 640)")
+    with open(out) as f:
+        env_text = f.read()
+    with open(out + ".json") as f:
+        rows = json.load(f)
+    check(len(rows) == 12, f"tune-device: {len(rows)} rows, want 6 trials x 2 batches")
+    for r in rows:
+        if r["name"] == "approx_topk=1":
+            check((r["error"] or "").startswith("ConfigError: TTI_APPROX_TOPK=1 is not ported"),
+                  f"tune-device: approx_topk row {r}")
+        elif r["name"] == "maskstats=pallas2":
+            check("TTI_MASKSTATS has no counterpart" in (r["error"] or ""),
+                  f"tune-device: maskstats row {r}")
+        else:
+            check(r["error"] is None and r["fps"] > 0 and np.isfinite(r["p50_ms"]),
+                  f"tune-device: trial failed: {r}")
+        log(f"  tune-device batch {r['batch']:3d} {r['name']:18s} " + (
+            f"{r['fps']:9.1f} frames/s, p50 {r['p50_ms']:7.3f} ms, set-up and first step "
+            f"{r['compile_s']:.1f} s" if r["error"] is None else f"reason: {r['error'][:110]}"))
+    log("  tune.env: " + " | ".join(env_text.strip().splitlines()))
+
+    prof = run_tool(["tools/profile_forward_torch.py", "--batch", "8", "--full", "--iters", "2"],
+                    "tools/profile_forward_torch.py --batch 8 --full --iters 2")
+    summary = next(line for line in prof.splitlines() if line.startswith("== "))
+    log(f"  {summary}")
+    for line in section(prof, "-- top", 5) + ["  categories:"] + section(prof, "-- by category"):
+        log(f"  {line}")
+    train = run_tool(["tools/profile_train_torch.py", "--batch", "8", "--iters", "2"],
+                     "tools/profile_train_torch.py --batch 8 --iters 2")
+    head = next(line for line in train.splitlines() if line.startswith("== train iter"))
+    for line in [head] + section(train, head) + section(train, "-- device ms per program"):
+        log(f"  {line}")
+    host = run_tool(["tools/host_overhead_torch.py", "--streams", "4", "--iters", "20"],
+                    "tools/host_overhead_torch.py --streams 4 --iters 20")
+    line = json.loads(host.strip().splitlines()[-1])
+    check(line["h2d_ms_pinned"] is not None and line["device_step"] == "measured",
+          f"host_overhead: {line}")
+    log(f"  host_overhead: {json.dumps(line)}")
+    wall = time.perf_counter() - t_phase
+    log(f"tools phase: {wall:.1f} s")
+    log(card)
+    return {"tune_rows": rows, "tune_env": env_text, "host_overhead": line, "wall_s": wall,
+            "profile_forward": prof[-4000:], "profile_train": train[-4000:]}
 
 
 # ---------------------------------------------------------------------------
@@ -4711,6 +4848,11 @@ def main() -> int:
     space_launches = {tag: run["launches"]
                       for tag, run in space["gloo_2"]["ranks"][0]["runs"].items()}
 
+    # Phase 5g: tune-device and the card-timing tools, each in a subprocess.
+    log("the tools that time the card (tune-device, profile_forward, profile_train, "
+        "host_overhead):")
+    tools = check_tools(card)
+
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
 
@@ -4860,12 +5002,13 @@ def main() -> int:
         k["mesh_launches"] = {tag: n.get(k["name"], 0) for tag, n in mesh_launches.items()}
         # Launches per rank and step of the space step (phase 5f, two ranks).
         k["space_launches"] = {tag: n.get(k["name"], 0) for tag, n in space_launches.items()}
-    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (920.2 s on an H100 before the "
+        "banded space runs and phase 5g were added)")
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
         "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
-        "space": space},
+        "space": space, "tools": tools},
         "training": training, "application": application, "calibrate_measure": calibrated}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@ measurement loop and a training step run with all of them blocked, and with
 the optional back ends (cv2, PIL, MySQL, paho-mqtt, pyserial) blocked too.
 The calibration modules import without OpenCV (it is imported where it is
 used), and ``tools/measure_report_torch.py``, ``tools/calibrate_int8_torch.py``,
-``tools/calibrate_offsets_torch.py``, ``tools/proto_ceiling_torch.py`` and
-``tools/space_cards_torch.py`` import neither tti nor the tools they stand
+``tools/calibrate_offsets_torch.py``, ``tools/proto_ceiling_torch.py``,
+``tools/space_cards_torch.py``, ``tools/tune_device_torch.py``,
+``tools/host_overhead_torch.py``, ``tools/profile_forward_torch.py`` and
+``tools/profile_train_torch.py`` import neither tti nor the tools they stand
 beside."""
 
 import os
@@ -47,10 +49,17 @@ import parity_report_torch
 import calibrate_offsets_torch
 import proto_ceiling_torch
 import space_cards_torch
+import tune_device_torch
+import host_overhead_torch
+import profile_forward_torch
+import profile_train_torch
+import warp_bands_torch
 assert "measure_report" not in sys.modules and "tools.measure_report" not in sys.modules
 assert "calibrate_int8" not in sys.modules
 for name in ("calibrate_offsets", "tools.calibrate_offsets", "proto_ceiling",
-             "tools.proto_ceiling"):
+             "tools.proto_ceiling", "tune_device", "tools.tune_device", "host_overhead",
+             "tools.host_overhead", "profile_forward", "tools.profile_forward",
+             "profile_train", "tools.profile_train"):
     assert name not in sys.modules, name
 assert "parity_report" not in sys.modules and "test_predict_parity" not in sys.modules
 from tti_torch.calib.charuco import create_charuco_board
@@ -133,7 +142,10 @@ def test_port_imports_nothing_of_jax_or_tti():
 def test_port_sources_name_no_forbidden_module():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|tti"
                          r"|tools\.measure_report|measure_report|tools\.calibrate_offsets"
-                         r"|calibrate_offsets|tools\.proto_ceiling|proto_ceiling)\b", re.M)
+                         r"|calibrate_offsets|tools\.proto_ceiling|proto_ceiling"
+                         r"|tools\.tune_device|tune_device|tools\.host_overhead|host_overhead"
+                         r"|tools\.profile_forward|profile_forward|tools\.profile_train"
+                         r"|profile_train)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
     sources += [REPO / "chip_smoke.py", REPO / "tests" / "torch_scenes.py",
                 REPO / "tests" / "torch_synth.py", REPO / "tests" / "torch_dist.py"]
@@ -149,7 +161,9 @@ def test_port_sources_name_no_forbidden_module():
                                   "calibrate_int8_torch.py", "export.py", "convert.py",
                                   "parity_report_torch.py", "mesh.py", "dcn.py",
                                   "torch_dist.py", "calibrate_offsets_torch.py",
-                                  "proto_ceiling_torch.py"} <= names
+                                  "proto_ceiling_torch.py", "tune_device_torch.py",
+                                  "host_overhead_torch.py", "profile_forward_torch.py",
+                                  "profile_train_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -141,16 +141,17 @@ def test_batch_slice_refusals():
 
 def test_pipeline_refuses_a_space_mesh(monkeypatch):
     """What a space mesh cannot serve is refused by name, before any weight
-    is read: the banded warp (ROADMAP Queue 1 item 7), and more ranks than
-    the model input has P5 rows (a 64-row input has 2)."""
+    is read: more ranks than the model input has P5 rows (a 64-row input
+    has 2). The banded warp is served there (``tests/test_torch_warp_rows.py``,
+    ``tests/test_torch_runtime_space_warp.py``)."""
     from tti_torch.core.config import ModelConfig
     from tti_torch.parallel import runtime
     from tti_torch.parallel.spatial import Space, slab_plan
 
     mesh = _Mesh(("data", "space"), (1, 2), (0, 0))
     mesh.device_type = "cpu"
-    for size, kw, match in ((2, {"warp_block": 16}, "ROADMAP Queue 1 item 7"),
-                            (4, {}, "4 ranks over a model input of 2 P5 rows")):
+    for size, kw, match in ((4, {}, "4 ranks over a model input of 2 P5 rows"),
+                            (4, {"warp_block": 16}, "4 ranks over a model input of 2 P5 rows")):
         monkeypatch.setattr(runtime, "space_of",
                             lambda m, h, size=size: Space(slab_plan(h, size), 0, None))
         with pytest.raises(ConfigError, match=match):

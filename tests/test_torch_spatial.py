@@ -287,6 +287,11 @@ def slab_of(monkeypatch):
     ("headline", {"warp_s2d": False}),
     ("deploy", {"warp_s2d": False}),
     ("headline", {"warp_col_expand": True}),
+    ("headline", {"warp_block": 16}),  # the banded warp: bands that divide the slabs
+    ("headline", {"warp_block": 24}),  # a band split at the slabs' edge
+    ("headline", {"warp_block": 24, "warp_col_expand": True}),
+    ("deploy", {"warp_block": 64}),
+    ("deploy", {"warp_block": 24, "warp_s2d": False}),
     ("headline", {"undistort": False}),  # the letterbox alone
     ("deploy", {"undistort": False}),
 ])

@@ -18,8 +18,8 @@ Cases (inputs in ``dir/inputs.npz``):
 - ``space_<kind>`` (kind ``step``, ``dual``, ``int8s``, ``int8``) and
   ``grid_step``: the same on a ``("data", "space")`` mesh of ``(1, 2)``
   and ``(2, 2)`` ranks (``MESHES``), on the geometry and batch of the
-  inputs file, with each rank's counts of the spatial exchanges of one
-  step;
+  inputs file (and each banded warp of its ``warp_blocks``, if any), with
+  each rank's counts of the spatial exchanges of one step;
 - ``train``: the data-parallel ``TrainStep`` and its trainer.
 """
 
@@ -169,7 +169,8 @@ def _port_pipeline(name, intrinsics, mesh=None, **kw):
 
 def _inference(case: str, inputs: dict, mesh) -> dict:
     """The mesh step's outputs through each entry and the same step without
-    a mesh on the whole batch."""
+    a mesh on the whole batch; with ``warp_blocks`` in the inputs, once per
+    block of the banded warp (the tags and counts then end in ``_<block>``)."""
     import torch
 
     from tti_torch.parallel import spatial
@@ -181,37 +182,42 @@ def _inference(case: str, inputs: dict, mesh) -> dict:
     geometry = str(inputs["geometry"]) if "geometry" in inputs else "headline"
     kw = ({"quant": "int8s", "quant_scales": str(inputs["scales"])} if case == "int8s"
           else {"quant": "int8"} if case == "int8" else {})
+    blocks = [int(b) for b in inputs["warp_blocks"]] if "warp_blocks" in inputs else [None]
 
-    def build(m):
-        pipe = _port_pipeline(geometry, intrinsics, m, **kw)
+    def build(m, block):
+        extra = {} if block is None else {"warp_block": block}
+        pipe = _port_pipeline(geometry, intrinsics, m, **kw, **extra)
         if case != "dual":
             return pipe
-        return DualPipeline(pipe, _port_pipeline("headline_b", intrinsics, m))
+        return DualPipeline(pipe, _port_pipeline("headline_b", intrinsics, m, **extra))
 
     arrays = {}
-    for tag, m in (("mesh", mesh), ("single", None)):
-        step = build(m)
-        spatial.reset_counts()
-        outs = step.process_batch(frames)
-        if m is not None:
-            arrays.update({f"counts/{k}": np.array(v) for k, v in spatial.COUNTS.items()})
-        if case == "dual":
-            arrays.update(outputs_to_arrays(outs[0], f"{tag}_a"))
-            arrays.update(outputs_to_arrays(outs[1], f"{tag}_b"))
-        else:
-            arrays.update(outputs_to_arrays(outs, tag))
-        if m is None:
-            continue
-        host = InspectionPipeline.outputs_to_host
-        async_outs = step.process_batch_async(frames)
-        step_outs = step.step(torch.from_numpy(frames))
-        if case == "dual":
-            for suffix, i in (("a", 0), ("b", 1)):
-                arrays.update(outputs_to_arrays(host(async_outs[i]), f"async_{suffix}"))
-                arrays.update(outputs_to_arrays(host(step_outs[i]), f"step_{suffix}"))
-        else:
-            arrays.update(outputs_to_arrays(host(async_outs), "async"))
-            arrays.update(outputs_to_arrays(host(step_outs), "step"))
+    for block in blocks:
+        sfx = "" if block is None else f"_{block}"
+        for tag, m in (("mesh", mesh), ("single", None)):
+            step = build(m, block)
+            spatial.reset_counts()
+            outs = step.process_batch(frames)
+            if m is not None:
+                arrays.update({f"counts{sfx}/{k}": np.array(v)
+                               for k, v in spatial.COUNTS.items()})
+            if case == "dual":
+                arrays.update(outputs_to_arrays(outs[0], f"{tag}{sfx}_a"))
+                arrays.update(outputs_to_arrays(outs[1], f"{tag}{sfx}_b"))
+            else:
+                arrays.update(outputs_to_arrays(outs, f"{tag}{sfx}"))
+            if m is None:
+                continue
+            host = InspectionPipeline.outputs_to_host
+            async_outs = step.process_batch_async(frames)
+            step_outs = step.step(torch.from_numpy(frames))
+            if case == "dual":
+                for suffix, i in (("a", 0), ("b", 1)):
+                    arrays.update(outputs_to_arrays(host(async_outs[i]), f"async{sfx}_{suffix}"))
+                    arrays.update(outputs_to_arrays(host(step_outs[i]), f"step{sfx}_{suffix}"))
+            else:
+                arrays.update(outputs_to_arrays(host(async_outs), f"async{sfx}"))
+                arrays.update(outputs_to_arrays(host(step_outs), f"step{sfx}"))
     return arrays
 
 

@@ -32,9 +32,18 @@ late), the NCCL kernels' and the copies' device ms. Prints the card's name and
 power limit and one line per size and configuration, writes every rank's
 readings to ``OUT/space_cards.json``, and exits 1 when a rank fails.
 
+``TTI_WARP_BLOCKED`` (read as ``RuntimeSwitches.from_env`` reads it for
+``run``) puts the banded two-pass warp of that block under every step but
+the kernel route's (kernel C reads the dense weights), both on the mesh and
+in the plain step it is held to; each rank prints its pass-2 bands and
+their bytes beside the dense slab's.
+
 ``chip_smoke.py`` (phase 5f) starts the same ranks as gloo processes that
 share one card (``launch(..., backend="gloo")``): gloo's point-to-point ops
-take host tensors, so there the halo rows go through the host.
+take host tensors, so there the halo rows go through the host. The same
+ranks then run ``BANDED`` (``launch(..., runs="checked,banded")``): the
+deploy and headline steps with ``warp_block=64``, float32 at batch 1 and 2
+at the bar above, bf16 at batch 1 timed.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ LAUNCHES = {
                               "greedy_keep": 1},
     "deploy_int8": {"int8_conv2d": 66, "act_scale_per_sample": 66, "mask_stats_soft": 1,
                     "greedy_keep": 1},
+    "deploy_banded": {"mask_stats_soft": 1, "greedy_keep": 1},
+    "headline_banded": {"mask_stats_binary": 1, "greedy_keep": 1},
 }
 # (tag, configuration, dtype, pipeline arguments, batches, timed)
 CHECKED = (
@@ -73,6 +84,21 @@ TIMED_ONLY = (
     ("deploy/bfloat16", "deploy", "bfloat16", {}, (1,), True),
     ("headline/bfloat16", "headline", "bfloat16", {}, (1,), True),
 )
+# The banded two-pass warp (warp_block=64, one of tti's tune trials) on the
+# mesh, against the banded step without a mesh: float32 at the bar, bf16
+# batch 1 read and timed.
+BANDED = (
+    ("deploy_banded/float32", "deploy", "float32", {"warp_block": 64}, (1, 2), False),
+    ("headline_banded/float32", "headline", "float32", {"warp_block": 64}, (1, 2), False),
+    ("deploy_banded/bfloat16", "deploy", "bfloat16", {"warp_block": 64}, (1,), True),
+    ("headline_banded/bfloat16", "headline", "bfloat16", {"warp_block": 64}, (1,), True),
+)
+RUNS = {"checked": CHECKED, "timed": TIMED_ONLY, "banded": BANDED}
+
+
+def runs_of(names: str) -> tuple:
+    """The runs of a comma-separated list of ``RUNS``' names, in order."""
+    return tuple(run for name in names.split(",") for run in RUNS[name])
 MM_FIELDS = ("edge_distance_mm", "stitch_width_mm", "raw_edge_mm", "raw_width_mm")
 P50_ITERS = 30
 BF16_BATCH = 128  # the bf16 bar's batch: chip_smoke's MODE_* bar holds over many frames
@@ -161,19 +187,39 @@ def p50_ms(torch, pipe, frames, iters=P50_ITERS, after_warmup=lambda: None) -> f
     return 1e3 * float(np.median(lats))
 
 
+def pass2_bytes(warp) -> dict:
+    """A two-pass warp's pass-2 weights as one step reads them: its bands
+    (one when dense), their bytes, and the bytes of the dense weights over
+    the same output rows and source rows (``src_rows``)."""
+    from tti_torch.preprocess.warp2pass import PAD_ROWS
+
+    blocks = warp.w2_blocks if warp.block is not None else [(0, warp.w2)]
+    size = blocks[0][1].element_size()
+    rows = sum(2 * w.shape[2] if warp.s2d_out else w.shape[1] for _, w in blocks)
+    y0, y1 = warp.src_rows
+    return {"bands": len(blocks), "bytes": sum(w.numel() for _, w in blocks) * size,
+            "dense_bytes": warp.dst_hw[1] * rows * (y1 - y0 + PAD_ROWS) * size}
+
+
 def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
-           checks: bool) -> int:
-    """One rank: the runs of ``CHECKED`` (or ``TIMED_ONLY``) on a (1, world)
-    space mesh; writes ``rank<r>.json``. A failed check raises."""
+           runs: str) -> int:
+    """One rank: the runs of ``runs_of(runs)`` on a (1, world) space mesh, each
+    without ``warp_pass1="kernel"`` under the banded warp of
+    ``TTI_WARP_BLOCKED`` when it is set and the run names no block; writes
+    ``rank<r>.json``. A failed check raises."""
     sys.path[:0] = [HERE, os.path.join(HERE, "tests"), os.path.join(HERE, "tools")]
     import torch
     import torch.distributed as dist
 
     import chip_smoke as cs
+    from tti_torch.core.config import RuntimeSwitches
     from tti_torch.kernels import maskstats as ms
     from tti_torch.kernels import warp_p1 as wp
     from tti_torch.parallel import spatial
     from tti_torch.parallel.mesh import create_mesh
+    from tti_torch.preprocess.warp2pass import TwoPassWarp
+
+    block = RuntimeSwitches.from_env(os.environ).warp_block
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -194,12 +240,16 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
     result = {"rank": rank, "world": world, "backend": backend, "runs": {}}
     try:
         mesh = create_mesh((1, world), ("data", "space"), device_type="cuda")
-        for tag, config, dtype, kw, batches, timed in (CHECKED if checks else TIMED_ONLY):
+        for tag, config, dtype, kw, batches, timed in runs_of(runs):
             hw, imgsz, ckpt = cs.CONFIGS[config]
+            if block is not None and "warp_block" not in kw and "warp_pass1" not in kw:
+                kw = dict(kw, warp_block=block)  # the kernel route takes no block
             plain = cs.build_pipeline(torch, hw, imgsz, ckpt, dtype=dtype, **kw)
             pipe = cs.build_pipeline(torch, hw, imgsz, ckpt, dtype=dtype, mesh=mesh, **kw)
-            run = {"input_rows": pipe.input_rows,
+            run = {"input_rows": pipe.input_rows, "warp_block": kw.get("warp_block"),
                    "pass1_rows": getattr(pipe.warp, "src_rows", None), "diffs": {}}
+            if isinstance(pipe.warp, TwoPassWarp):
+                run["pass2"] = pass2_bytes(pipe.warp)
             want = LAUNCHES[tag.split("/")[0]]
             for b in batches:
                 frames = cs.textile(hw, b)
@@ -256,13 +306,13 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
     return 1 if failed else 0
 
 
-def launch(world: int, backend: str, out_dir: str, checks: bool = True,
+def launch(world: int, backend: str, out_dir: str, runs: str = "checked",
            timeout: float = 600.0) -> list[dict]:
     """Start ``world`` worker processes (ranks of one ``backend`` job on
     127.0.0.1, card r for rank r under NCCL, card 0 for every rank under
-    gloo), wait for each within ``timeout`` seconds, kill what is left;
-    each rank's readings. A rank that fails raises ``RuntimeError`` with
-    its output's end."""
+    gloo) running ``runs_of(runs)``, wait for each within ``timeout``
+    seconds, kill what is left; each rank's readings. A rank that fails
+    raises ``RuntimeError`` with its output's end."""
     sys.path.insert(0, HERE)
     from tti_torch.parallel.dcn import free_local_coordinator
 
@@ -270,9 +320,9 @@ def launch(world: int, backend: str, out_dir: str, checks: bool = True,
     coord = free_local_coordinator()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", "--rank", str(r), "--world",
-         str(world), "--coordinator", coord, "--backend", backend, "--out", out_dir]
-        + ([] if checks else ["--timed-only"]), cwd=HERE, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=dict(os.environ, PYTHONPATH=HERE))
+         str(world), "--coordinator", coord, "--backend", backend, "--out", out_dir,
+         "--runs", runs], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=HERE))
         for r in range(world)]
     outs = []
     try:
@@ -318,6 +368,11 @@ def summary_lines(ranks: list[dict], label: str) -> list[str]:
                              f"median {d['mm_median']:.4g} over {d['readings']} readings" + same)
         parts.append(f"launches per rank and step {run0['launches']}; exchanges "
                      f"{list(run0['counts'].values())[0]}")
+        if "pass2" in run0:
+            parts.append("pass-2 bands and bytes per rank (beside the dense slab's) " + ", ".join(
+                f"{r['pass2']['bands']} bands {r['pass2']['bytes']} ({r['pass2']['dense_bytes']})"
+                for r in runs) + (f", warp_block {run0['warp_block']}" if run0["warp_block"]
+                                  else ""))
         if "inner_diffs" in run0:
             d = [r["inner_diffs"] for r in runs]
             parts.append("max |diff| against the plain step's, per rank: model-input rows "
@@ -351,11 +406,11 @@ def main() -> int:
     parser.add_argument("--world", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--coordinator", help=argparse.SUPPRESS)
     parser.add_argument("--backend", default="nccl", help=argparse.SUPPRESS)
-    parser.add_argument("--timed-only", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--runs", default="checked", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
         return worker(args.rank, args.world, args.coordinator, args.backend, args.out,
-                      not args.timed_only)
+                      args.runs)
     import torch
 
     if not torch.cuda.is_available():
@@ -378,7 +433,8 @@ def main() -> int:
             continue
         t0 = time.perf_counter()
         try:
-            ranks = launch(n, "nccl", os.path.join(args.out, f"space{n}"), checks=n > 1)
+            ranks = launch(n, "nccl", os.path.join(args.out, f"space{n}"),
+                           runs="checked" if n > 1 else "timed")
         except RuntimeError as e:
             print(e, flush=True)
             return 1

@@ -19,11 +19,13 @@
     capture          timed dataset capture from the camera [--out] [--interval]
     view             live camera view ('q' quits)
     tune-camera      exposure/brightness/contrast tuning [--set PROP=VALUE ...]
-    bench, tune-device
-                     not ported yet: refused, naming their ROADMAP items
+    tune-device      sweep the runtime switches on this card, write the winners as
+                     .env lines (tools/tune_device_torch.py)
+    bench            not ported yet: refused, naming its ROADMAP item
 
 The flags are ``tti``'s, plus ``--device`` (default cuda; ``run``,
-``check-model``, ``eval``, ``train``, ``export``, ``validate-reference``)
+``check-model``, ``eval``, ``train``, ``export``, ``validate-reference``,
+``tune-device``, which also takes the tool's ``--lat-iters``)
 and ``--init`` (``train``: start from a deploy checkpoint's params and batch
 stats). The calibration commands run
 on the host (numpy and OpenCV) and take no ``--device``. ``run`` on a camera
@@ -46,7 +48,7 @@ port's own artifact (:mod:`tti_torch.app.export`; ``--platforms`` defaults to
 (:func:`tti_torch.train.data.batches`) and refuses ``--resume`` as ``tti``
 does. ``capture``, ``view`` and ``tune-camera`` are host OpenCV tools on the
 camera and touch no device. Refused, naming the reason or the ROADMAP item
-that ports them: ``bench``, ``tune-device`` and ``TTI_APPROX_TOPK=1``.
+that ports them: ``bench`` and ``TTI_APPROX_TOPK=1``.
 Before every command, as ``tti`` does, the
 process joins the multi-host job of ``TTI_COORDINATOR`` (with
 ``TTI_NUM_PROCESSES`` and ``TTI_PROCESS_ID``;
@@ -70,7 +72,9 @@ import dataclasses
 import os
 import sys
 
-from tti_torch.core.config import AppConfig, check_process_switches, load_config
+from tti_torch.core.config import (
+    APPROX_TOPK_REFUSAL, AppConfig, check_process_switches, load_config,
+)
 from tti_torch.core.errors import ConfigError
 from tti_torch.core.logging import get_logger
 from tti_torch.parallel import dcn
@@ -88,10 +92,7 @@ def _refuses_switches(switches) -> bool:
     ``TTI_QUANT`` that cannot apply is refused where the step is built:
     :func:`main`)."""
     if switches.approx_topk:
-        _refuse("TTI_APPROX_TOPK=1 is not ported: it is the TPU's approximate top-k "
-                "(jax.lax.approx_max_k, a partial reduce at recall 0.99), which may miss "
-                "candidates; the card's exact stable top-k has no approximate form here. "
-                "Unset TTI_APPROX_TOPK.")
+        _refuse(APPROX_TOPK_REFUSAL)
         return True
     return False
 
@@ -498,15 +499,37 @@ def cmd_tune_camera(args) -> int:
 
 def cmd_bench(args) -> int:
     return _refuse("bench is not ported yet: the port's bench script (bench_torch.py, both "
-                   "configurations timed in repeated pairs) is ROADMAP Queue 1 item 1, and "
-                   "tune-device, which times its trials the same way, Queue 1 item 5.3. "
+                   "configurations timed in repeated pairs) is ROADMAP Queue 1 item 1. "
                    "python3 chip_smoke.py times the steps on the card meanwhile.")
 
 
 def cmd_tune_device(args) -> int:
-    return _refuse("tune-device is not ported yet: it times its trials with the bench's "
-                   "repeated pairs, ROADMAP Queue 1 item 1 (the bench script), which comes "
-                   "first; tune-device itself is Queue 1 item 5.3.")
+    """Sweep the runtime switches on this card and geometry and write the
+    winning configuration as .env lines (``tools/tune_device_torch.py``),
+    with ``tti``'s arguments plus ``--device``."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from tools.tune_device_torch import main as tune_main
+
+    argv = ["--batches", args.batches, "--imgsz", str(args.imgsz),
+            "--frame-h", str(args.frame_h), "--frame-w", str(args.frame_w),
+            "--variant", args.variant, "--dtype", args.dtype,
+            "--iters", str(args.iters), "--out", args.out,
+            "--mask-stride", str(args.mask_stride),
+            "--proto-head", args.proto_head]
+    if args.trials:
+        argv += ["--trials", args.trials]
+    if args.allow_approx:
+        argv.append("--allow-approx")
+    if args.subcell:
+        argv.append("--subcell")
+    if args.int8_scales:
+        argv += ["--int8-scales", args.int8_scales]
+    if args.lat_iters is not None:
+        argv += ["--lat-iters", str(args.lat_iters)]
+    tune_main(argv + ["--device", args.device])
+    return 0
 
 
 def cmd_export_weights(args) -> int:
@@ -818,7 +841,7 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(func=cmd_bench)
 
     p = sub.add_parser("tune-device", help="auto-tune the env-gated perf variants on this "
-                       "device; writes winning .env lines (not ported yet)")
+                       "device; writes winning .env lines")
     p.add_argument("--batches", default="1,128")
     p.add_argument("--imgsz", type=int, default=640)
     p.add_argument("--frame-h", type=int, default=1080)
@@ -837,6 +860,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--int8-scales", default="",
                    help="calibrated activation-scale JSON — adds quant=int8s")
     p.add_argument("--out", default="tune.env")
+    p.add_argument("--lat-iters", type=int, default=None,
+                   help="synced steps per latency p50 (default: the tool's, 15)")
+    _device_flag(p)
     p.set_defaults(func=cmd_tune_device)
 
     args = parser.parse_args(argv)

@@ -409,6 +409,14 @@ NO_COUNTERPART = {
 }
 
 
+# Why ``TTI_APPROX_TOPK=1`` is refused (by the CLI before anything is built,
+# and by ``tools/tune_device_torch.py`` in the row of its trial).
+APPROX_TOPK_REFUSAL = (
+    "TTI_APPROX_TOPK=1 is not ported: it is the TPU's approximate top-k (jax.lax.approx_max_k, "
+    "a partial reduce at recall 0.99), which may miss candidates; the card's exact stable "
+    "top-k has no approximate form here. Unset TTI_APPROX_TOPK.")
+
+
 # The switches of NO_COUNTERPART that the reference's CLI reads from the
 # process environment before every command (the compilation cache), logged
 # by the CLI, not by the step.

@@ -43,7 +43,8 @@ the gather's :meth:`PackedRemap.rows`, the letterbox's ``rows``), the
 forward exchanges each convolution's and pool's halo rows with the
 neighbouring slabs, and each head level's output and the protos are
 gathered along H before detect and measure, which then run whole on every
-rank of the group. The banded warp (``warp_block``) is refused there.
+rank of the group. The banded warp (``warp_block``) is cut there too: its
+pass-2 bands at the slab's rows, its pass-1 bands to the slab's source rows.
 """
 
 from __future__ import annotations
@@ -262,8 +263,7 @@ class InspectionPipeline:
     the mask-logit dtype of both readouts.
     ``return_masks``: also return proto-resolution binary masks.
     ``mesh``: a ``DeviceMesh`` of this process's card type, ``("data",)``
-    or ``("data", "space")`` (the module's docstring); on a space axis of
-    more than one rank ``warp_block`` is refused (ROADMAP Queue 1 item 7).
+    or ``("data", "space")`` (the module's docstring).
     """
 
     def __init__(self, model_cfg: ModelConfig, variables: dict, frame_hw: tuple[int, int],
@@ -314,11 +314,6 @@ class InspectionPipeline:
         self.dtype = torch.bfloat16 if model_cfg.dtype == "bfloat16" else torch.float32
         # This rank's slab of the model input's rows on a space mesh, else None.
         self.space = space_of(mesh, self.spec.dst_h) if mesh is not None else None
-        if self.space is not None and warp_block is not None:
-            raise ConfigError(
-                f"warp_block={warp_block} on a space mesh: the banded warp's bands are not cut "
-                "on the slabs' rows; it waits for ROADMAP Queue 1 item 7 (the banded warp on a "
-                "space mesh). Use the dense two-pass warp (warp_block=None)")
 
         self.quant = quant
         self.model = inference_model(model_cfg, variables, self.device, s2d_input=warp_s2d,

@@ -184,28 +184,64 @@ class TwoPassWarp:
         weights sliced to those rows, pass 1's to the band of source rows
         [y0, y1) = ``src_rows`` that they read (one row when they read
         none: its weights there are zero). The kept weights are the same
-        values; pass 2 sums fewer zero terms. Dense weights only."""
-        if self.block is not None:
-            raise ValueError("a row slab of the warp needs the dense weights (block=None)")
+        values; pass 2 sums fewer zero terms. In blocked mode pass 2's bands
+        are cut at the slab's rows (whole bands where the block divides the
+        slab, a band split at its edge otherwise), each keeping its own
+        window of source rows and the pad's terms; pass 1's column bands stay
+        whole in columns, cut to ``src_rows`` as the dense ``w1`` is."""
         hs = self.src_hw[0]
         out = copy.copy(self)
         if self.s2d_out:
             if r0 % 2 or r1 % 2:
                 raise ValueError(f"s2d_out slabs start and end on even rows, got [{r0}, {r1})")
-            w2 = self.w2[:, :, r0 // 2:r1 // 2]
+            a, b = r0, r1  # rows of W2's output axis
         else:
             a, b = max(r0, self.row_start), min(r1, self.row_stop)
             b = max(a, b)
-            w2 = self.w2[:, a - self.row_start:b - self.row_start]
             out.row_start, out.row_stop = a - r0, b - r0
             out.dst_hw = (r1 - r0, self.dst_hw[1])
-        live = torch.nonzero((w2[..., :hs] != 0).flatten(0, -2).any(0)).flatten().tolist()
-        y0, y1 = (live[0], live[-1] + 1) if live else (0, 1)
+            a, b = a - self.row_start, b - self.row_start
+        if self.block is not None:
+            return self._rows_blocked(out, a, b)
+        w2 = self.w2[:, :, a // 2:b // 2] if self.s2d_out else self.w2[:, a:b]
+        y0, y1 = _live_span(w2, hs) or (0, 1)
         out.src_rows = (y0, y1)
         out.w2 = torch.cat([w2[..., y0:y1], w2[..., hs:]], dim=-1)
         out.w1 = self.w1[y0:y1].clone()  # copies: the whole warp's weights can go
         if self.w1_window is not None:
             out.w1_window = self.w1_window[y0:y1].clone()
+        return out
+
+    def _rows_blocked(self, out: "TwoPassWarp", a: int, b: int) -> "TwoPassWarp":
+        """:meth:`rows` of a blocked warp, for rows [a, b) of W2's output
+        axis: each pass-2 band cut to those rows, its window narrowed to the
+        source rows that its kept rows read."""
+        cut_rows = (lambda w, lo, hi: w[:, :, lo // 2:hi // 2]) if self.s2d_out else (
+            lambda w, lo, hi: w[:, lo:hi])
+        cut, v0 = [], 0  # (band's first source row, its weights on the slab's rows)
+        for y0, w in self.w2_blocks:
+            rows = 2 * w.shape[2] if self.s2d_out else w.shape[1]
+            lo, hi = max(a, v0) - v0, min(b, v0 + rows) - v0
+            v0 += rows
+            if lo < hi:
+                cut.append((y0, cut_rows(w, lo, hi)))
+        if not cut:  # the slab lies in the letterbox's pad rows: one band of no rows
+            cut.append((self.w2_blocks[0][0], cut_rows(self.w2_blocks[0][1], 0, 0)))
+        spans = []  # each band's live source rows, global [first, last + 1), or None
+        for y0, w in cut:
+            span = _live_span(w, w.shape[-1] - PAD_ROWS)
+            spans.append(span and (y0 + span[0], y0 + span[1]))
+        kept = [s for s in spans if s is not None]
+        y0s, y1s = (min(s[0] for s in kept), max(s[1] for s in kept)) if kept else (0, 1)
+        out.src_rows = (y0s, y1s)
+        out.w2_blocks = []
+        for (y0, w), span in zip(cut, spans):
+            l0, l1 = span or (y0s, y0s)
+            n = w.shape[-1] - PAD_ROWS
+            # The band's live source rows, then its pad terms: the same values.
+            out.w2_blocks.append((l0 - y0s, torch.cat([w[..., l0 - y0:l1 - y0], w[..., n:]],
+                                                      dim=-1)))
+        out.w1_blocks = [(c0, w[y0s:y1s].clone()) for c0, w in self.w1_blocks]
         return out
 
     def _with_pad_terms(self, w2: torch.Tensor) -> torch.Tensor:
@@ -304,6 +340,14 @@ class TwoPassWarp:
             out, (0, 0, 0, 0, self.row_start, dst_h - self.row_stop), value=self.pad_value)
 
     __call__ = apply
+
+
+def _live_span(w2: torch.Tensor, n: int) -> tuple[int, int] | None:
+    """[first, last + 1) of the source rows among the first ``n`` that the
+    pass-2 weights ``w2`` (..., n + PAD_ROWS) give a non-zero weight; None
+    when they give none."""
+    live = torch.nonzero((w2[..., :n] != 0).flatten(0, -2).any(0)).flatten().tolist()
+    return (live[0], live[-1] + 1) if live else None
 
 
 def _live_window(live: np.ndarray) -> tuple[int, int]:
