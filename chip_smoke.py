@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/H100 port (``tti_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--first-design PATH] [--first-design-int8 PATH]
-                          [--first-design-warp PATH] [--ablate]
+                          [--first-design-warp PATH] [--first-design-nms PATH] [--ablate]
 
 ``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
 file as the commit that added the port's measurement path had it); it is
@@ -16,13 +16,18 @@ step (E, then it, then E again). ``--first-design-warp`` names a copy of
 kernel C's first design (``git show 0b702ac:tti_torch/kernels/csrc/warp_p1.cu``):
 phase 3 holds its output equal to C's on the headline inputs at batch 128
 and 1, and phase 9 times it beside C on the same inputs (first, C, C,
-first). Nothing else uses them. ``--ablate`` runs phases 1-2
+first). ``--first-design-nms`` names a copy of kernel D's first design
+(``git show d4bb171:tti_torch/kernels/csrc/nms.cu``): phase 3 holds it
+bit-equal to D on the deploy and headline steps' candidates at batch 128
+and 1, and phase 9 times it beside D on every input D is timed on (first,
+D, D, first). Nothing else uses them. ``--ablate`` runs phases 1-2
 and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
 part of the design out or tune it otherwise, timed on synthetic inputs
 shaped like the steps' (what each part costs or buys).
 
-Phases, one printed line or block each; any failure raises and the script
-exits non-zero without printing the final result line:
+Phases, one printed line or block each, each ending with its wall seconds;
+any failure raises and the script exits non-zero without printing the final
+result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``tti_torch/kernels/csrc`` (mask statistics,
@@ -50,11 +55,15 @@ exits non-zero without printing the final result line:
    bytes 0 or 255) at k = 3 and k = 5; every case launched twice,
    bit-equal. Kernel D (greedy
    NMS keep-set) bit-equal to ``greedy_keep_plain``, two launches bit-equal,
-   at K = 256, 512 and 1000 (the rows in the scratch buffer), on a
+   at K = 256, 512, 1000 and 2048 (the rows in the scratch buffer), on a
    suppression chain through all K, every candidate invalid, every box
-   identical, zero-area boxes, ``class_aware`` off and a negative threshold;
-   then (phases 4-5) on the deploy and headline steps' own candidates at
-   batch 128 and 1;
+   identical, zero-area boxes, ``class_aware`` off, thresholds -0.25, 0
+   and NaN, NaN and infinite coordinates (the division's route), boxes and
+   validity off their 16- and 4-byte boundaries (the scalar loads); K = 1
+   and 8192; B = 1 and 2 at K = 32, 200, 256 and 512, which cover every
+   cluster size ``nms.cluster_size`` returns (1, 2, 4 and 8), and one input
+   launched at each cluster size (the same bits); then (phases 4-5) on the
+   deploy and headline steps' own candidates at batch 128 and 1;
 4. deploy step: 960x1280 frames, imgsz 960, the stride-2 soft checkpoint,
    through ``InspectionPipeline.process_batch``; it must launch kernels A
    and D once and agree with the same step run with the plain versions
@@ -176,6 +185,22 @@ exits non-zero without printing the final result line:
    pass-2 bands and their bytes beside the dense slab's, and the bf16
    batch-1 p50 per rank beside the dense space step's; the phase's wall
    time;
+   the float32 deploy batch-1 space check runs 3 times (the frame above,
+   then a fresh seeded frame, then the first again), and on any rank's miss
+   each rank writes its dump beside its readings (every halo's sent and
+   received rows, the slab's head outputs and the plain step's for the
+   same rows); the bf16 space steps at batch 1 and 2 are held to the plain
+   step at that batch with equal detection counts and mm within the plain
+   step's own spread on those frames, measured in the same process (its
+   readings at batch 128 and with its forward on slabs of other shapes, by
+   threads of one process; the smaller batch's spread included; floor 0.01
+   mm, cap 0.25), and bit-equal to the same slabs' forward on threads;
+   beside them the first convolution whose rows depart on identical input
+   rows and the CUDA kernels its two calls launch; and the dual
+   step (the headline checkpoint and
+   ``yolov8n_textile_960.msgpack``) on the mesh against the plain dual step,
+   float32 at batch 1 and 2 at the float32 bar, B and D twice, 88 halo
+   exchanges and 2 gathers per rank and step;
 5g. the tools that time the card, each in a subprocess:
    ``python -m tti_torch.cli tune-device`` at the headline geometry
    (batches 1 and 32, 5 + 5 steps, the trials baseline, warp_blocked=64,
@@ -263,7 +288,9 @@ exits non-zero without printing the final result line:
    on the inputs the batch-128 step gives it (kernels C and D also at batch
    1; C's bound counts what its weights need, W1's non-zeros and the table,
    beside the bound of reading W1 whole, with the share of W1 its boxes
-   read);
+   read; D also on seeded candidates at K = 512, 1000 and 2048 at batch 128
+   and 1, each beside an empty kernel of its grid, clusters and shared
+   memory, its cluster size and the latency of its pass-2 chain);
 10. the whole script's wall time, the ``kernels`` JSON line (with each
    kernel's launches per mesh step of phase 5e), then the final
    ``{"ok": true, "device": {...}}`` line.
@@ -769,6 +796,72 @@ def check_nms(torch) -> dict:
     kept = check_nms_case(torch, "threshold -0.25", boxes, classes, valid, iou_thresh=-0.25)
     check(kept == int(valid.any(1).sum()),
           "kernel D: below a negative threshold every pair overlaps (one kept per frame)")
+    check(check_nms_case(torch, "threshold NaN", boxes, classes, valid, iou_thresh=float("nan"))
+          == int(valid.sum()), "kernel D: nothing overlaps above a NaN threshold")
+    check_nms_case(torch, "threshold 0", boxes, classes, valid, iou_thresh=0.0)
+    nan = boxes.clone()
+    nan[:, ::7, 0] = float("nan")
+    nan[:, 3::11, 3] = float("inf")
+    check_nms_case(torch, "NaN and inf coordinates", nan, classes, valid)
+    # IoUs on the threshold (the float test's margin, then the exact test):
+    # pairs of IoU exactly 0.5 are kept apart at 0.5 and merged at the float
+    # below it; the chain's IoU 2 / 6 rounds to float(1/3), not above
+    # float(1/3), above the float below it.
+    m = torch.arange(32, dtype=torch.float32, device="cuda") * 10.0
+    pairs = torch.stack([torch.stack([m, 0 * m, m + 2.0, 0 * m + 1.0], -1),
+                         torch.stack([m, 0 * m, m + 1.0, 0 * m + 1.0], -1)], 1).reshape(1, 64, 4)
+    ones64 = torch.ones(1, 64, dtype=torch.bool, device="cuda")
+    zeros64 = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
+    below = lambda v: float(np.nextafter(np.float32(v), np.float32(0)))
+    check(check_nms_case(torch, "IoU 0.5 at threshold 0.5", pairs, zeros64, ones64, 0.5) == 64
+          and check_nms_case(torch, "IoU 0.5 just above the threshold", pairs, zeros64, ones64,
+                             below(0.5)) == 32, "kernel D: IoUs on the threshold")
+    third = float(np.float32(1 / 3))
+    check(check_nms_case(torch, "IoU 1/3 at threshold float(1/3)", chain, cls0, ok, third)
+          == b * k and check_nms_case(torch, "IoU 1/3 just above the threshold", chain, cls0,
+                                      ok, below(third)) == b * k // 2,
+          "kernel D: the chain's IoUs on the threshold")
+    # The staging's other routes: boxes off a 16-byte boundary (scalar
+    # loads), validity off a 4-byte boundary (byte loads).
+    buf = torch.empty(boxes.numel() + 1, dtype=torch.float32, device="cuda")
+    shifted = buf[1:].view(boxes.shape)
+    shifted.copy_(boxes)
+    okbuf = torch.empty(valid.numel() + 1, dtype=torch.bool, device="cuda")
+    ok_shifted = okbuf[1:].view(valid.shape)
+    ok_shifted.copy_(valid)
+    check_nms_case(torch, "boxes and validity off their 16- and 4-byte boundaries", shifted,
+                   classes, ok_shifted)
+    return check_nms_clusters(torch)
+
+
+def check_nms_clusters(torch) -> dict:
+    """Kernel D at K = 1 and 8192, at B = 1 and 2 at every cluster size
+    ``cluster_size`` returns on this card, and one input launched at every
+    cluster size (the same bits). Returns the cluster size per (B, K)."""
+    from tti_torch.kernels import nms as nk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = {}
+    for b, k in ((1, 1), (4, 1), (2, 8192), (1, 8192)):
+        chosen[(b, k)] = nk.cluster_size(b, k, sms)
+        check_nms_case(torch, f"K={k} (cluster {chosen[(b, k)]})",
+                       *nms_problem(torch, b, k, seed=k + b))
+    for b in (1, 2):
+        for k in (32, 200, 256, 512):
+            chosen[(b, k)] = nk.cluster_size(b, k, sms)
+            check_nms_case(torch, f"B={b} K={k} (cluster {chosen[(b, k)]})",
+                           *nms_problem(torch, b, k, seed=100 * b + k, spread=80.0))
+        sizes = {c for (bb, _), c in chosen.items() if bb == b}
+        check(sizes == {1, 2, 4, 8}, f"kernel D at B={b}: cluster sizes {sorted(sizes)} "
+              "checked, every size the choice can return expected")
+    args = nms_problem(torch, 2, 512, seed=5, spread=120.0)
+    keeps = {c: nk._launch(*args, 0.25, True, cluster=c) for c in (1, 2, 4, 8)}
+    torch.cuda.synchronize()
+    check(all(torch.equal(v, keeps[1]) for v in keeps.values()),
+          "kernel D: the cluster sizes disagree")
+    log(f"  greedy_keep (2, 512) at clusters 1, 2, 4 and 8: bit-equal; cluster size per (B, K) "
+        f"on {sms} SMs {chosen}")
+    return {f"{b}x{k}": c for (b, k), c in chosen.items()}
 
 
 def nms_errors() -> dict:
@@ -781,31 +874,116 @@ def nms_errors() -> dict:
             "mismatched_keep_bits": t["mismatched"], "compared_keep_bits": t["compared"]}
 
 
+# Pass 2's chain in the redesign (csrc/nms.cu): one warp vote per word of
+# 32 ranks (about 30 cycles, the figure used for the first design's vote
+# step) and one dependent integer operation per rank in the word's bit loop
+# (about 4 cycles), at the SXM part's boost clock.
+VOTE_CYCLES, BIT_STEP_CYCLES, SM_CLOCK_HZ = 30, 4, 1.98e9
+
+
 def nms_bound_ms(boxes) -> tuple[float, str, dict]:
     """Kernel D's least time on this input: its bytes (boxes, classes and ok
     read once, keep written once) over 3.35 TB/s against its operations,
     16 float32 operations per candidate pair j < i (the IoU and the test)
-    over the float32 peak. Neither counts the K dependent row checks of the
-    rank walk, which bound the kernel in fact."""
+    over the float32 peak. Beside it (``chain_ms``), the latency of pass 2's
+    dependent chain, which no parallelism shortens: K / 32 votes and K bit
+    steps per frame, the frames in parallel."""
     b, k, _ = boxes.shape
     nbytes = b * k * (16 + 4 + 1 + 1)
     ops = 16.0 * b * k * (k - 1) / 2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
-    info = {"bytes": nbytes, "ops": ops, "serial_row_checks": k}
+    chain = (-(-k // 32) * VOTE_CYCLES + k * BIT_STEP_CYCLES) / SM_CLOCK_HZ * 1e3
+    info = {"bytes": nbytes, "ops": ops, "serial_words": -(-k // 32), "chain_ms": chain}
     return (t_bytes, "bytes", info) if t_bytes >= t_ops else (t_ops, "operations", info)
 
 
-def time_nms(torch, args, flush) -> dict:
-    """Kernel D on one step's candidates: kernel, plain sweep, bound."""
+def load_first_nms(torch, path):
+    """Build kernel D's first design (its ``nms.cu``, from ``path``) into
+    its own library and return ``call(boxes, classes, ok, iou_thresh,
+    class_aware)``, which launches it as its own wrapper did (not
+    counted)."""
+    import ctypes
+
+    from tti_torch.kernels import build as kbuild
+
+    out = kbuild.BUILD_DIR / "libtti_nms_first_design.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out), path], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tti_greedy_keep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
+    lib.tti_greedy_keep.restype = i
+    lib.tti_greedy_keep_scratch_words.argtypes = [i]
+    lib.tti_greedy_keep_scratch_words.restype = i
+
+    def call(boxes, classes, ok, iou_thresh, class_aware=True):
+        b, k = ok.shape
+        keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+        words = lib.tti_greedy_keep_scratch_words(k)
+        scratch = torch.empty((b, words), dtype=torch.int32, device=boxes.device) if words else None
+        err = lib.tti_greedy_keep(boxes.data_ptr(), classes.data_ptr(), ok.data_ptr(),
+                                  keep.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                                  b, k, float(iou_thresh), int(class_aware),
+                                  torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"first design of kernel D: cudaError {err}")
+        return keep
+
+    return call
+
+
+def check_first_nms(torch, first, cands: dict, label: str) -> None:
+    """Phase 3 again, for kernel D's first design: bit-equal to D on a
+    step's candidates at batch 128 and 1."""
+    from tti_torch.kernels import nms as nk
+
+    for b, args in cands.items():
+        got, old = nk.greedy_keep(*args), first(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, old), f"kernel D's first design disagrees on the {label} "
+              f"step's candidates at batch {b}")
+        log(f"  greedy_keep's first design on the {label} step's candidates at batch {b}: "
+            "bit-equal to D")
+
+
+def time_nms(torch, args, flush, first=None, plain=True) -> dict:
+    """Kernel D on one step's candidates: kernel, plain sweep, bound, the
+    cluster size, and an empty kernel of D's grid, clusters and shared
+    memory (the launch's fixed cost); with ``first``, the first design in turns
+    with D (first, D, D, first)."""
     from tti_torch.kernels import nms as nk
 
     boxes, classes, ok, iou_thresh, class_aware = args
+    b, k = ok.shape
+    cluster = nk.cluster_size(b, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    kern = lambda: nk.greedy_keep(*args)
+    t = {"cluster": cluster}
     with torch.inference_mode():
-        t = {"ms": time_ms(torch, lambda: nk.greedy_keep(*args), flush=flush),
-             "plain_ms": time_ms(torch, lambda: nk.greedy_keep_plain(*args), iters=5,
-                                 flush=flush)}
+        if first is not None:
+            t["first_design_ms"] = [time_ms(torch, lambda: first(*args), flush=flush)]
+        t["ms"] = time_ms(torch, kern, flush=flush)
+        if first is not None:
+            t["ms_again"] = time_ms(torch, kern, flush=flush)
+            t["first_design_ms"].append(time_ms(torch, lambda: first(*args), flush=flush))
+        t["empty_ms"] = time_ms(torch, lambda: nk.empty_launch(b, k, cluster, boxes.device),
+                                flush=flush)
+        if plain:
+            t["plain_ms"] = time_ms(torch, lambda: nk.greedy_keep_plain(*args), iters=5,
+                                    flush=flush)
     bound, bound_by, info = nms_bound_ms(boxes)
     return {**t, "bound_ms": bound, "bound_by": bound_by, "shape": list(ok.shape), **info}
+
+
+def log_nms_time(label, t) -> None:
+    first = (f" and {t['ms_again']:.4f} again, first design "
+             f"{' and '.join(f'{v:.4f}' for v in t['first_design_ms'])} ms (first, D, D, first)"
+             if "first_design_ms" in t else "")
+    plain = f", plain sweep {t['plain_ms']:.4f} ms" if "plain_ms" in t else ""
+    log(f"  greedy_keep on {label}, (B, K) = {tuple(t['shape'])}, cluster {t['cluster']}: "
+        f"kernel {t['ms']:.4f} ms{first}{plain}, empty kernel of its shape {t['empty_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
+        f"{t['ops'] / 1e9:.4f} GFLOP), pass 2's chain {t['chain_ms']:.5f} ms "
+        f"({t['serial_words']} votes, {t['shape'][1]} bit steps)")
 
 
 def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
@@ -2860,8 +3038,8 @@ def check_frozen(torch, ms, wp, ik) -> dict:
             n_sync, where, _ = count_step_syncs(torch, SimpleNamespace(step=frozen), x)
             check(n_sync == 0, f"{tag}: {n_sync} synchronising calls per frozen step: {where}")
             fns = {"live": pipe.step, "frozen": frozen}
-            if batch == 1:
-                timing = time_turns(torch, fns, x, 30, per_call=True)
+            if batch == 1:  # 15 calls a turn (once 30: the script's time limit)
+                timing = time_turns(torch, fns, x, 15, per_call=True)
                 shown = (f"batch-1 p50 frozen {timing['frozen']:.3f} ms, live "
                          f"{timing['live']:.3f} ms")
             else:
@@ -3335,13 +3513,14 @@ def check_data_parallel(torch, ms, wp, card) -> dict:
 # ---------------------------------------------------------------------------
 
 SPACE_DIR = os.path.join(HERE, "build", "space_smoke")
+SPACE_REPEATS = 3  # the float32 deploy batch-1 space check, with its miss dump
 
 
 def check_space(torch, ms, wp, card) -> dict:
     """Phase 5f (see the module docstring)."""
     import torch.distributed as dist
 
-    from space_cards_torch import launch, summary_lines
+    from space_cards_torch import launch, repeat_summary, summary_lines
     from tti_torch.parallel import dcn, spatial
     from tti_torch.parallel.mesh import create_mesh
 
@@ -3378,13 +3557,17 @@ def check_space(torch, ms, wp, card) -> dict:
     finally:
         dcn.shutdown()
     t0 = time.perf_counter()
-    ranks = launch(2, "gloo", os.path.join(SPACE_DIR, "space2"), runs="checked,banded")
+    label = "space 2, two gloo ranks sharing the card"
+    ranks = launch(2, "gloo", os.path.join(SPACE_DIR, "space2"), runs="checked,banded,dual",
+                   repeat=SPACE_REPEATS)
     result["gloo_2"] = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
-    for line in summary_lines(ranks, "space 2, two gloo ranks sharing the card"):
+    for line in summary_lines(ranks, label):
         log(line)
-    log(f"space 2, dense and banded: {result['gloo_2']['wall_s']:.1f} s with the processes' "
-        "start")
+    log(repeat_summary(ranks, label))
+    log(f"space 2, dense, banded and dual: {result['gloo_2']['wall_s']:.1f} s with the "
+        "processes' start")
     result["banded_p50_ms"] = check_space_banded(ranks)
+    result["bf16_spread"] = check_space_spread(ranks)
     result["wall_s"] = time.perf_counter() - t_phase
     log(f"spatial phase: {result['wall_s']:.1f} s")
     log(card)
@@ -3419,6 +3602,40 @@ def check_space_banded(ranks: list) -> dict:
             + ", ".join(f"{v:.3f}" for v in banded) + " ms against the dense space step's "
             + ", ".join(f"{v:.3f}" for v in dense) + " ms (the same processes, dense first)")
     return p50
+
+
+def check_space_spread(ranks: list) -> dict:
+    """Phase 5f, the bf16 space steps at batch 1 and 2: each rank held them
+    to the plain step at that batch within the plain step's own spread on
+    those frames (``space_cards_torch.plain_spread``: batch 128's readings
+    and the forward on slabs of other shapes, floor 0.01 mm, cap 0.25,
+    detection counts equal) and bit-equal to the same slabs computed on
+    threads of one process; a rank that missed failed the phase already.
+    Prints and returns each check's readings."""
+    from space_cards_torch import spread_text
+
+    out = {}
+    for r, rank in enumerate(ranks):
+        for tag, run in rank["runs"].items():
+            for b, d in run["diffs"].items():
+                if "spread_mm_max" not in d:
+                    continue
+                out[f"rank {r} {tag} batch {b}"] = {k: d[k] for k in (
+                    "spread_mm_max", "limit_mm", "spread_bar_met", "mm_max", "same_count_share",
+                    "emulated_equal")}
+                log(f"  rank {r}, {tag} batch {b}: the plain step's own spread "
+                    f"{d['spread_mm_max']:.4g} mm ({spread_text(run, b)}); the space step "
+                    f"against the plain step {d['mm_max']:.4g} mm; the bar {d['limit_mm']:.4g} "
+                    f"{'met' if d['spread_bar_met'] else 'NOT MET'}; detection counts equal on "
+                    f"{d['same_count_share']:.0%} of frames; "
+                    f"{'' if d['emulated_equal'] else 'NOT '}bit-equal to the same slabs on "
+                    "threads")
+    check(len(out) == 2 * 2 * len(ranks), f"bf16 spread checks: {sorted(out)}")
+    check(all(v["spread_bar_met"] and v["emulated_equal"] for v in out.values()),
+          f"bf16 space steps: {out}")
+    log(f"  the bf16 space step within the plain step's own spread and bit-equal to its "
+        f"slabs on threads: {len(out)} of {len(out)} (rank, configuration, batch)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4719,6 +4936,9 @@ def main() -> int:
     parser.add_argument("--first-design-warp", metavar="PATH",
                         help="a copy of kernel C's first warp_p1.cu (commit 0b702ac), held equal "
                              "to kernel C and timed beside it")
+    parser.add_argument("--first-design-nms", metavar="PATH",
+                        help="a copy of kernel D's first nms.cu (commit d4bb171), held equal "
+                             "to kernel D and timed beside it")
     parser.add_argument("--ablate", action="store_true",
                         help="time variants of maskstats.cu on synthetic inputs, and nothing else")
     parser.add_argument("--gloo-rank", type=int, default=None,
@@ -4775,15 +4995,28 @@ def main() -> int:
                   else None)
     first_warp = (load_first_warp(torch, opts.first_design_warp) if opts.first_design_warp
                   else None)
+    first_nms = load_first_nms(torch, opts.first_design_nms) if opts.first_design_nms else None
     if opts.ablate:
         ablate(torch, ms, kbuild, first)
         log(card)
         return 0
 
+    # Each phase's wall seconds, logged as it ends.
+    phase_s, t_phase = {}, [t_script]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s wall")
+
+    phase_done("1-2 (card, build)")
+
     # Phase 3: the mask-stats kernels and kernel D against their plain versions.
     log("kernel checks against the plain versions:")
     errs = check_kernels(torch, ms)
-    check_nms(torch)
+    nms_clusters = check_nms(torch)
+    phase_done("3 (kernels against their plain versions)")
 
     # Phases 4-5: the configurations through process_batch; each step's own
     # kernel inputs at batch 128 are kept for phase 9.
@@ -4802,6 +5035,9 @@ def main() -> int:
     errs["warp_pass1_decimated"] = check_warp_p1(torch, wp, head.warp, head.spec, first_warp)
     torch.cuda.empty_cache()
     head_time, (head_args, head_nms) = time_step(torch, ms, head, "headline", head_hw)
+    if first_nms is not None:  # phase 3 again, for kernel D's first design
+        check_first_nms(torch, first_nms, dep_nms, "deploy")
+        check_first_nms(torch, first_nms, head_nms, "headline")
 
     head_k, k_launches, got_k = check_step(
         torch, ms, wp, "headline step with warp_pass1='kernel'", head_hw, 640, head_ckpt,
@@ -4817,15 +5053,19 @@ def main() -> int:
     streams = check_streams(torch, head, head_hw)
     torch.cuda.empty_cache()
 
+    phase_done("4-5 (the steps)")
+
     # Phase 5b: the step's opt-in modes at full width.
     log("the step's modes (each against its reference step, bf16 and float32):")
     modes = check_modes(torch, ms, wp)
+    phase_done("5b (modes)")
 
     # Phase 5c: int8 inference at full width (kernels E and F).
     log("int8 inference (kernels E and F; CUDA events, L2 flushed before each timed call):")
     flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
     int8 = check_int8(torch, ms, wp, ik, flush, first_int8)
+    phase_done("5c (int8)")
 
     # Phase 5d: the frozen step, exported, saved, loaded and run on the card.
     log("the frozen step (torch.export through the kernels' operators):")
@@ -4833,6 +5073,7 @@ def main() -> int:
     frozen_launches = {tag: v["launches"] for tag, v in frozen.items()
                        if isinstance(v, dict) and "launches" in v}
     log(card)
+    phase_done("5d (frozen step)")
 
     # Phase 5e: data-parallel, on the one card.
     log("data-parallel (tti_torch.parallel: a one-rank NCCL mesh, two gloo ranks, cli train "
@@ -4840,6 +5081,7 @@ def main() -> int:
     data_parallel = check_data_parallel(torch, ms, wp, card)
     mesh_launches = {**{tag: v["launches"] for tag, v in data_parallel["steps"].items()},
                      "dual": data_parallel["dual"]["launches"]}
+    phase_done("5e (data-parallel)")
 
     # Phase 5f: spatial partitioning, on the one card.
     log("spatial partitioning (a (data, space) mesh: a one-rank NCCL job, then two gloo ranks "
@@ -4847,21 +5089,26 @@ def main() -> int:
     space = check_space(torch, ms, wp, card)
     space_launches = {tag: run["launches"]
                       for tag, run in space["gloo_2"]["ranks"][0]["runs"].items()}
+    phase_done("5f (space)")
 
     # Phase 5g: tune-device and the card-timing tools, each in a subprocess.
     log("the tools that time the card (tune-device, profile_forward, profile_train, "
         "host_overhead):")
     tools = check_tools(card)
+    phase_done("5g (tools)")
 
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
+    phase_done("6 (training)")
 
     # Phase 7: the application, ``run`` and ``eval``.
     application = check_application(torch, ms, wp, dep_time["p50_ms"])
     log(card)
+    phase_done("7 (application)")
 
     # Phase 8: calibrate, then measure, at the deployed geometry.
     calibrated = check_calibrate_measure(torch, ms, wp)
+    phase_done("8 (calibrate, then measure)")
 
     # Phase 9: kernel timings, on each step's own inputs (the kernels line)
     # and, for the mask statistics, on a synthetic input whose first box
@@ -4931,12 +5178,14 @@ def main() -> int:
     d_times = {}
     for config, cands in (("deploy", dep_nms), ("headline", head_nms)):
         for b, args in cands.items():
-            d_times[(config, b)] = t = time_nms(torch, args, flush)
-            log(f"  greedy_keep on the {config} step's candidates at batch {b}, (B, K) = "
-                f"{tuple(t['shape'])}: kernel {t['ms']:.4f} ms, plain sweep {t['plain_ms']:.4f} "
-                f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
-                f"{t['ops'] / 1e9:.4f} GFLOP; not counted: {t['serial_row_checks']} dependent "
-                f"row checks per frame)")
+            d_times[(config, b)] = t = time_nms(torch, args, flush, first_nms)
+            log_nms_time(f"the {config} step's candidates at batch {b}", t)
+    for k in (512, 1000, 2048):  # larger K than the steps': seeded candidates
+        for b in (BATCH, 1):
+            d_times[(f"seeded K={k}", b)] = t = time_nms(
+                torch, (*nms_problem(torch, b, k, seed=k), 0.25, True), flush, first_nms,
+                plain=False)
+            log_nms_time(f"seeded candidates at batch {b}", t)
     d = d_times[("headline", BATCH)]
     errs["greedy_keep"] = nms_errors()
     log(f"  greedy_keep against the plain version over this run's cases: "
@@ -4953,10 +5202,14 @@ def main() -> int:
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
         "timed_on": "the headline step's candidates", "timed_shape": d["shape"],
+        "cluster": d["cluster"], "empty_ms": d["empty_ms"],
+        **({k: d[k] for k in ("first_design_ms", "ms_again")} if first_nms else {}),
+        "cluster_per_b_k": nms_clusters,
         "dual_launches": dual["greedy_keep_launches"],
-        "other_inputs": {f"{c} batch {b}": {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                             "bound_by", "shape")}
-                         for (c, b), t in d_times.items() if (c, b) != ("headline", BATCH)},
+        "other_inputs": {f"{c} batch {b}": {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "shape", "cluster", "empty_ms",
+            "first_design_ms", "ms_again") if k in t}
+            for (c, b), t in d_times.items() if (c, b) != ("headline", BATCH)},
     })
     del dep_nms, head_nms
     e, f, dep8 = int8["timing"]["row"], int8["timing"]["f"], int8["deploy int8"]
@@ -5002,14 +5255,16 @@ def main() -> int:
         k["mesh_launches"] = {tag: n.get(k["name"], 0) for tag, n in mesh_launches.items()}
         # Launches per rank and step of the space step (phase 5f, two ranks).
         k["space_launches"] = {tag: n.get(k["name"], 0) for tag, n in space_launches.items()}
-    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (920.2 s on an H100 before the "
-        "banded space runs and phase 5g were added)")
+    phase_done("9 (kernel timings)")
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (1018.9 s on an H100 before the "
+        "space repeats and dual run and kernel D's redesign)")
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
         "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
         "space": space, "tools": tools},
-        "training": training, "application": application, "calibrate_measure": calibrated}))
+        "training": training, "application": application, "calibrate_measure": calibrated,
+        "phase_s": phase_s}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,12 @@
 """Kernel D's contract on the CPU: ``greedy_keep`` (here its plain version)
 against tti's ``_greedy_suppress`` keep-set, and the lazy decode
 (``nms_from_raw``, ``raw_candidate_counts``) against tti's and against the
-port's eager decode + NMS, float32. The kernel itself is held to the plain
-version on the card (``chip_smoke.py`` phase 3; the ``cuda`` test here)."""
+port's eager decode + NMS, float32; the kernel's launch shape
+(``cluster_size``) and its decomposition (``_greedy_keep_by_words`` here:
+rows packed tile by tile, 32 ranks decided per step) against the plain
+version.
+The kernel itself is held to the plain version on the card (``chip_smoke.py``
+phase 3; the ``cuda`` test here)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -176,8 +180,109 @@ def test_raw_candidate_counts_at_the_ends(conf):
                                   np.asarray(jnms.raw_candidate_counts(jraw, conf)))
 
 
+# Kernel D's launch shape and decomposition (csrc/nms.cu), on the CPU.
+
+def _pass1_tile(t: int) -> tuple[int, int]:
+    """Pass 1's tile ``t`` -> (row block r, word w), ``t = r (r + 1) / 2 +
+    w`` with ``w <= r``, as the kernel computes it (a float square root,
+    then corrected)."""
+    r = int((np.sqrt(np.float32(8 * t + 1), dtype=np.float32) - np.float32(1))
+            * np.float32(0.5))
+    while r * (r + 1) // 2 > t:
+        r -= 1
+    while (r + 1) * (r + 2) // 2 <= t:
+        r += 1
+    return r, t - r * (r + 1) // 2
+
+
+def _greedy_keep_by_words(cand_boxes, cand_classes, cand_ok, iou_thresh: float,
+                          class_aware: bool = True) -> torch.Tensor:
+    """Kernel D's decomposition in plain PyTorch (held here to
+    ``greedy_keep_plain``): the overlap rows packed into 32-bit words
+    tile by tile (:func:`_pass1_tile`), then 32 ranks decided per step: the
+    word's candidates blocked by a kept rank of an earlier word, then, in
+    rank order, those of the word's remaining candidates whose in-word row
+    meets a kept one."""
+    b, k = cand_ok.shape
+    nw = (k + 31) // 32
+    blocked = knms.suppression_matrix(cand_boxes, cand_classes, iou_thresh, class_aware)
+    pad = torch.zeros(b, 32 * nw, 32 * nw, dtype=torch.bool)
+    pad[:, :k, :k] = blocked
+    weights = torch.tensor([1 << n for n in range(32)], dtype=torch.int64)
+    pack = lambda bits: (bits.long() * weights).sum(-1)  # (..., 32) bool -> word
+    rows = torch.zeros(b, 32 * nw, nw, dtype=torch.int64)  # row i, word w
+    for t in range(nw * (nw + 1) // 2):
+        r, w = _pass1_tile(t)
+        rows[:, 32 * r:32 * r + 32, w] = pack(pad[:, 32 * r:32 * r + 32, 32 * w:32 * w + 32])
+    okw = pack(torch.nn.functional.pad(cand_ok, (0, 32 * nw - k)).view(b, nw, 32))
+    keep = torch.zeros(b, 32 * nw, dtype=torch.bool)
+    for f in range(b):
+        kept = []
+        for w in range(nw):
+            lanes = rows[f, 32 * w:32 * w + 32]
+            outside = torch.zeros(32, dtype=torch.int64)
+            for v in range(w):
+                outside |= lanes[:, v] & kept[v]
+            word = int(okw[f, w]) & ~int(pack(outside != 0))
+            inword = lanes[:, w]
+            todo = word & int(pack((inword & word) != 0))
+            for lane in range(32):
+                if todo >> lane & 1 and int(inword[lane]) & word:
+                    word &= ~(1 << lane)
+            kept.append(word)
+            keep[f, 32 * w:32 * w + 32] = (torch.tensor(word) >> torch.arange(32)) & 1 == 1
+    return keep[:, :k]
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 128, 1024])
+def test_cluster_size_is_a_function_of_b_and_k(b):
+    """Blocks per frame: a power of two up to 8, no more than pass 1's tiles
+    need (16 warps a block), the launch within the card's 132 SMs in one
+    wave, and 1 where the frames alone fill the card."""
+    for k in (1, 32, 200, 256, 1000, 2048, 8192):
+        c = knms.cluster_size(b, k)
+        nw = (k + 31) // 32
+        assert c in (1, 2, 4, 8) and c <= knms.MAX_CLUSTER
+        assert c == 1 or (b * c <= knms.SMS and 16 * (c // 2) < nw * (nw + 1) // 2)
+        assert c == knms.cluster_size(b, k, sms=132)  # pure: the same again
+        if b * 2 > knms.SMS or k <= 32:
+            assert c == 1
+        elif b * 8 <= knms.SMS and k >= 512:
+            assert c == 8
+    assert [knms.cluster_size(1, k) for k in (32, 200, 256, 512)] == [1, 2, 4, 8]
+    assert knms.cluster_size(2, 256, sms=4) == 2 and knms.cluster_size(128, 256, sms=1024) == 4
+
+
+def test_pass1_tiles_cover_the_triangle():
+    nw = 40
+    seen = [_pass1_tile(t) for t in range(nw * (nw + 1) // 2)]
+    assert seen == [(r, w) for r in range(nw) for w in range(r + 1)]
+
+
+@pytest.mark.parametrize("case", ["seeded", "class_blind", "negative_threshold", "ties",
+                                  "nan_threshold", "chain"])
+def test_word_decomposition_equals_plain(case):
+    """The kernel's decomposition (rows packed tile by tile, 32 ranks
+    decided per step) against the plain version, K not a multiple of 32."""
+    rng = np.random.default_rng(10 + len(case))
+    k = 100
+    boxes, _, classes, ok, _ = _candidates(rng, b=2, k=k, ties=8 if case == "ties" else None)
+    iou = {"negative_threshold": -0.25, "nan_threshold": float("nan")}.get(case, 0.3)
+    if case == "chain":  # each box overlaps the next: every other one kept
+        x = np.arange(k, dtype=np.float32)[None, :] * 2.0
+        boxes = np.stack([x, 0 * x, x + 4.0, 0 * x + 1.0], -1).repeat(2, 0)
+        ok[:] = True
+        classes[:] = 0
+        iou = 0.25
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (boxes, classes, ok)]
+    got = _greedy_keep_by_words(*args, iou, case != "class_blind")
+    assert torch.equal(got, knms.greedy_keep_plain(*args, iou, case != "class_blind"))
+    if case == "chain":
+        assert got.sum(1).tolist() == [k // 2] * 2
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [256, 512, 1000, 2048])
+@pytest.mark.parametrize("k", [1, 256, 512, 1000, 2048, 8192])
 def test_kernel_matches_plain_on_card(k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")

@@ -134,6 +134,39 @@ def test_sqlite_round_trip_equal(tmp_path):
     assert got[1] == [(0.0, 0.0, 0.0), (3.9, 6.5, 39.0), (5.0, 15.0, 250.5)]
 
 
+class _OneMillisecond(datetime):
+    """A clock stopped inside one millisecond: every insert ties."""
+
+    @classmethod
+    def now(cls, tz=None):
+        return cls(2026, 1, 2, 3, 4, 5, 678000)
+
+
+@pytest.mark.parametrize("n, clock", [(3, "real"), (50, "stopped")])
+def test_latest_row_is_the_last_insert_without_sleep(tmp_path, monkeypatch, n, clock):
+    """The port's departure from tti: inserts made within one millisecond
+    tie on their timestamp, and the "latest row" queries return the last of
+    them (the row id breaks the tie). Deleting by that timestamp still
+    removes every tied row, as tti's contract says."""
+    if clock == "stopped":
+        monkeypatch.setattr(tdb, "datetime", _OneMillisecond)
+    db = tdb.DatabaseHandler(tcfg.DatabaseConfig(backend="sqlite", table="ties",
+                                                 sqlite_path=str(tmp_path / "ties.db")))
+    assert db.connect()
+    for i in range(n):  # no sleep between the inserts
+        assert db.insert_measurement(total_distance=10.0 * (i + 1), stitch_length=float(i),
+                                     seam_allowance=0.5 * i)
+        latest = db.get_latest_measurement()
+        assert latest["total_distance"] == db.get_last_record_total_distance() == 10.0 * (i + 1)
+        assert latest["stitch_length"] == float(i)
+    stamps = [r[0] for r in db.cursor.execute('SELECT timestamp FROM "ties"').fetchall()]
+    if clock == "stopped":
+        assert set(stamps) == {"2026-01-02 03:04:05.678"}  # every row tied
+        assert db.delete_measurements(latest["timestamp"])
+        assert db.get_latest_measurement() is None
+    db.close()
+
+
 def test_database_degrades_equal(tmp_path, monkeypatch):
     """No MySQL driver and an unopenable sqlite path: connect and every
     query fail softly, the same way in both."""

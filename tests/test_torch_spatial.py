@@ -4,8 +4,8 @@ stand for the ranks of a space group, every module of ``YOLOv8Seg`` on
 slabs against the same module on the whole tensor, and the preprocess's
 slabs against the rows of the whole model input.
 
-The threads exchange through :class:`ThreadTransport` (a barrier and a
-mailbox), so that the modules run their own halo code with no process
+The threads exchange through ``tests/torch_threads.py``'s
+``ThreadTransport`` (a barrier and a mailbox), so that the modules run their own halo code with no process
 group. Float32 modules are held within 1e-5 of the whole tensor's outputs:
 on the CPU a convolution over a slab and its halo sums in another order
 than over the whole tensor (about 1e-8 apart). Quantized (``int8``)
@@ -14,7 +14,6 @@ slab quantizes with the whole sample's scale (the MAX over the group).
 """
 
 import copy
-import threading
 
 import pytest
 import torch
@@ -24,6 +23,7 @@ import tti_torch.calib.io as tio
 import tti_torch.core.config as tcfg
 from tests.torch_dist import pipeline_settings
 from tests.torch_synth import textile_frames
+from tests.torch_threads import on_threads
 from tti_torch.core.errors import ConfigError
 from tti_torch.model.checkpoint import load_flax_msgpack
 from tti_torch.model.yolo import RawPredictions
@@ -58,65 +58,6 @@ def test_slab_plan_refusals():
 
 
 # -- ranks as threads ------------------------------------------------------
-
-class _Mailbox:
-    def __init__(self, size: int) -> None:
-        self.size = size
-        self.barrier = threading.Barrier(size, timeout=120)
-        self.box: dict = {}
-
-
-class ThreadTransport:
-    """A space group's transport between threads of this process."""
-
-    def __init__(self, mailbox: _Mailbox, rank: int) -> None:
-        self.m, self.rank = mailbox, rank
-
-    def exchange(self, sends, recvs) -> None:
-        for peer, t in sends:
-            self.m.box[(self.rank, peer)] = t
-        self.m.barrier.wait()
-        for peer, buf in recvs:
-            buf.copy_(self.m.box[(peer, self.rank)])
-        self.m.barrier.wait()
-
-    def all_reduce_max(self, t) -> None:
-        self.m.box[("max", self.rank)] = t.clone()
-        self.m.barrier.wait()
-        top = torch.stack([self.m.box[("max", q)] for q in range(self.m.size)]).amax(0)
-        self.m.barrier.wait()
-        t.copy_(top)
-
-    def all_gather(self, buf):
-        self.m.box[("gather", self.rank)] = buf
-        self.m.barrier.wait()
-        out = [self.m.box[("gather", q)].clone() for q in range(self.m.size)]
-        self.m.barrier.wait()
-        return out
-
-
-def on_threads(plan, fn):
-    """``fn(rank, space)`` on one thread per rank of ``plan``; the results
-    in rank order. A rank that raises aborts the others' barriers."""
-    mailbox = _Mailbox(len(plan.counts))
-    results, errors = [None] * mailbox.size, []
-
-    def work(r):
-        try:
-            results[r] = fn(r, Space(plan, r, ThreadTransport(mailbox, r)))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-            mailbox.barrier.abort()
-
-    threads = [threading.Thread(target=work, args=(r,)) for r in range(mailbox.size)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return results
-
 
 def slab(x, plan, rank, dim):
     """Rank's rows of ``x`` along ``dim`` (x covers the plan's P5 rows)."""

@@ -20,6 +20,9 @@ Cases (inputs in ``dir/inputs.npz``):
   and ``(2, 2)`` ranks (``MESHES``), on the geometry and batch of the
   inputs file (and each banded warp of its ``warp_blocks``, if any), with
   each rank's counts of the spatial exchanges of one step;
+- ``space_dump``: one deploy step on the ``(1, 2)`` mesh and the step
+  without a mesh under ``tools/space_cards_torch.py``'s ``StepRecorder``:
+  the arrays of its miss dump;
 - ``train``: the data-parallel ``TrainStep`` and its trainer.
 """
 
@@ -221,6 +224,36 @@ def _inference(case: str, inputs: dict, mesh) -> dict:
     return arrays
 
 
+def _dump(inputs: dict, mesh) -> dict:
+    """``space_cards_torch.StepRecorder``'s arrays for one step of the space
+    pipeline and one of the plain pipeline on the inputs' frames; the space
+    step's outputs (``space/``) beside ``on_slabs`` with the mesh's own
+    slabs (``threads/``); ``conv_departures``' count of convolutions and
+    largest departure."""
+    import torch
+
+    sys.path[:0] = [str(REPO / "tools"), str(REPO / "tests")]
+    from space_cards_torch import StepRecorder, conv_departures, on_slabs
+
+    intrinsics = (inputs["K"], inputs["dist"])
+    geometry = str(inputs["geometry"])
+    plain, pipe = _port_pipeline(geometry, intrinsics), _port_pipeline(geometry, intrinsics, mesh)
+    with StepRecorder(pipe, plain) as recorder:
+        plain.process_batch(inputs["frames"])
+        got = pipe.process_batch(inputs["frames"])
+    arrays = recorder.arrays()
+    arrays.update(outputs_to_arrays(got, "space"))
+    arrays.update(outputs_to_arrays(
+        on_slabs(torch, plain, inputs["frames"], pipe.space.plan.counts), "threads"))
+    with torch.inference_mode():
+        x = plain.preprocess(torch.from_numpy(inputs["frames"]))
+    dep = conv_departures(torch, plain, pipe, x)
+    arrays["departures/convs"] = np.array(dep["convs"])
+    arrays["departures/max"] = np.array(max((d["max_abs_diff"] for d in dep["departs"]),
+                                            default=0.0))
+    return arrays
+
+
 TRAIN = dict(imgsz=64, batch=4, max_gt=8, lr=1e-3, total=None, gains=(2.0, 1.0),
              ckpt="checkpoints/yolov8n_textile_cam.msgpack")
 
@@ -301,6 +334,8 @@ def main(argv: list[str]) -> int:
         mesh = create_mesh(*shape, device_type="cpu") if shape else create_mesh(device_type="cpu")
         if case == "train":
             arrays = _train(os.path.join(workdir, "ckpt"), mesh)
+        elif case == "space_dump":
+            arrays = _dump(dict(np.load(os.path.join(workdir, "inputs.npz"))), mesh)
         else:
             arrays = _inference(case, dict(np.load(os.path.join(workdir, "inputs.npz"))), mesh)
         np.savez(os.path.join(workdir, f"rank{dcn.rank()}.npz"), **arrays)

@@ -13,7 +13,9 @@ The kernel is the operator ``torch.ops.tti_torch.greedy_keep``
 (:func:`tti_torch.kernels.build.register_op`): on a CPU tensor it runs the
 plain version, the reference's sweep to its fixed point; on a CUDA tensor it
 launches the kernel or raises. What bounds the kernel and what its design
-does about it is written in ``csrc/nms.cu``.
+does about it is written in ``csrc/nms.cu``: a cluster of
+:func:`cluster_size` blocks per frame computes the overlap rows, and the
+leader decides 32 ranks per step.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ Tensor = torch.Tensor
 
 # Kernel launches (plain-version calls are not counted).
 LAUNCHES = {"greedy_keep": 0}
+THREADS = 512  # a block of the kernel: 16 warps
+MAX_CLUSTER = 8  # the portable cluster size (csrc/nms.cu kMaxCluster)
+SMS = 132  # an H100 SXM's SMs, the default of cluster_size
 
 _lib: ctypes.CDLL | None = None
 
@@ -43,13 +48,40 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = load_library("nms")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tti_greedy_keep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
+        lib.tti_greedy_keep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, i, p]
         lib.tti_greedy_keep.restype = i
+        lib.tti_greedy_keep_empty.argtypes = [i, i, i, p]
+        lib.tti_greedy_keep_empty.restype = i
         lib.tti_greedy_keep_scratch_words.argtypes = [i]
         lib.tti_greedy_keep_scratch_words.restype = i
         lib.tti_greedy_keep_max_k.restype = i
         _lib = lib
     return _lib
+
+
+def cluster_size(b: int, k: int, sms: int = SMS) -> int:
+    """Blocks per frame of kernel D's launch: pass 1's 32 x 32 tiles (K / 32
+    words, ``nw (nw + 1) / 2`` tiles) are dealt to the cluster's warps, 16
+    per block. The smallest power of two whose warps take every tile at
+    once, at most :data:`MAX_CLUSTER`, and halved until the ``b * cluster``
+    blocks fit the card's ``sms`` in one wave: 1 when the frames alone fill
+    the card."""
+    nw = (k + 31) // 32
+    tiles = nw * (nw + 1) // 2
+    c = 1
+    while c < MAX_CLUSTER and (THREADS // 32) * c < tiles and b * 2 * c <= sms:
+        c *= 2
+    return c
+
+
+_sms: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +145,10 @@ def _check(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor) -> None:
 
 
 def _launch(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor, iou_thresh: float,
-            class_aware: bool) -> Tensor:
+            class_aware: bool, cluster: int | None = None) -> Tensor:
+    """The CUDA implementation: one launch of kernel D in clusters of
+    ``cluster`` blocks per frame (:func:`cluster_size` by default; every
+    cluster size gives the same bits)."""
     if cand_boxes.dtype != torch.float32:
         raise TypeError(f"on the card boxes must be float32, got {cand_boxes.dtype}")
     if cand_classes.dtype != torch.int32:
@@ -131,6 +166,8 @@ def _launch(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor, iou_thres
     if b > 2 ** 31 - 1 or k > lib.tti_greedy_keep_max_k():
         raise ValueError(f"shape too large for one launch: B={b}, K={k} "
                          f"(at most {lib.tti_greedy_keep_max_k()} candidates)")
+    if cluster is None:
+        cluster = cluster_size(b, k, _sm_count(cand_boxes.device))
     words = lib.tti_greedy_keep_scratch_words(k)
     scratch = (torch.empty((b, words), dtype=torch.int32, device=cand_boxes.device)
                if words else None)
@@ -139,11 +176,20 @@ def _launch(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor, iou_thres
         err = lib.tti_greedy_keep(
             cand_boxes.data_ptr(), cand_classes.data_ptr(), cand_ok.data_ptr(), keep.data_ptr(),
             None if scratch is None else scratch.data_ptr(), b, k, float(iou_thresh),
-            int(class_aware), stream)
+            int(class_aware), int(cluster), stream)
     if err != 0:
         raise RuntimeError(f"greedy-keep kernel launch failed: cudaError {err}")
     LAUNCHES["greedy_keep"] += 1
     return keep
+
+
+def empty_launch(b: int, k: int, cluster: int, device: torch.device) -> None:
+    """An empty kernel on kernel D's grid, clusters, block and shared memory
+    for (B, K): the launch's fixed cost, for timing beside D. Not counted."""
+    with torch.cuda.device(device):
+        err = build().tti_greedy_keep_empty(b, k, cluster, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
 
 def _plain_op(cand_boxes: Tensor, cand_classes: Tensor, cand_ok: Tensor, iou_thresh: float,

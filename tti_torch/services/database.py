@@ -28,6 +28,10 @@ from tti_torch.core.logging import get_logger
 
 log = get_logger("services.db")
 
+# The newest row: timestamps are kept to the millisecond, so two inserts in
+# one millisecond tie, and the row id (autoincrement) breaks the tie.
+LATEST = "ORDER BY timestamp DESC, id DESC LIMIT 1"
+
 
 class DatabaseHandler:
     def __init__(self, config: DatabaseConfig | None = None) -> None:
@@ -94,19 +98,21 @@ class DatabaseHandler:
         )
         self.connection.commit()
 
+    def _quoted(self) -> str:
+        return f"`{self.table}`" if self.config.backend == "mysql" else f'"{self.table}"'
+
     def _placeholder(self) -> str:
         return "%s" if self.config.backend == "mysql" else "?"
 
     # -- queries (reference contract) -----------------------------------------
 
     def get_last_record_date(self) -> date | None:
-        """Date of the newest record (reference: database.py:34-45)."""
+        """Date of the newest record (reference: database.py:34-45). The
+        "latest row" queries break a tie of millisecond timestamps by the
+        row id, so the last of several inserts within one millisecond is
+        the latest (the reference orders by timestamp alone)."""
         try:
-            self.cursor.execute(
-                f'SELECT timestamp FROM "{self.table}" ORDER BY timestamp DESC LIMIT 1'
-                if self.config.backend != "mysql"
-                else f"SELECT timestamp FROM `{self.table}` ORDER BY timestamp DESC LIMIT 1"
-            )
+            self.cursor.execute(f"SELECT timestamp FROM {self._quoted()} {LATEST}")
             row = self.cursor.fetchone()
             if not row:
                 return None
@@ -122,11 +128,7 @@ class DatabaseHandler:
         """Total distance of the newest record — the checkpoint the orchestrator
         resumes from (reference: database.py:68-79, main.py:168)."""
         try:
-            self.cursor.execute(
-                f'SELECT total_distance FROM "{self.table}" ORDER BY timestamp DESC LIMIT 1'
-                if self.config.backend != "mysql"
-                else f"SELECT total_distance FROM `{self.table}` ORDER BY timestamp DESC LIMIT 1"
-            )
+            self.cursor.execute(f"SELECT total_distance FROM {self._quoted()} {LATEST}")
             row = self.cursor.fetchone()
             return float(row[0]) if row else None
         except Exception as e:
@@ -143,7 +145,7 @@ class DatabaseHandler:
                 return False
         timestamp = datetime.now().strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
         p = self._placeholder()
-        quoted = f"`{self.table}`" if self.config.backend == "mysql" else f'"{self.table}"'
+        quoted = self._quoted()
         query = (
             f"INSERT INTO {quoted} (timestamp, stitch_length, seam_allowance, total_distance) "
             f"VALUES ({p}, {p}, {p}, {p})"
@@ -176,11 +178,11 @@ class DatabaseHandler:
         if not self._is_connected():
             if not self.connect():
                 return None
-        quoted = f"`{self.table}`" if self.config.backend == "mysql" else f'"{self.table}"'
+        quoted = self._quoted()
         try:
             self.cursor.execute(
                 f"SELECT id, timestamp, stitch_length, seam_allowance, total_distance "
-                f"FROM {quoted} ORDER BY timestamp DESC LIMIT 1"
+                f"FROM {quoted} {LATEST}"
             )
             row = self.cursor.fetchone()
             if not row:
@@ -197,12 +199,13 @@ class DatabaseHandler:
             return None
 
     def delete_measurements(self, timestamp) -> bool:
-        """Delete by timestamp (reference: database.py:154-174)."""
+        """Delete by timestamp (reference: database.py:154-174): every row
+        of that timestamp goes, all the rows tied to it included."""
         if not self._is_connected():
             if not self.connect():
                 return False
         p = self._placeholder()
-        quoted = f"`{self.table}`" if self.config.backend == "mysql" else f'"{self.table}"'
+        quoted = self._quoted()
         try:
             self.cursor.execute(f"DELETE FROM {quoted} WHERE timestamp = {p}", (timestamp,))
             self.connection.commit()
