@@ -64,6 +64,27 @@ result line:
    cluster size ``nms.cluster_size`` returns (1, 2, 4 and 8), and one input
    launched at each cluster size (the same bits); then (phases 4-5) on the
    deploy and headline steps' own candidates at batch 128 and 1;
+3b. the checks that run in processes of their own and time nothing,
+   started together while this process only waits, then each waited for
+   and held to its bar in turn, with its wall seconds (taken beside the
+   others): ``tools/calibrate_int8_torch.py --synth 16`` for both
+   checkpoints (imgsz 960 and 640: the scales of phases 5c and 5g);
+   ``python -m tti_torch.cli run --synthetic --max-frames 2`` three times,
+   each from its own directory holding a .env and the calibration files:
+   ``--skip-calibration`` (two measurement records), ``--cameras 4`` (eight
+   stream records, through ``MultiStreamRunner``) and
+   ``--skip-calibration`` under ``TTI_QUANT=int8`` (two records); two gloo
+   ranks sharing the card (``--gloo-rank`` processes) on the deploy step in
+   float32 at batch 8 against the step without a mesh (valid equal, scores
+   1e-5, boxes 1e-3 px, mm 1e-4; each rank's rows bit-equal to the step on
+   those rows); ``python -m tti_torch.cli train`` with the ``TTI_*`` triple
+   (a one-rank NCCL job) on 8 seeded scenes, 2 steps (exit 0, one
+   checkpoint); ``python -m tti_torch.cli train --host-aug`` at r5s on
+   phase 6's 16 seeded PNG scenes (one epoch, 2 steps at batch 8: exit 0,
+   one checkpoint, finite losses logged); ``tools/calibrate_offsets_torch.py``
+   on a copy of the deploy checkpoint and its sidecar under
+   ``build/offsets_smoke/`` over 16 scenes (exit 0, every other key of the
+   sidecar unchanged, both constants finite, printed beside the sidecar's);
 4. deploy step: 960x1280 frames, imgsz 960, the stride-2 soft checkpoint,
    through ``InspectionPipeline.process_batch``; it must launch kernels A
    and D once and agree with the same step run with the plain versions
@@ -91,9 +112,8 @@ result line:
    detection counts equal on most frames and mm within the kernel route's
    limits, frames/s and batch-1 p50 beside the reference step's; the
    phase's wall time;
-5c. int8 inference (``TTI_QUANT``; kernels E and F, ``csrc/int8conv.cu``):
-   ``tools/calibrate_int8_torch.py --synth 16`` for both checkpoints (imgsz
-   960 and 640) in subprocesses, while E and F are held to their plain
+5c. int8 inference (``TTI_QUANT``; kernels E and F, ``csrc/int8conv.cu``;
+   the scales of phase 3b's calibrations): E and F held to their plain
    versions on synthetic cases (the plain stem, ci 3; the s2d stem, ci 12;
    3x3 and 1x1 shapes; K = 2304; a C2f channel slice whose other channels F
    must not see; an all-zero input, F's 1e-12 floor; an accumulator above
@@ -123,21 +143,19 @@ result line:
    the sums, E's time per step against its bound per step (the headline's
    bound per step too); the contract exactly (every detection at IoU >
    0.9) on ``tti``'s own scene (the test's: the mm report's seed-7 scene,
-   imgsz 640, float32), int8 and int8s; ``TTI_QUANT=int8 python -m tti_torch.cli run
-   --synthetic --max-frames 2 --skip-calibration`` in a subprocess (exit 0,
-   two records); the phase's wall time;
+   imgsz 640, float32), int8 and int8s; the phase's wall time;
 5d. the frozen step (``tti_torch.app.export``; every kernel is a registered
-   operator, ``torch.ops.tti_torch.*``): deploy bf16 at batch 1 and 128,
-   the headline with ``warp_pass1="kernel"`` at batch 1 (its artifact also
+   operator, ``torch.ops.tti_torch.*``), each at batch 1: deploy bf16,
+   the headline with ``warp_pass1="kernel"`` (its artifact also
    holds the CPU program, which is loaded and run on the host) and deploy
-   ``quant="int8"`` at batch 1, each exported on the card, saved under
+   ``quant="int8"``, each exported on the card, saved under
    ``build/frozen_smoke/``, loaded from the file and deleted: outputs
    against the live step's (detections equal, scores within 1e-6, boxes
    within 1e-5 px, mm within 0.01), launches per frozen call (A 1 and D 1;
    B, C and D 1; E 66, F 66, A 1 and D 1; every other kernel none), no
    synchronising call, export + save and load seconds and bytes, and the
-   frozen step's batch-1 p50 or batch-128 frames/s against the live step's
-   in turns; then each kernel's host microseconds per call on the batch-1
+   frozen step's batch-1 p50 against the live step's in turns; then each
+   kernel's host microseconds per call on the batch-1
    steps' own calls, through its wrapper, its operator and the bare ctypes
    launch; the phase's wall time;
 5e. data-parallel (``tti_torch.parallel.mesh`` and ``dcn``) on the one card:
@@ -156,11 +174,8 @@ result line:
    plain step (phase 6's bf16 bars on the loss terms; the first update
    within 2.2 lr, under 0.5% of the parameters apart by more than 1e-4),
    ms per step in turns, the all-reduces of one synced step counted and
-   the NCCL kernels' device ms; two gloo ranks sharing the card
-   (``--gloo-rank`` processes) on the deploy step at batch 8 against the
-   step without a mesh (valid equal, scores 1e-5, boxes 1e-3 px, mm 1e-4);
-   ``python -m tti_torch.cli train`` with the triple on 8 seeded scenes, 2
-   steps (exit 0, one checkpoint); the phase's wall time;
+   the NCCL kernels' device ms (two gloo ranks and the CLI's triple: phase
+   3b); the phase's wall time;
 5f. spatial partitioning (``tti_torch.parallel.spatial``, a ``("data",
    "space")`` mesh): a ``(1, 1)`` mesh over a one-rank NCCL job serves
    the plain deploy step (every output equal at batch 8, A and D once, no
@@ -185,8 +200,8 @@ result line:
    pass-2 bands and their bytes beside the dense slab's, and the bf16
    batch-1 p50 per rank beside the dense space step's; the phase's wall
    time;
-   the float32 deploy batch-1 space check runs 3 times (the frame above,
-   then a fresh seeded frame, then the first again), and on any rank's miss
+   the float32 deploy batch-1 space check runs once, with its miss dump
+   (``tools/space_cards_torch.py --repeat`` repeats it): on any rank's miss
    each rank writes its dump beside its readings (every halo's sent and
    received rows, the slab's head outputs and the plain step's for the
    same rows); the bf16 space steps at batch 1 and 2 are held to the plain
@@ -200,8 +215,11 @@ result line:
    step (the headline checkpoint and
    ``yolov8n_textile_960.msgpack``) on the mesh against the plain dual step,
    float32 at batch 1 and 2 at the float32 bar, B and D twice, 88 halo
-   exchanges and 2 gathers per rank and step;
-5g. the tools that time the card, each in a subprocess:
+   exchanges and 2 gathers per rank and step; each run's wall seconds per
+   rank (set-up, checks, timing);
+5g. the tools that time the card, each in a subprocess, the four side by
+   side (each run end to end checked; their times, taken beside the
+   others, are not measurements):
    ``python -m tti_torch.cli tune-device`` at the headline geometry
    (batches 1 and 32, 5 + 5 steps, the trials baseline, warp_blocked=64,
    approx_topk=1, maskstats=pallas2, quant=int8 and quant=int8s on phase
@@ -213,6 +231,21 @@ result line:
    --iters 2`` (ms per program beside the floors) and
    ``tools/host_overhead_torch.py --streams 4 --iters 20`` (its JSON line:
    the pinned upload and the device step measured); the phase's wall time;
+5h. ``__graft_entry__.py``'s forward chain through the port: seeded
+   480x640 textile frames at batch 1 and 8 through ``preprocess_frames(...,
+   640)``, the raw model (``inference_model(..., s2d_input=False,
+   s2d_stem=False)``, the stride-4 checkpoint in bf16) and
+   ``decode_predictions``, then ``batched_nms`` (kernel D): the keep set and
+   classes equal to the same chain with D's plain version bound, scores
+   within 1e-5 and boxes within 1e-3 px, D launched once per call, no
+   synchronising call, ms per call; then ``tti``'s public helpers on the
+   card on the headline step's outputs for one 1080x1920 frame, each held
+   to the same call on the CPU: ``masks_at_frame`` of 16 detections (the
+   nearest resize of the card's masks at the input, which differ from the
+   CPU's only within 1e-5 of the threshold), then on those masks the
+   envelopes, the edge mask, ``stitch_stats`` (centroids within rtol 1e-5),
+   ``sample_envelope`` and ``nearest_edge_candidates`` (equal); the
+   phase's wall time;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -230,13 +263,11 @@ result line:
    10 steps); and, at both recipes, images/s, ms per step, peak memory and
    the device's idle share of the trainer's own loop (``train_step``, one
    synchronisation per window), then per-part iteration times in a
-   separate loop; then the host recipe (``--host-aug``) at r5s on the same
-   32 scenes written as PNG files: the host's ms per batch of ``batches``,
+   separate loop; then the host recipe (``--host-aug``) at r5s on 16
+   seeded scenes written as PNG files: the host's ms per batch of ``batches``,
    the host loop (``run_host``: pinned upload, the same ``TrainStep``) in
-   images/s beside the device augment's loop, no kernel launched, and
-   ``python -m tti_torch.cli train --host-aug`` in a subprocess (one epoch,
-   4 steps at batch 8: exit 0, one checkpoint, finite losses logged), with
-   the wall time;
+   images/s beside the device augment's loop, no kernel launched (the CLI
+   on the same scenes: phase 3b), with the wall time;
 7. the application at the deployed geometry (960x1280 frames, imgsz 960,
    the cam checkpoint, bf16, through the CLI's ``load_pipeline``): 32 seeded
    textile frames through the ``Orchestrator``'s own loop at inference
@@ -249,11 +280,8 @@ result line:
    statistics bound in the kernels' place give the same valid/inserted
    sequence and seam/width within 0.01 mm; one annotated JPEG per frame
    where OpenCV imports (none where it does not); frames/s, the stage timer,
-   the host ms of fusion and of drawing and saving the annotated frame. Then
-   ``python -m tti_torch.cli run --synthetic --max-frames 2
-   --skip-calibration`` and ``--cameras 4`` in subprocesses (exit 0, two
-   measurement records; eight stream records), from a directory holding a
-   .env and the calibration files. Then ``tti eval``'s loop
+   the host ms of fusion and of drawing and saving the annotated frame (the
+   CLI's ``run``: phase 3b). Then ``tti eval``'s loop
    (``evaluate_samples``) with ``Predictor`` at the deployed recipe over 16
    seeded scenes in chunks of 8: box and mask mAP, images/s, the host
    seconds of ``evaluate``; bf16 against float32 on the card (median mask
@@ -267,10 +295,10 @@ result line:
    recovered translation within 0.5 mm and rotation within 0.1 degree of the
    truth, and solver "cv2" within 1e-3 mm / 1e-4 rad of "tti"; then
    ``python -m tti_torch.cli calibrate-intrinsics --images`` on 8 views at
-   several poses (exit 0, an rms printed); then the first 16 seed-0 scenes
-   of ``tools/measure_report_torch.py`` through the deploy step in float32
-   and bf16, with the true and with the recovered extrinsics: kernel A once
-   per step, ``tests/test_measure_report.py``'s per-frame gate (every width
+   several poses in a subprocess (exit 0, an rms printed), while the first
+   16 seed-0 scenes of ``tools/measure_report_torch.py`` go through the
+   deploy step in float32 and bf16, with the true and with the recovered
+   extrinsics: kernel A once per step, ``tests/test_measure_report.py``'s per-frame gate (every width
    finite, stitches >= min(truth, 3), an edge on most frames, edge error
    < 1.0 mm, width error < 0.8 mm), recovered against true within 0.05 mm
    per frame, kernel A against its plain version within 0.01 mm; coverage,
@@ -278,11 +306,8 @@ result line:
    scenes (``undistort=True``: the two-pass warp ahead of the step, frames
    undistorted once), float32 and bf16: kernels A and D once per step, the
    same gate, the plain versions within 0.01 mm, rectified minus native
-   p50, p95 and bias printed; meanwhile ``tools/calibrate_offsets_torch.py``
-   in a subprocess on a copy of the deploy checkpoint and its sidecar under
-   ``build/calib_smoke/offsets/`` over 32 scenes: exit 0, every other key
-   of the sidecar unchanged, both constants finite, printed beside the
-   sidecar's; each part's wall time;
+   p50, p95 and bias printed (``calibrate_offsets``: phase 3b); each part's
+   wall time;
 9. timings: frames/s at batch 128 and the batch-1 p50 of the steps, the
    stages, and each kernel's time beside its plain version's and its bound,
    on the inputs the batch-128 step gives it (kernels C and D also at batch
@@ -336,6 +361,55 @@ def check(ok, what: str) -> None:
     """A failed check ends the run (an assert would vanish under -O)."""
     if not ok:
         raise AssertionError(what)
+
+
+_DRAINS: dict = {}  # a process -> the future of its (stdout, stderr), see drain()
+_ENDED: dict = {}  # a drained process -> when its output ended (perf_counter)
+
+
+def drain(procs) -> None:
+    """Read each process's output on a thread of its own from now on, so no
+    process blocks on a full pipe while another is waited for, and note
+    when each one's output ends."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def read(p):
+        try:
+            return p.communicate()
+        finally:
+            _ENDED[p] = time.perf_counter()
+
+    pool = ThreadPoolExecutor(len(procs))
+    for p in procs:
+        _DRAINS[p] = pool.submit(read, p)
+    pool.shutdown(wait=False)
+
+
+def seconds_to_end(proc, t0: float) -> float:
+    """Seconds from ``t0`` to the end of a waited-for process (its output's
+    end when :func:`drain` read it, else now)."""
+    return _ENDED.pop(proc, time.perf_counter()) - t0
+
+
+def popens(x) -> list:
+    """The subprocesses in a nest of tuples, lists and dicts."""
+    if isinstance(x, subprocess.Popen):
+        return [x]
+    items = x.values() if isinstance(x, dict) else x if isinstance(x, (list, tuple)) else ()
+    return [p for v in items for p in popens(v)]
+
+
+def communicate(proc, timeout: float = 300.0) -> tuple:
+    """A subprocess's standard output and error once it has ended (killed
+    if it runs past ``timeout`` seconds, which fails the script)."""
+    try:
+        if proc in _DRAINS:
+            return _DRAINS.pop(proc).result(timeout=timeout)
+        return proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 # ---------------------------------------------------------------------------
@@ -1990,10 +2064,10 @@ def check_int8_call(torch, ik, label, x, qpacked, wscale, bias, k, stride, pad, 
         return 0.0
     got = [ik.int8_conv2d(*args) for _ in range(2)]
     check(torch.equal(got[0], got[1]), f"{label}: two launches of E differ")
-    ref = torch.nn.functional.silu(plain)  # the plain version's own last step
+    ref = ik.silu_plain(plain)  # the plain version's own last step
     ulp = ulp_distance(torch, got[0], ref)
     err = float((got[0].float() - ref.float()).abs().max())
-    check(ulp <= 1, f"{label}: E's SiLU differs from PyTorch's by {ulp} ulp (limit 1)")
+    check(ulp <= 1, f"{label}: E's SiLU differs from silu_plain's by {ulp} ulp (limit 1)")
     INT8_TALLY["calls"] += 1
     INT8_TALLY["max_ulp"] = max(INT8_TALLY["max_ulp"], ulp)
     INT8_TALLY["max_abs_err"] = max(INT8_TALLY["max_abs_err"], err)
@@ -2473,15 +2547,27 @@ def time_int8_blocks(torch, ik, blocks, flush, first=None) -> dict:
 
 def start_calibration(ckpt, imgsz, out_path):
     """``tools/calibrate_int8_torch.py --synth 16`` for a checkpoint at the
-    configuration's imgsz, in a subprocess started now."""
+    configuration's imgsz, in a subprocess started now: the process and its
+    start time."""
     return subprocess.Popen(
         [sys.executable, os.path.join(HERE, "tools", "calibrate_int8_torch.py"), "--weights",
          os.path.join(HERE, "checkpoints", ckpt), "--synth", "16", "--imgsz", str(imgsz),
          "--out", out_path], env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def finish_calibration(config: str, proc, t0) -> float:
+    """Wait for :func:`start_calibration` (exit 0); its wall seconds."""
+    stdout, stderr = communicate(proc)
+    wall = seconds_to_end(proc, t0)
+    check(proc.returncode == 0, f"calibrate_int8_torch.py ({config}): exit "
+          f"{proc.returncode}\n{stderr[-2000:]}")
+    log(f"  {config}: {stdout.strip()}; {wall:.1f} s")
+    return wall
 
 
 INT8_DIR = os.path.join(HERE, "build", "int8_smoke")
+INT8_SCALES = {c: os.path.join(INT8_DIR, f"scales_{c}.json") for c in CONFIGS}
 
 
 def check_int8(torch, ms, wp, ik, flush, first_int8=None) -> dict:
@@ -2490,32 +2576,8 @@ def check_int8(torch, ms, wp, ik, flush, first_int8=None) -> dict:
     from step_syncs_torch import count_step_syncs
 
     t_phase = time.perf_counter()
-    os.makedirs(INT8_DIR, exist_ok=True)
-    scales = {c: os.path.join(INT8_DIR, f"scales_{c}.json") for c in CONFIGS}
-    # The calibrations and `run` under TTI_QUANT=int8 run beside the
-    # synthetic checks and are waited for before anything is timed.
-    procs = {c: start_calibration(ckpt, imgsz, scales[c])
-             for c, (_, imgsz, ckpt) in CONFIGS.items()}
-    cli = start_cli(cli_workdir(), ["--skip-calibration"], {"TTI_QUANT": "int8"})
-    out: dict = {}
-    try:
-        out["synthetic"] = check_int8_kernels(torch, ik)
-        for c, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=300)
-            check(proc.returncode == 0, f"calibrate_int8_torch.py ({c}): exit "
-                  f"{proc.returncode}\n{stderr[-2000:]}")
-            log(f"  {c}: {stdout.strip()}")
-        secs, msgs = finish_cli(cli, "TTI_QUANT=int8 run")
-    finally:
-        for proc in (*procs.values(), cli[0]):
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    n = sum(m == "measurement" for m in msgs)
-    check(n == 2, f"cli TTI_QUANT=int8 run: {n} measurement records, expected 2")
-    out["cli"] = {"seconds": secs, "records": n}
-    log(f"  cli `TTI_QUANT=int8 python -m tti_torch.cli run --synthetic --max-frames 2`: exit 0 "
-        f"in {secs:.1f} s, {n} records")
+    scales = INT8_SCALES  # written by phase 3b's calibrations
+    out: dict = {"synthetic": check_int8_kernels(torch, ik)}
     for config, (hw, imgsz, ckpt) in CONFIGS.items():
         frames_np = textile(hw, BATCH)
         frames = torch.from_numpy(frames_np).cuda()
@@ -2843,14 +2905,14 @@ def time_warp_p1(torch, wp, pipe, frame_hw, flush, first=None) -> dict:
 
 
 FROZEN_DIR = os.path.join(HERE, "build", "frozen_smoke")
-# label, configuration, pipeline arguments, batches, platforms, and each
-# kernel's launches per frozen call (every other kernel's: none).
+# label, configuration, pipeline arguments, platforms, and each kernel's
+# launches per frozen call (every other kernel's: none); each at batch 1
+# (deploy bf16 also at batch 128 until the script's time limit cut it).
 FROZEN = (
-    ("deploy bf16", "deploy", {}, (1, BATCH), ("cuda",),
-     {"mask_stats_soft": 1, "greedy_keep": 1}),
-    ("headline kernel route", "headline", dict(warp_pass1="kernel"), (1,), ("cuda", "cpu"),
+    ("deploy bf16", "deploy", {}, ("cuda",), {"mask_stats_soft": 1, "greedy_keep": 1}),
+    ("headline kernel route", "headline", dict(warp_pass1="kernel"), ("cuda", "cpu"),
      {"warp_pass1_decimated": 1, "mask_stats_binary": 1, "greedy_keep": 1}),
-    ("deploy int8", "deploy", dict(quant="int8"), (1,), ("cuda",),
+    ("deploy int8", "deploy", dict(quant="int8"), ("cuda",),
      {"int8_conv2d": 66, "act_scale_per_sample": 66, "mask_stats_soft": 1, "greedy_keep": 1}),
 )
 # tti's export test: detections equal, scores within 1e-6, frame boxes within
@@ -2884,28 +2946,20 @@ def check_frozen_outputs(torch, got: dict, live: dict, label: str) -> dict:
     return errs
 
 
-def time_turns(torch, fns: dict, x, iters: int, per_call: bool) -> dict:
+def time_turns(torch, fns: dict, x, iters: int) -> dict:
     """``fns`` ({"live": ..., "frozen": ...}) on ``x`` in turns (live, frozen,
-    frozen, live), each after a warm call: the p50 of single calls
-    (``per_call``: a synchronise after each) or frames/s over ``iters``
-    calls and one synchronise, both turns of each."""
+    frozen, live), each after a warm call: the p50 of ``iters`` single calls
+    a turn (a synchronise after each), both turns of each."""
     runs = {who: [] for who in fns}
     for who in ("live", "frozen", "frozen", "live"):
         fns[who](x)
         torch.cuda.synchronize()
-        if per_call:
-            for _ in range(iters):
-                t = time.perf_counter()
-                fns[who](x)
-                torch.cuda.synchronize()
-                runs[who].append(1e3 * (time.perf_counter() - t))
-        else:
+        for _ in range(iters):
             t = time.perf_counter()
-            for _ in range(iters):
-                fns[who](x)
+            fns[who](x)
             torch.cuda.synchronize()
-            runs[who].append(x.shape[0] * iters / (time.perf_counter() - t))
-    return {who: float(np.median(v)) if per_call else float(np.mean(v)) for who, v in runs.items()}
+            runs[who].append(1e3 * (time.perf_counter() - t))
+    return {who: float(np.median(v)) for who, v in runs.items()}
 
 
 @contextlib.contextmanager
@@ -3000,74 +3054,65 @@ def check_frozen(torch, ms, wp, ik) -> dict:
     t_phase = time.perf_counter()
     os.makedirs(FROZEN_DIR, exist_ok=True)
     out, recorded = {}, {}
-    for label, config, kw, batches, platforms, want in FROZEN:
+    for label, config, kw, platforms, want in FROZEN:
         frame_hw, imgsz, ckpt = CONFIGS[config]
         pipe = build_pipeline(torch, frame_hw, imgsz, ckpt, **kw)
-        frames = torch.from_numpy(textile(frame_hw, max(batches))).cuda()
-        for batch in batches:
-            x = frames[:batch].contiguous()
-            tag = f"{label} batch {batch}"
-            path = os.path.join(FROZEN_DIR, f"{config}_{batch}{SUFFIX}")
-            t0 = time.perf_counter()
-            export_pipeline(pipe, batch, platforms=platforms, out=path)
-            t1 = time.perf_counter()
-            frozen = FrozenPipeline(path, device="cuda")
-            t2 = time.perf_counter()
-            size = os.path.getsize(path)
-            check(frozen.manifest["platforms"] == list(platforms),
-                  f"{tag}: the manifest lists {frozen.manifest['platforms']}")
-            cpu = None
-            if "cpu" in platforms:
-                host = FrozenPipeline(path, device="cpu")
-                tc = time.perf_counter()
-                got_cpu = host(x.cpu())
-                cpu = {"run_s": time.perf_counter() - tc,
-                       "detections": got_cpu["dets/valid"].sum(1).tolist()}
-                check(list(got_cpu) == frozen.manifest["outputs"], f"{tag}: CPU program's names")
-                del host
-            os.remove(path)
-            with torch.inference_mode():
-                live = dict(zip(*flatten_outputs(pipe.step(x))))
-            reset_launch_counts(ms, wp)
-            got = frozen(x)
-            launches = launch_counts(ms, wp)
-            expected = {k: want.get(k, 0) for k in launches}
-            check(launches == expected, f"{tag}: launches per frozen call {launches}, "
-                  f"expected {expected}")
-            errs = check_frozen_outputs(torch, got, live, tag)
-            n_sync, where, _ = count_step_syncs(torch, SimpleNamespace(step=frozen), x)
-            check(n_sync == 0, f"{tag}: {n_sync} synchronising calls per frozen step: {where}")
-            fns = {"live": pipe.step, "frozen": frozen}
-            if batch == 1:  # 15 calls a turn (once 30: the script's time limit)
-                timing = time_turns(torch, fns, x, 15, per_call=True)
-                shown = (f"batch-1 p50 frozen {timing['frozen']:.3f} ms, live "
-                         f"{timing['live']:.3f} ms")
-            else:
-                timing = time_turns(torch, fns, x, 6, per_call=False)
-                shown = (f"frozen {timing['frozen']:.1f} frames/s, live {timing['live']:.1f} "
-                         f"frames/s")
-            out[tag] = {"export_s": t1 - t0, "load_s": t2 - t1, "bytes": size,
-                        "platforms": list(platforms), "launches": {k: v for k, v in
-                                                                   launches.items() if v},
-                        "syncs": n_sync, "errors": errs, "timing": timing,
-                        **({"cpu_program": cpu} if cpu else {})}
-            log(f"frozen {tag}: export + save {t1 - t0:.1f} s, load {t2 - t1:.1f} s, "
-                f"{size} bytes ({'+'.join(platforms)}); launches per call "
-                f"{out[tag]['launches']}; 0 synchronising calls; |frozen - live| scores "
-                f"{errs['scores']:.3g}, boxes {errs['boxes_frame']:.3g} px, mm {errs['mm']:.3g}, "
-                f"{errs['bit_equal_leaves']} of {len(live)} leaves bit-equal; {shown}"
-                + (f"; CPU program {cpu['run_s']:.1f} s, detections {cpu['detections']}"
-                   if cpu else ""))
-            del frozen, got, live
-            torch.cuda.empty_cache()
-        one = frames[:1].contiguous()
+        x = torch.from_numpy(textile(frame_hw, 1)).cuda()
+        tag = f"{label} batch 1"
+        path = os.path.join(FROZEN_DIR, f"{config}_1{SUFFIX}")
+        t0 = time.perf_counter()
+        export_pipeline(pipe, 1, platforms=platforms, out=path)
+        t1 = time.perf_counter()
+        frozen = FrozenPipeline(path, device="cuda")
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+        check(frozen.manifest["platforms"] == list(platforms),
+              f"{tag}: the manifest lists {frozen.manifest['platforms']}")
+        cpu = None
+        if "cpu" in platforms:
+            host = FrozenPipeline(path, device="cpu")
+            tc = time.perf_counter()
+            got_cpu = host(x.cpu())
+            cpu = {"run_s": time.perf_counter() - tc,
+                   "detections": got_cpu["dets/valid"].sum(1).tolist()}
+            check(list(got_cpu) == frozen.manifest["outputs"], f"{tag}: CPU program's names")
+            del host
+        os.remove(path)
+        with torch.inference_mode():
+            live = dict(zip(*flatten_outputs(pipe.step(x))))
+        reset_launch_counts(ms, wp)
+        got = frozen(x)
+        launches = launch_counts(ms, wp)
+        expected = {k: want.get(k, 0) for k in launches}
+        check(launches == expected, f"{tag}: launches per frozen call {launches}, "
+              f"expected {expected}")
+        errs = check_frozen_outputs(torch, got, live, tag)
+        n_sync, where, _ = count_step_syncs(torch, SimpleNamespace(step=frozen), x)
+        check(n_sync == 0, f"{tag}: {n_sync} synchronising calls per frozen step: {where}")
+        # 15 calls a turn (once 30: the script's time limit)
+        timing = time_turns(torch, {"live": pipe.step, "frozen": frozen}, x, 15)
+        shown = f"batch-1 p50 frozen {timing['frozen']:.3f} ms, live {timing['live']:.3f} ms"
+        out[tag] = {"export_s": t1 - t0, "load_s": t2 - t1, "bytes": size,
+                    "platforms": list(platforms), "launches": {k: v for k, v in
+                                                               launches.items() if v},
+                    "syncs": n_sync, "errors": errs, "timing": timing,
+                    **({"cpu_program": cpu} if cpu else {})}
+        log(f"frozen {tag}: export + save {t1 - t0:.1f} s, load {t2 - t1:.1f} s, "
+            f"{size} bytes ({'+'.join(platforms)}); launches per call "
+            f"{out[tag]['launches']}; 0 synchronising calls; |frozen - live| scores "
+            f"{errs['scores']:.3g}, boxes {errs['boxes_frame']:.3g} px, mm {errs['mm']:.3g}, "
+            f"{errs['bit_equal_leaves']} of {len(live)} leaves bit-equal; {shown}"
+            + (f"; CPU program {cpu['run_s']:.1f} s, detections {cpu['detections']}"
+               if cpu else ""))
+        del frozen, got, live
+        torch.cuda.empty_cache()
         seen: dict = {}
         with recording(seen), torch.inference_mode():
-            pipe.step(one)
+            pipe.step(x)
         for name, calls in seen.items():
             recorded.setdefault(name, [kernel_calls(ms, wp, nk, ik, name, a, k)
                                        for a, k in calls])
-        del pipe, frames
+        del pipe, x
         torch.cuda.empty_cache()
     out["host_us_per_call"] = {}
     for name, calls in recorded.items():
@@ -3386,17 +3431,34 @@ def gloo_rank_argv(rank: int, coordinator: str, out_dir: str) -> list[str]:
             "--gloo-coordinator", coordinator, "--gloo-out", out_dir]
 
 
-def check_gloo_pair(torch) -> dict:
-    """Two gloo ranks on the one card (``--gloo-rank`` processes) run the
+def start_gloo_pair() -> tuple:
+    """Start the two gloo ranks of :func:`finish_gloo_pair` (``--gloo-rank``
+    processes sharing the card): the processes and their start time."""
+    from tti_torch.parallel.dcn import free_local_coordinator
+
+    out_dir = os.path.join(DP_DIR, "gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    coord = free_local_coordinator()
+    return [subprocess.Popen(gloo_rank_argv(r, coord, out_dir), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(2)], \
+        time.perf_counter()
+
+
+def finish_gloo_pair(torch, started) -> dict:
+    """Two gloo ranks on the one card (:func:`start_gloo_pair`) ran the
     deploy step in float32 (TF32 off) at batch GLOO_BATCH, half of it each:
     against the float32 step without a mesh on the whole batch,
     ``__graft_entry__.py``'s bar (valid equal, scores 1e-5, boxes 1e-3 px,
     mm 1e-4: the card's convolutions at batch 4 and 8 sum in other orders);
     against that step on each rank's rows, bit for bit; the two ranks'
     outputs equal."""
-    from tti_torch.parallel.dcn import free_local_coordinator
     from torch_dist import arrays_to_outputs, outputs_to_arrays
 
+    procs, t0 = started
+    outs = [communicate(p)[0] for p in procs]
+    wall = max(seconds_to_end(p, t0) for p in procs)
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}:\n{text[-3000:]}")
     hw, imgsz, ckpt = CONFIGS["deploy"]
     plain = build_pipeline(torch, hw, imgsz, ckpt, dtype="float32")
     frames = textile(hw, GLOO_BATCH)
@@ -3406,25 +3468,7 @@ def check_gloo_pair(torch) -> dict:
             for r in range(2)]
     del plain
     torch.cuda.empty_cache()
-
     out_dir = os.path.join(DP_DIR, "gloo")
-    os.makedirs(out_dir, exist_ok=True)
-    coord = free_local_coordinator()
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(gloo_rank_argv(r, coord, out_dir), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}:\n{text[-3000:]}")
     ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(2)]
     for k, v in ranks[0].items():
         np.testing.assert_array_equal(v, ranks[1][k], err_msg=k)
@@ -3442,17 +3486,18 @@ def check_gloo_pair(torch) -> dict:
         worst[key] = float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0
     score = float(np.abs(got.scores - ref.scores).max())
     box = float(np.abs(got.boxes_frame - ref.boxes_frame).max())
-    log(f"two gloo ranks sharing the card, deploy step in float32 at batch {GLOO_BATCH} ({half} "
+    log(f"  two gloo ranks sharing the card, deploy step in float32 at batch {GLOO_BATCH} ({half} "
         f"frames each, CUDA tensors through gloo's all-gather): equal to the plain step on each "
         f"rank's rows; against it on the whole batch valid equal, max |diff| scores {score:.3g}, "
-        f"boxes {box:.3g} px, mm {max(worst.values()):.3g}; {time.perf_counter() - t0:.1f} s with "
-        f"the two processes' start")
-    return {"max_score_diff": score, "max_box_diff": box, "max_mm_diff": worst}
+        f"boxes {box:.3g} px, mm {max(worst.values()):.3g}; the ranks ended {wall:.1f} s after "
+        "their start")
+    return {"max_score_diff": score, "max_box_diff": box, "max_mm_diff": worst, "wall_s": wall}
 
 
-def check_cli_train_triple() -> dict:
+def start_cli_train_triple():
     """``python -m tti_torch.cli train`` with the TTI_* triple (one process,
-    a one-rank NCCL job) on 8 seeded scenes, 2 steps: exit 0, one checkpoint."""
+    a one-rank NCCL job) on 8 seeded scenes, 2 steps, started now: the
+    process, its output directory and its start time."""
     from torch_scenes import textile_samples
     from tti_torch.parallel.dcn import free_local_coordinator
 
@@ -3461,19 +3506,25 @@ def check_cli_train_triple() -> dict:
     out = os.path.join(root, "run")
     env = dict(os.environ, TTI_COORDINATOR=free_local_coordinator(), TTI_NUM_PROCESSES="1",
                TTI_PROCESS_ID="0", PYTHONPATH=HERE)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tti_torch.cli", "train", "--images", images,
-                           "--out", out, "--imgsz", "320", "--batch-size", "4", "--epochs", "1",
-                           "--max-gt", "8", "--log-every", "1"], cwd=HERE, env=env,
-                          capture_output=True, text=True, timeout=300)
-    wall = time.perf_counter() - t0
+    proc = subprocess.Popen([sys.executable, "-m", "tti_torch.cli", "train", "--images", images,
+                             "--out", out, "--imgsz", "320", "--batch-size", "4", "--epochs", "1",
+                             "--max-gt", "8", "--log-every", "1"], cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_cli_train_triple(proc, out, t0) -> dict:
+    """Wait for :func:`start_cli_train_triple`: exit 0, one checkpoint, the
+    triple's NCCL job joined."""
+    stdout, stderr = communicate(proc)
+    wall = seconds_to_end(proc, t0)
     check(proc.returncode == 0, f"cli train with the triple exited {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+          f"{stdout[-2000:]}\n{stderr[-3000:]}")
     written = sorted(os.listdir(out))
     check(written == ["step_2.pt"], f"cli train with the triple wrote {written}")
-    check("process group up (nccl): rank 0 of 1" in proc.stderr + proc.stdout,
+    check("process group up (nccl): rank 0 of 1" in stderr + stdout,
           "cli train did not join the triple's NCCL job")
-    log(f"python -m tti_torch.cli train with TTI_COORDINATOR (one process, NCCL) on 8 scenes at "
+    log(f"  python -m tti_torch.cli train with TTI_COORDINATOR (one process, NCCL) on 8 scenes at "
         f"imgsz 320, 2 steps: exit 0, {written}, {wall:.1f} s")
     return {"exit": 0, "written": written, "wall_s": wall}
 
@@ -3498,8 +3549,6 @@ def check_data_parallel(torch, ms, wp, card) -> dict:
         result["dual"] = check_mesh_dual(torch, ms, wp, mesh)
         torch.cuda.empty_cache()
         result["training"] = check_mesh_training(torch, mesh)
-        result["gloo_pair"] = check_gloo_pair(torch)
-        result["cli_train"] = check_cli_train_triple()
     finally:
         dcn.shutdown()
     result["wall_s"] = time.perf_counter() - t_phase
@@ -3513,7 +3562,7 @@ def check_data_parallel(torch, ms, wp, card) -> dict:
 # ---------------------------------------------------------------------------
 
 SPACE_DIR = os.path.join(HERE, "build", "space_smoke")
-SPACE_REPEATS = 3  # the float32 deploy batch-1 space check, with its miss dump
+SPACE_REPEATS = 1  # the float32 deploy batch-1 space check with its miss dump (time limit)
 
 
 def check_space(torch, ms, wp, card) -> dict:
@@ -3646,16 +3695,23 @@ TOOLS_DIR = os.path.join(HERE, "build", "tune_smoke")
 TUNE_TRIALS = "baseline,warp_blocked=64,approx_topk=1,maskstats=pallas2,quant=int8,quant=int8s"
 
 
-def run_tool(argv: list, label: str, timeout: float = 300.0) -> str:
-    """Run one tool in a subprocess from the repository's root; its
-    standard output. A non-zero exit fails the script."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *argv], cwd=HERE, capture_output=True, text=True,
-                          timeout=timeout, env=dict(os.environ, PYTHONPATH=HERE))
-    check(proc.returncode == 0, f"{label} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-          f"{proc.stderr[-3000:]}")
-    log(f"{label}: exit 0 in {time.perf_counter() - t0:.1f} s")
-    return proc.stdout
+def start_tool(argv: list):
+    """One tool in a subprocess from the repository's root, started now:
+    the process and its start time."""
+    return (subprocess.Popen([sys.executable, *argv], cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             env=dict(os.environ, PYTHONPATH=HERE)), time.perf_counter())
+
+
+def finish_tool(started, label: str) -> str:
+    """Wait for :func:`start_tool`'s process; its standard output. A
+    non-zero exit fails the script."""
+    proc, t0 = started
+    stdout, stderr = communicate(proc)
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}:\n{stdout[-3000:]}\n"
+          f"{stderr[-3000:]}")
+    log(f"{label}: exit 0, ended {seconds_to_end(proc, t0):.1f} s after the four started")
+    return stdout
 
 
 def section(text: str, head: str, n: int | None = None) -> list[str]:
@@ -3671,57 +3727,263 @@ def section(text: str, head: str, n: int | None = None) -> list[str]:
     return out
 
 
+TOOL_ARGV = {
+    "tune": ["-m", "tti_torch.cli", "tune-device", "--batches", "1,32", "--iters", "5",
+             "--lat-iters", "5", "--trials", TUNE_TRIALS, "--int8-scales",
+             INT8_SCALES["headline"], "--out", os.path.join(TOOLS_DIR, "tune.env")],
+    "profile_forward": ["tools/profile_forward_torch.py", "--batch", "8", "--full", "--iters", "2"],
+    "profile_train": ["tools/profile_train_torch.py", "--batch", "8", "--iters", "2"],
+    "host_overhead": ["tools/host_overhead_torch.py", "--streams", "4", "--iters", "20"],
+}
+
+
 def check_tools(card) -> dict:
-    """Phase 5g (see the module docstring)."""
+    """Phase 5g (see the module docstring). The four tools run side by side
+    on the card: each checks that its tool runs end to end; their times are
+    taken beside the other three and are not measurements."""
     t_phase = time.perf_counter()
     os.makedirs(TOOLS_DIR, exist_ok=True)
-    out = os.path.join(TOOLS_DIR, "tune.env")
-    scales = os.path.join(INT8_DIR, "scales_headline.json")  # phase 5c's calibration
-    run_tool(["-m", "tti_torch.cli", "tune-device", "--batches", "1,32", "--iters", "5",
-              "--lat-iters", "5", "--trials", TUNE_TRIALS, "--int8-scales", scales, "--out",
-              out], "python -m tti_torch.cli tune-device (headline 1080x1920, imgsz 640)")
-    with open(out) as f:
-        env_text = f.read()
-    with open(out + ".json") as f:
-        rows = json.load(f)
-    check(len(rows) == 12, f"tune-device: {len(rows)} rows, want 6 trials x 2 batches")
-    for r in rows:
-        if r["name"] == "approx_topk=1":
-            check((r["error"] or "").startswith("ConfigError: TTI_APPROX_TOPK=1 is not ported"),
-                  f"tune-device: approx_topk row {r}")
-        elif r["name"] == "maskstats=pallas2":
-            check("TTI_MASKSTATS has no counterpart" in (r["error"] or ""),
-                  f"tune-device: maskstats row {r}")
-        else:
-            check(r["error"] is None and r["fps"] > 0 and np.isfinite(r["p50_ms"]),
-                  f"tune-device: trial failed: {r}")
-        log(f"  tune-device batch {r['batch']:3d} {r['name']:18s} " + (
-            f"{r['fps']:9.1f} frames/s, p50 {r['p50_ms']:7.3f} ms, set-up and first step "
-            f"{r['compile_s']:.1f} s" if r["error"] is None else f"reason: {r['error'][:110]}"))
-    log("  tune.env: " + " | ".join(env_text.strip().splitlines()))
+    started = {name: start_tool(argv) for name, argv in TOOL_ARGV.items()}
+    try:
+        drain(popens(started))
+        out = os.path.join(TOOLS_DIR, "tune.env")
+        finish_tool(started["tune"], "python -m tti_torch.cli tune-device (headline 1080x1920, "
+                    "imgsz 640)")
+        with open(out) as f:
+            env_text = f.read()
+        with open(out + ".json") as f:
+            rows = json.load(f)
+        check(len(rows) == 12, f"tune-device: {len(rows)} rows, want 6 trials x 2 batches")
+        for r in rows:
+            if r["name"] == "approx_topk=1":
+                check((r["error"] or "").startswith("ConfigError: TTI_APPROX_TOPK=1 is not "
+                                                    "ported"), f"tune-device: approx_topk row {r}")
+            elif r["name"] == "maskstats=pallas2":
+                check("TTI_MASKSTATS has no counterpart" in (r["error"] or ""),
+                      f"tune-device: maskstats row {r}")
+            else:
+                check(r["error"] is None and r["fps"] > 0 and np.isfinite(r["p50_ms"]),
+                      f"tune-device: trial failed: {r}")
+            log(f"  tune-device batch {r['batch']:3d} {r['name']:18s} " + (
+                f"{r['fps']:9.1f} frames/s, p50 {r['p50_ms']:7.3f} ms, set-up and first step "
+                f"{r['compile_s']:.1f} s" if r["error"] is None
+                else f"reason: {r['error'][:110]}"))
+        log("  tune.env: " + " | ".join(env_text.strip().splitlines()))
 
-    prof = run_tool(["tools/profile_forward_torch.py", "--batch", "8", "--full", "--iters", "2"],
-                    "tools/profile_forward_torch.py --batch 8 --full --iters 2")
-    summary = next(line for line in prof.splitlines() if line.startswith("== "))
-    log(f"  {summary}")
-    for line in section(prof, "-- top", 5) + ["  categories:"] + section(prof, "-- by category"):
-        log(f"  {line}")
-    train = run_tool(["tools/profile_train_torch.py", "--batch", "8", "--iters", "2"],
-                     "tools/profile_train_torch.py --batch 8 --iters 2")
-    head = next(line for line in train.splitlines() if line.startswith("== train iter"))
-    for line in [head] + section(train, head) + section(train, "-- device ms per program"):
-        log(f"  {line}")
-    host = run_tool(["tools/host_overhead_torch.py", "--streams", "4", "--iters", "20"],
-                    "tools/host_overhead_torch.py --streams 4 --iters 20")
+        prof = finish_tool(started["profile_forward"],
+                           "tools/profile_forward_torch.py --batch 8 --full --iters 2")
+        summary = next(line for line in prof.splitlines() if line.startswith("== "))
+        log(f"  {summary}")
+        for line in (section(prof, "-- top", 5) + ["  categories:"]
+                     + section(prof, "-- by category")):
+            log(f"  {line}")
+        train = finish_tool(started["profile_train"],
+                            "tools/profile_train_torch.py --batch 8 --iters 2")
+        head = next(line for line in train.splitlines() if line.startswith("== train iter"))
+        for line in [head] + section(train, head) + section(train, "-- device ms per program"):
+            log(f"  {line}")
+        host = finish_tool(started["host_overhead"],
+                           "tools/host_overhead_torch.py --streams 4 --iters 20")
+    finally:
+        for p in popens(started):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     line = json.loads(host.strip().splitlines()[-1])
     check(line["h2d_ms_pinned"] is not None and line["device_step"] == "measured",
           f"host_overhead: {line}")
     log(f"  host_overhead: {json.dumps(line)}")
     wall = time.perf_counter() - t_phase
-    log(f"tools phase: {wall:.1f} s")
+    log(f"tools phase: {wall:.1f} s (the four side by side: their times are not measurements)")
     log(card)
     return {"tune_rows": rows, "tune_env": env_text, "host_overhead": line, "wall_s": wall,
             "profile_forward": prof[-4000:], "profile_train": train[-4000:]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5h: __graft_entry__.py's forward chain and tti's public helpers
+# ---------------------------------------------------------------------------
+
+
+ENTRY_HW, ENTRY_BATCHES = (480, 640), (1, 8)
+HELPER_DETS = 16  # the detections masks_at_frame takes (16 x 1080 x 1920 float32: 133 MB)
+
+
+def entry_forward(torch, model):
+    """``__graft_entry__.py``'s ``forward_step`` through the port: uint8
+    frames -> ``preprocess_frames(..., 640)`` (float32, square) -> the model
+    -> DFL decode -> ``batched_nms`` (kernel D), its thresholds."""
+    from tti_torch.postprocess.decode import decode_predictions
+    from tti_torch.postprocess.nms import batched_nms
+    from tti_torch.preprocess.letterbox import preprocess_frames
+
+    @torch.inference_mode()
+    def forward_step(frames_u8):
+        x, _ = preprocess_frames(frames_u8, 640)
+        boxes, probs, coefs = decode_predictions(model(x))
+        dets = batched_nms(boxes, probs, coefs, conf_thresh=0.20, iou_thresh=0.25, max_det=200)
+        return dets.boxes, dets.scores, dets.classes, dets.valid
+
+    return forward_step
+
+
+def check_entry_chain(torch, ms, wp, card) -> dict:
+    """The chain at batch 1 and 8 on seeded 480x640 textile frames: against
+    itself with kernel D's plain version bound (the keep set, classes
+    equal; scores within 1e-5 and boxes within 1e-3 px,
+    ``__graft_entry__.py``'s bar), kernel D once per call, no
+    synchronising call."""
+    from types import SimpleNamespace
+
+    from step_syncs_torch import count_step_syncs
+
+    from tti_torch.core.config import ModelConfig
+    from tti_torch.kernels import nms as nk
+    from tti_torch.model.checkpoint import load_flax_msgpack
+    from tti_torch.parallel.runtime import inference_model
+
+    model = inference_model(ModelConfig(image_size=640, dtype="bfloat16"),
+                            load_flax_msgpack(os.path.join(HERE, "checkpoints",
+                                                           "yolov8n_textile.msgpack")),
+                            torch.device("cuda"), s2d_input=False, s2d_stem=False)
+    forward_step = entry_forward(torch, model)
+    out = {}
+    for b in ENTRY_BATCHES:
+        frames = torch.from_numpy(textile(ENTRY_HW, b)).cuda()
+        forward_step(frames)  # warm
+        nk.reset_launch_counts()
+        got = [t.cpu() for t in forward_step(frames)]
+        d = nk.LAUNCHES["greedy_keep"]
+        with plain_routes(ms, wp):
+            want = [t.cpu() for t in forward_step(frames)]
+        n_syncs, syncs, _ = count_step_syncs(torch, SimpleNamespace(step=forward_step), frames)
+        boxes, scores, classes, valid = got
+        check(torch.equal(valid, want[3]), f"entry chain batch {b}: the keep set differs from "
+              "the chain with D's plain version")
+        check(torch.equal(classes, want[2]), f"entry chain batch {b}: classes differ")
+        s_err = float((scores - want[1]).abs().max())
+        b_err = float((boxes - want[0]).abs().max())
+        check(s_err <= 1e-5 and b_err <= 1e-3, f"entry chain batch {b}: scores {s_err}, boxes "
+              f"{b_err} px against the plain-D chain (limits 1e-5, 1e-3)")
+        check(d == 1, f"entry chain batch {b}: kernel D launched {d} times (once expected)")
+        check(n_syncs == 0, f"entry chain batch {b}: synchronising calls {syncs}")
+        n = int(valid.sum())
+        check(n > 0, f"entry chain batch {b}: no detection on the textile frames")
+        check(bool(torch.isfinite(boxes[valid]).all() and torch.isfinite(scores[valid]).all()),
+              f"entry chain batch {b}: non-finite outputs")
+        t = time_ms(torch, lambda: forward_step(frames), iters=10)
+        out[b] = {"detections": n, "greedy_keep_launches": d, "syncs": n_syncs,
+                  "score_err": s_err, "box_err": b_err, "ms_per_call": t}
+        log(f"  entry chain batch {b} ({ENTRY_HW[0]}x{ENTRY_HW[1]} -> 640, bf16): {n} "
+            f"detections, keep set equal to the plain-D chain (scores {s_err:.3g}, boxes "
+            f"{b_err:.3g} px), D launched {d}, {n_syncs} syncs, {t:.3f} ms per call [{card}]")
+    del model
+    return out
+
+
+def check_helpers(torch, head, card) -> dict:
+    """``tti``'s public helpers on the card, on the headline step's outputs
+    for one 1080x1920 frame, each held to the same call on the CPU:
+    ``masks_at_frame`` of the first 16 detections equal to the CPU's
+    nearest resize of the card's masks at the input, which differ from the
+    CPU's only where the upsampled probability lies within 1e-5 of 0.5;
+    then on those frame masks the envelopes, the edge mask,
+    ``nearest_edge_candidates``, ``stitch_stats`` and ``sample_envelope``
+    equal (the centroids within rtol 1e-5: float32 moment sums over up to
+    2e6 pixels in another order)."""
+    from tti_torch.measure import ops
+    from tti_torch.postprocess import masks as pm
+    from tti_torch.preprocess.letterbox import map_xyxy
+
+    frame_hw = (1080, 1920)
+    frames = torch.from_numpy(textile(frame_hw, 1)).cuda()
+    with torch.inference_mode():
+        raw = head.model(head.preprocess(frames))
+        dets, _ = head.detect(raw)
+    input_hw = (head.spec.dst_h, head.spec.dst_w)
+    order = torch.sort(dets.valid[0].to(torch.uint8), descending=True, stable=True).indices
+    rows = order[:HELPER_DETS]
+    protos = raw.protos[0].float()
+    coefs, boxes, valid = dets.coefs[0, rows].float(), dets.boxes[0, rows], dets.valid[0, rows]
+    classes = dets.classes[0, rows]
+    args = (protos, coefs, boxes, valid)
+    cpu = lambda ts: tuple(t.cpu() if torch.is_tensor(t) else t for t in ts)
+    timings = {}
+
+    def both(name, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*a)
+        torch.cuda.synchronize()
+        timings[name] = (time.perf_counter() - t0) * 1e3
+        return got, fn(*cpu(a))
+
+    (on_card, on_cpu) = both("masks_at_frame", pm.masks_at_frame, *args, input_hw, frame_hw)
+    at_input = pm.masks_at_input(*args, input_hw)
+    probs = pm.upsample_masks(pm.assemble_masks(*cpu(args), input_hw, threshold=None), input_hw)
+    near = (probs - 0.5).abs() < 1e-5
+    differ = at_input.cpu() != pm.masks_at_input(*cpu(args), input_hw)
+    check(not (differ & ~near).any(), "masks_at_frame: the card's masks at the input differ "
+          "from the CPU's away from the threshold")
+    check(torch.equal(on_card.cpu(), pm.resize_nearest_cv2(at_input.cpu(), frame_hw)),
+          "masks_at_frame on the card is not the nearest resize of its masks at the input")
+    n_differ = int((on_card.cpu() != on_cpu).sum())
+    masks = on_card
+    stitch = (classes == head.model_cfg.stitch_class_id) & valid
+    fabric = (masks * ((classes == head.model_cfg.fabric_class_id) & valid)[:, None, None]
+              ).amax(0) > 0
+    check(bool(stitch.any()) and bool(fabric.any()), "helpers: the headline frame has no "
+          f"stitch ({int(stitch.sum())}) or no fabric ({int(fabric.sum())} px) to work on")
+    results = {}
+    for name, fn, a in (
+            ("fabric_lower_envelope", ops.fabric_lower_envelope, (fabric,)),
+            ("fabric_upper_envelope", ops.fabric_upper_envelope, (fabric,)),
+            ("fabric_edge_mask", ops.fabric_edge_mask, (fabric,))):
+        got, want = both(name, fn, *a)
+        check(torch.equal(got.cpu(), want), f"{name}: the card differs from the CPU")
+        results[name] = got
+    sx, sy = frame_hw[1] / input_hw[1], frame_hw[0] / input_hw[0]  # the masks' grid
+    sb = map_xyxy(boxes, lambda x: x * sx, lambda y: y * sy)
+    (got, want) = both("stitch_stats", ops.stitch_stats, masks, sb, stitch)
+    for i, field in enumerate(("cx", "cy", "left", "right", "has_mask")):
+        g, w = got[i].cpu(), want[i]
+        ok = (torch.allclose(g, w, rtol=1e-5, atol=0.0) if field in ("cx", "cy")
+              else torch.equal(g, w))
+        check(ok, f"stitch_stats {field}: the card differs from the CPU")
+    cx, cy = got[0], got[1]
+    nbr = torch.arange(-3, 4, device=masks.device)
+    (got, want) = both("sample_envelope", ops.sample_envelope,
+                       results["fabric_lower_envelope"], cx, nbr)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "sample_envelope: the card differs from the CPU")
+    (got, want) = both("nearest_edge_candidates", ops.nearest_edge_candidates,
+                       results["fabric_edge_mask"], cx[0], cy[0], 20)
+    for g, w, field in zip(got, want, ("ys", "xs", "dist", "valid")):
+        check(torch.equal(g.cpu(), w), f"nearest_edge_candidates {field}: the card differs "
+              "from the CPU")
+    out = {"detections": int(valid.sum()), "stitches": int(stitch.sum()),
+           "fabric_px": int(fabric.sum()), "edge_px": int(results["fabric_edge_mask"].sum()),
+           "frame_mask_px_differing_from_cpu": n_differ, "near_threshold_px": int(near.sum()),
+           "ms_on_card": timings}
+    log(f"  helpers on the headline step's outputs (1 frame, {HELPER_DETS} detections, "
+        f"1080x1920): {out['detections']} valid, {out['stitches']} stitches, "
+        f"{out['fabric_px']} fabric px, {out['edge_px']} edge px; masks_at_frame: {n_differ} "
+        f"frame px differ from the CPU ({out['near_threshold_px']} input px within 1e-5 of "
+        f"0.5); every other helper equal to the CPU [{card}]")
+    log("  card ms (first call, host clock): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timings.items()) + f" [{card}]")
+    return out
+
+
+def check_entry_helpers(torch, ms, wp, head, card) -> dict:
+    """Phase 5h (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {"entry": check_entry_chain(torch, ms, wp, card),
+           "helpers": check_helpers(torch, head, card)}
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"entry chain and helpers: {out['wall_s']:.1f} s [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3737,13 +3999,24 @@ HEADLINE_TRAIN = dict(imgsz=640, mask_stride=4, proto_head="deconv", soft_masks=
 LOSS_KEYS = ("total", "cls", "box", "dfl", "seg")
 
 
+_DATASETS: dict = {}  # (seed, recipe) -> (the device dataset, the seconds it took to build)
+
+
 def train_dataset(torch, recipe, seed):
+    """The recipe's seeded scenes as a device dataset, built once per recipe
+    and seed (phases 5e and 6 share r5s'; trainers only read it)."""
     from torch_scenes import textile_samples
     from tti_torch.train.augment import build_device_dataset
 
-    return build_device_dataset(textile_samples(recipe["n_scenes"], recipe["imgsz"], seed=seed),
-                                recipe["imgsz"], recipe["max_gt"], mask_stride=recipe["mask_stride"],
-                                soft_masks=recipe["soft_masks"], device="cuda")
+    key = (seed, tuple(sorted(recipe.items())))
+    if key not in _DATASETS:
+        t0 = time.perf_counter()
+        data = build_device_dataset(
+            textile_samples(recipe["n_scenes"], recipe["imgsz"], seed=seed), recipe["imgsz"],
+            recipe["max_gt"], mask_stride=recipe["mask_stride"], soft_masks=recipe["soft_masks"],
+            device="cuda")
+        _DATASETS[key] = (data, time.perf_counter() - t0)
+    return _DATASETS[key][0]
 
 
 def recipe_trainer(torch, data, recipe, dtype, init, total_steps, lr=1e-3, mesh=None):
@@ -4013,27 +4286,75 @@ def write_yolo_dataset(samples, root: str) -> str:
     return images
 
 
-def check_host_aug(torch, ms, wp, device_timing: dict) -> dict:
-    """Phase 6's host recipe (``train --host-aug``) at r5s on phase 6's 32
-    seeded scenes, written as PNG files: the host's ms per batch of
-    ``batches`` (one epoch, files decoded on first use), the host loop
-    (``run_host``: each batch through pinned memory into the same
-    ``TrainStep``) in images/s beside the device augment's loop, and
-    ``python -m tti_torch.cli train --host-aug`` in a subprocess (one epoch,
-    4 steps at batch 8: exit 0, one checkpoint, finite losses on every
-    logged step). Training launches no kernel."""
+HOST_AUG_SCENES = 16  # two batches of 8: the host recipe runs at about 2.5 s a batch
+
+
+HOST_AUG_DIR = os.path.join(HERE, "build", "train_smoke", "host_aug")
+
+
+def host_aug_images() -> str:
+    """Phase 6's host-recipe scenes (HOST_AUG_SCENES seeded scenes at r5s'
+    imgsz, PNG files under ``build/train_smoke/host_aug``), written now: the
+    images directory."""
+    import shutil
+
     from torch_scenes import textile_samples
+
+    shutil.rmtree(HOST_AUG_DIR, ignore_errors=True)
+    return write_yolo_dataset(textile_samples(HOST_AUG_SCENES, R5S["imgsz"], seed=101),
+                              HOST_AUG_DIR)
+
+
+def start_host_aug_cli(images: str):
+    """``python -m tti_torch.cli train --host-aug`` at r5s on
+    :func:`host_aug_images` (one epoch, batch 8, from the deploy
+    checkpoint), started now: the process, its output directory and its
+    start time."""
+    out = os.path.join(HOST_AUG_DIR, "run")
+    argv = [sys.executable, "-m", "tti_torch.cli", "train", "--host-aug", "--images", images,
+            "--out", out, "--imgsz", str(R5S["imgsz"]), "--batch-size", str(R5S["batch"]),
+            "--epochs", "1", "--max-gt", str(R5S["max_gt"]), "--log-every", "1",
+            "--checkpoint-every", "0", "--mask-stride", str(R5S["mask_stride"]), "--proto-head",
+            R5S["proto_head"], "--soft-masks", "--stitch-seg-gain", "2.0", "--init", CAM_CKPT]
+    return (subprocess.Popen(argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            out, time.perf_counter())
+
+
+def finish_host_aug_cli(proc, out, t0) -> dict:
+    """Wait for :func:`start_host_aug_cli`: exit 0, one checkpoint, finite
+    losses on every logged step."""
+    stdout, stderr = communicate(proc)
+    cli_s = seconds_to_end(proc, t0)
+    check(proc.returncode == 0, f"cli train --host-aug exited {proc.returncode}:\n"
+          f"{stdout[-2000:]}\n{stderr[-3000:]}")
+    steps = HOST_AUG_SCENES // R5S["batch"]
+    written = sorted(os.listdir(out))
+    check(written == [f"step_{steps}.pt"], f"cli train --host-aug wrote {written}")
+    step_lines = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+    check(len(step_lines) == steps, f"cli train --host-aug logged {step_lines}")
+    for line in step_lines:
+        terms = {k: float(v) for k, v in (kv.split("=") for kv in line.split(": ")[1].split())}
+        check(all(np.isfinite(v) for v in terms.values()), f"cli --host-aug: {line}")
+    log(f"  python -m tti_torch.cli train --host-aug (r5s, batch {R5S['batch']}, 1 epoch): exit 0, "
+        f"{written}, {len(step_lines)} steps logged, last: {step_lines[-1]}; {cli_s:.1f} s")
+    return {"cli_s": cli_s, "cli_written": written, "cli_last_step": step_lines[-1]}
+
+
+def check_host_aug(torch, ms, wp, device_timing: dict) -> dict:
+    """Phase 6's host recipe (``train --host-aug``) at r5s on the
+    HOST_AUG_SCENES scenes of :func:`host_aug_images` (phase 3b wrote them
+    and ran the CLI on them): the host's ms per batch of ``batches`` (one
+    epoch, files decoded on first use) and the host loop (``run_host``:
+    each batch through pinned memory into the same ``TrainStep``) in
+    images/s beside the device augment's loop. Training launches no
+    kernel."""
     from tti_torch.train.data import batches, discover_dataset
     from tti_torch.train.loop import build_model, run_host, step_and_augment
     from tti_torch.train.step import create_train_state
 
-    import shutil
-
     t_phase = time.perf_counter()
-    root = os.path.join(HERE, "build", "train_smoke", "host_aug")
-    shutil.rmtree(root, ignore_errors=True)
-    images = write_yolo_dataset(textile_samples(R5S["n_scenes"], R5S["imgsz"], seed=101), root)
-    samples = discover_dataset(images)
+    samples = discover_dataset(os.path.join(HOST_AUG_DIR, "images"))
     recipe = dict(max_gt=R5S["max_gt"], mask_stride=R5S["mask_stride"],
                   soft_masks=R5S["soft_masks"])
     n = R5S["batch"]
@@ -4064,25 +4385,6 @@ def check_host_aug(torch, ms, wp, device_timing: dict) -> dict:
     del model, state, step
     torch.cuda.empty_cache()
 
-    out = os.path.join(root, "run")
-    argv = [sys.executable, "-m", "tti_torch.cli", "train", "--host-aug", "--images", images,
-            "--out", out, "--imgsz", str(R5S["imgsz"]), "--batch-size", str(n), "--epochs", "1",
-            "--max-gt", str(R5S["max_gt"]), "--log-every", "1", "--checkpoint-every", "0",
-            "--mask-stride", str(R5S["mask_stride"]), "--proto-head", R5S["proto_head"],
-            "--soft-masks", "--stitch-seg-gain", "2.0", "--init", CAM_CKPT]
-    t1 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-                          capture_output=True, text=True, timeout=300)
-    cli_s = time.perf_counter() - t1
-    check(proc.returncode == 0, f"cli train --host-aug exited {proc.returncode}:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    written = sorted(os.listdir(out))
-    check(written == [f"step_{len(samples) // n}.pt"], f"cli train --host-aug wrote {written}")
-    step_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
-    check(len(step_lines) == len(samples) // n, f"cli train --host-aug logged {step_lines}")
-    for line in step_lines:
-        terms = {k: float(v) for k, v in (kv.split("=") for kv in line.split(": ")[1].split())}
-        check(all(np.isfinite(v) for v in terms.values()), f"cli --host-aug: {line}")
     images_per_s = n * steps / wall
     log(f"r5s host augment (--host-aug recipe, {len(samples)} PNG scenes at "
         f"{R5S['imgsz']} px): batches() {per_batch.mean():.1f} ms per batch of {n} on the host "
@@ -4091,14 +4393,11 @@ def check_host_aug(torch, ms, wp, device_timing: dict) -> dict:
         f"{1e3 * wall / steps:.2f} ms per step over {steps} steps; the device augment's loop "
         f"{device_timing['images_per_s']:.1f} images/s, {device_timing['step_ms']:.2f} ms per "
         f"step (this phase); kernel launches {launches}")
-    log(f"python -m tti_torch.cli train --host-aug (r5s, batch {n}, 1 epoch): exit 0, "
-        f"{written}, {len(step_lines)} steps logged, last: {step_lines[-1]}; {cli_s:.1f} s")
     wall_s = time.perf_counter() - t_phase
     log(f"host augment checks: {wall_s:.1f} s")
     return {"host_ms_per_batch": per_batch.tolist(), "images_per_s": images_per_s,
             "step_ms": 1e3 * wall / steps, "device_images_per_s": device_timing["images_per_s"],
-            "device_step_ms": device_timing["step_ms"], "cli_s": cli_s, "cli_written": written,
-            "cli_last_step": step_lines[-1], "wall_s": wall_s}
+            "device_step_ms": device_timing["step_ms"], "wall_s": wall_s}
 
 
 def check_training(torch, ms, wp, card) -> dict:
@@ -4111,11 +4410,11 @@ def check_training(torch, ms, wp, card) -> dict:
     out_dir = os.path.join(HERE, "build", "train_smoke")
     result = {"card": card, "card_vs_cpu": check_train_card_vs_cpu(torch)}
 
-    t0 = time.perf_counter()
     data = train_dataset(torch, R5S, seed=101)
+    built_s = next(t for d, t in _DATASETS.values() if d is data)
     log(f"r5s dataset: {data.images.shape[0]} scenes at {data.imgsz} px on the card, masks "
         f"{tuple(data.masks.shape[1:])} (soft={data.soft}), {int(data.valid.sum())} GT, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{built_s:.1f} s (once, for phases 5e and 6)")
     reset_launch_counts(ms, wp)
     trainer = recipe_trainer(torch, data, R5S, torch.bfloat16, CAM_CKPT, R5S["total_steps"])
     t0 = time.perf_counter()
@@ -4330,13 +4629,13 @@ def opencv_version() -> str | None:
     return cv2.__version__
 
 
-def cli_workdir() -> str:
-    """A working directory for the CLI: a .env (the cam checkpoint, a sqlite
-    path, the geometry) and the calibration files written by
-    ``tti_torch.calib.io``."""
+def cli_workdir(name: str) -> str:
+    """A working directory for one CLI run, ``build/cli_smoke/<name>``: a
+    .env (the cam checkpoint, a sqlite path, the geometry) and the
+    calibration files written by ``tti_torch.calib.io``."""
     from tti_torch.calib.io import save_extrinsics, save_intrinsics
 
-    d = os.path.join(APP_DIR, "cli")
+    d = os.path.join(CLI_DIR, name)
     os.makedirs(d, exist_ok=True)
     (h, w), roi = APP["frame_hw"], bench_roi(APP["frame_hw"])
     calib = bench_calibration(APP["frame_hw"])
@@ -4364,13 +4663,8 @@ def finish_cli(started, label: str) -> tuple:
     """Wait for :func:`start_cli`'s process (exit 0 required): the seconds it
     took and the messages of its JSON log records."""
     proc, t0 = started
-    try:
-        _, stderr = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    secs = time.perf_counter() - t0
+    _, stderr = communicate(proc)
+    secs = seconds_to_end(proc, t0)
     check(proc.returncode == 0, f"cli {label}: exit {proc.returncode}\n{stderr[-3000:]}")
     records = []
     for line in stderr.splitlines():
@@ -4379,30 +4673,44 @@ def finish_cli(started, label: str) -> tuple:
     return secs, [r.get("msg", "") for r in records]
 
 
-def run_cli(d: str, label: str, extra: list, env_extra: dict | None = None) -> tuple:
-    """:func:`start_cli`, then :func:`finish_cli`."""
-    return finish_cli(start_cli(d, extra, env_extra), label)
+CLI_DIR = os.path.join(HERE, "build", "cli_smoke")
+# ``python -m tti_torch.cli run --synthetic --max-frames 2``, each in its own
+# working directory: (label, arguments, environment, records expected).
+CLI_RUNS = (
+    ("one camera", ["--skip-calibration"], {}, 2),
+    ("four cameras", ["--cameras", "4"], {}, 8),
+    ("int8", ["--skip-calibration"], {"TTI_QUANT": "int8"}, 2),
+)
 
 
-def check_cli() -> dict:
-    """``python -m tti_torch.cli run`` in a subprocess, from
-    :func:`cli_workdir`: two frames of the single-camera loop at the
-    reference's 2 s cadence, then four synthetic cameras through
-    ``MultiStreamRunner``."""
-    d = cli_workdir()
+def start_cli_runs() -> dict:
+    """Every run of :data:`CLI_RUNS`, started now."""
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return {label: start_cli(cli_workdir(f"run{i}"), extra, env)
+            for i, (label, extra, env, _) in enumerate(CLI_RUNS)}
+
+
+def finish_cli_runs(started: dict) -> dict:
+    """Wait for :func:`start_cli_runs`: each exits 0; the single-camera loop
+    at the reference's 2 s cadence logs two measurement records (also under
+    ``TTI_QUANT=int8``), the four synthetic cameras through
+    ``MultiStreamRunner`` eight stream records."""
     out = {}
-    for label, extra in (("run", ["--skip-calibration"]), ("run --cameras 4", ["--cameras", "4"])):
-        secs, msgs = run_cli(d, label, extra)
-        if label == "run":
-            n = sum(m == "measurement" for m in msgs)
-            check(n == 2, f"cli {label}: {n} measurement records, expected 2")
-        else:
+    for label, extra, env, want in CLI_RUNS:
+        secs, msgs = finish_cli(started[label], label)
+        if "--cameras" in extra:
             n = sum(m.startswith("stream ") for m in msgs)
-            check(n == 8 and "multistream shutdown: 2 batches x 4 streams" in msgs,
+            check(n == want and "multistream shutdown: 2 batches x 4 streams" in msgs,
                   f"cli {label}: {n} stream records; {msgs[-3:]}")
+        else:
+            n = sum(m == "measurement" for m in msgs)
+            check(n == want, f"cli {label}: {n} measurement records, expected {want}")
         out[label] = {"seconds": secs, "records": n}
-        log(f"cli `python -m tti_torch.cli {label} --synthetic --max-frames 2`: exit 0 in "
-            f"{secs:.1f} s, {n} records")
+        argv = " ".join([*(f"{k}={v}" for k, v in env.items()), "python -m tti_torch.cli run",
+                         "--synthetic --max-frames 2", *extra])
+        log(f"  cli `{argv}`: exit 0 in {secs:.1f} s, {n} records")
     return out
 
 
@@ -4594,7 +4902,6 @@ def check_application(torch, ms, wp, step_p50_ms) -> dict:
     del pipe
     if APP["device"] == "cuda":
         torch.cuda.empty_cache()
-    result["cli"] = check_cli()
     result["eval"] = check_eval(torch)
     return result
 
@@ -4718,17 +5025,16 @@ def check_rectified_rows(torch, ms, wp, frames, summary) -> dict:
     return out
 
 
-OFFSET_SCENES = 32  # phase 8's calibrate_offsets_torch run (the tool's default is 96)
+OFFSET_SCENES = 16  # phase 3b's calibrate_offsets_torch run (the tool's default is 96)
 
 
 def start_calibrate_offsets():
     """``tools/calibrate_offsets_torch.py`` on a copy of the deploy
-    checkpoint and its sidecar under build/, over OFFSET_SCENES scenes, in a
-    subprocess (it renders on the host while the card runs the rectified
-    rows)."""
+    checkpoint and its sidecar under ``build/offsets_smoke``, over
+    OFFSET_SCENES scenes, in a subprocess started now."""
     import shutil
 
-    d = os.path.join(CAL_DIR, "offsets")
+    d = os.path.join(HERE, "build", "offsets_smoke")
     os.makedirs(d, exist_ok=True)
     weights = os.path.join(d, os.path.basename(CAM_CKPT))
     shutil.copy(CAM_CKPT, weights)
@@ -4744,13 +5050,8 @@ def finish_calibrate_offsets(proc, weights, t0) -> dict:
     """Wait for :func:`start_calibrate_offsets`: exit 0, every key of the
     sidecar but the calibration's unchanged, both constants finite; printed
     beside the deploy sidecar's."""
-    try:
-        stdout, stderr = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    wall = time.perf_counter() - t0
+    stdout, stderr = communicate(proc)
+    wall = seconds_to_end(proc, t0)
     check(proc.returncode == 0, f"calibrate_offsets_torch exited {proc.returncode}:\n"
           f"{stdout[-2000:]}\n{stderr[-3000:]}")
     with open(CAM_CKPT + ".json") as f:
@@ -4765,7 +5066,7 @@ def finish_calibrate_offsets(proc, weights, t0) -> dict:
     check(np.isfinite(edge) and np.isfinite(width), f"offsets not finite: {edge}, {width}")
     check(after["cal_scenes"] == OFFSET_SCENES, f"cal_scenes {after['cal_scenes']}")
     line = next((ln for ln in stdout.splitlines() if ln.startswith("wrote ")), "")
-    log(f"calibrate_offsets_torch ({OFFSET_SCENES} scenes, seed {after['cal_seed']}, float32, "
+    log(f"  calibrate_offsets_torch ({OFFSET_SCENES} scenes, seed {after['cal_seed']}, float32, "
         f"reference-native): cal_edge_mm {edge:+.4f} (deploy sidecar {before['cal_edge_mm']:+.4f}, "
         f"{before['cal_scenes']} scenes), cal_width_mm {width:+.4f} (sidecar "
         f"{before['cal_width_mm']:+.4f}); raw bias {after['cal_edge_bias_raw']:+.4f} / "
@@ -4840,20 +5141,14 @@ def check_calibrate_measure(torch, ms, wp) -> dict:
     for i, v in enumerate(pinhole_board_views(cv2, texture)):
         cv2.imwrite(os.path.join(intr_dir, f"view_{i:02d}.png"), v)
     out_json = os.path.join(CAL_DIR, "intrinsics_cli.json")
-    proc = subprocess.run([sys.executable, "-m", "tti_torch.cli", "calibrate-intrinsics",
-                           "--images", intr_dir, "--out", out_json], cwd=CAL_DIR,
-                          env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
-                          timeout=300)
-    result_line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT: rms=")),
-                       None)
-    check(proc.returncode == 0 and result_line is not None and os.path.exists(out_json),
-          f"calibrate-intrinsics: exit {proc.returncode}: {proc.stderr[-2000:]}")
-    with open(out_json) as f:
-        fx = json.load(f)["camera_matrix"][0][0]
-    log(f"calibrate-intrinsics (8 views, fx 880 rendered): {result_line}; fx {fx:.2f}")
+    intr = subprocess.Popen([sys.executable, "-m", "tti_torch.cli", "calibrate-intrinsics",
+                             "--images", intr_dir, "--out", out_json], cwd=CAL_DIR,
+                            env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
     # The first scenes of the mm report through the deploy step, with the
-    # true and the recovered extrinsics, in float32 and bf16.
+    # true and the recovered extrinsics, in float32 and bf16, while the CLI
+    # solves the intrinsics on the host.
     rng = np.random.default_rng(0)
     scenes = [mr.make_measure_scene(mapper, rng) for _ in range(REPORT_SCENES)]
     frames = np.stack([f for f, _ in scenes])
@@ -4861,7 +5156,7 @@ def check_calibrate_measure(torch, ms, wp) -> dict:
     gt_width = np.array([t.frame_width for _, t in scenes])
     gt_n = np.array([t.n_stitches for _, t in scenes])
     summary = {"t_err_mm": t_err_mm, "r_err_deg": r_err_deg, "cv2_vs_tti_mm": cv2_t_mm,
-               "cv2_vs_tti_rad": cv2_r_rad, "intrinsics_cli": result_line}
+               "cv2_vs_tti_rad": cv2_r_rad}
     kernel_a = summary["kernel_a_launches"] = []  # one per step, four steps
     for dtype in ("float32", "bfloat16"):
         got = {}
@@ -4914,12 +5209,58 @@ def check_calibrate_measure(torch, ms, wp) -> dict:
             f"(limit 0.05)")
         check(worst <= 0.05, f"measure {dtype}: recovered extrinsics move a reading by {worst} mm")
     torch.cuda.empty_cache()
-    offsets = start_calibrate_offsets()
+    stdout, stderr = communicate(intr)
+    result_line = next((ln for ln in stdout.splitlines() if ln.startswith("RESULT: rms=")), None)
+    check(intr.returncode == 0 and result_line is not None and os.path.exists(out_json),
+          f"calibrate-intrinsics: exit {intr.returncode}: {stderr[-2000:]}")
+    with open(out_json) as f:
+        fx = json.load(f)["camera_matrix"][0][0]
+    summary["intrinsics_cli"] = result_line
+    log(f"calibrate-intrinsics (8 views, fx 880 rendered): {result_line}; fx {fx:.2f}")
     summary["rectified"] = check_rectified_rows(torch, ms, wp, frames, summary)
-    summary["calibrate_offsets"] = finish_calibrate_offsets(*offsets)
     summary["seconds"] = time.perf_counter() - t0
     log(f"calibrate, then measure: {summary['seconds']:.1f} s")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the checks that run in processes of their own, side by side
+# ---------------------------------------------------------------------------
+
+
+def check_side_by_side(torch) -> dict:
+    """Phase 3b (see the module docstring): every check that runs in
+    processes of its own and times nothing, started together, then each
+    waited for and held to its bar in turn. This process starts them and
+    waits: no timing of this script runs beside them."""
+    t_phase = time.perf_counter()
+    os.makedirs(INT8_DIR, exist_ok=True)
+    started: dict = {}
+    try:
+        started["calibration"] = {c: start_calibration(ckpt, imgsz, INT8_SCALES[c])
+                                  for c, (_, imgsz, ckpt) in CONFIGS.items()}
+        started["cli"] = start_cli_runs()
+        started["gloo_pair"] = start_gloo_pair()
+        started["calibrate_offsets"] = start_calibrate_offsets()
+        started["cli_train"] = start_cli_train_triple()
+        started["host_aug_cli"] = start_host_aug_cli(host_aug_images())
+        drain(popens(started))
+        log(f"  {len(popens(started))} processes started in {time.perf_counter() - t_phase:.1f} s "
+            "(the two training sets written meanwhile)")
+        out = {"calibration_s": {c: finish_calibration(c, *p)
+                                 for c, p in started["calibration"].items()},
+               "cli": finish_cli_runs(started["cli"]),
+               "cli_train": finish_cli_train_triple(*started["cli_train"]),
+               "host_aug_cli": finish_host_aug_cli(*started["host_aug_cli"]),
+               "calibrate_offsets": finish_calibrate_offsets(*started["calibrate_offsets"]),
+               "gloo_pair": finish_gloo_pair(torch, started["gloo_pair"])}
+    finally:
+        for p in popens(started):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -5018,6 +5359,12 @@ def main() -> int:
     nms_clusters = check_nms(torch)
     phase_done("3 (kernels against their plain versions)")
 
+    # Phase 3b: the int8 calibrations, the CLI runs and trainings, two gloo
+    # ranks and calibrate_offsets, each in processes of its own, side by side.
+    log("the checks in processes of their own, side by side (nothing timed meanwhile):")
+    side = check_side_by_side(torch)
+    phase_done("3b (subprocess checks, side by side)")
+
     # Phases 4-5: the configurations through process_batch; each step's own
     # kernel inputs at batch 128 are kept for phase 9.
     head_hw, head_ckpt = (1080, 1920), "yolov8n_textile.msgpack"
@@ -5076,8 +5423,8 @@ def main() -> int:
     phase_done("5d (frozen step)")
 
     # Phase 5e: data-parallel, on the one card.
-    log("data-parallel (tti_torch.parallel: a one-rank NCCL mesh, two gloo ranks, cli train "
-        "with the TTI_* triple):")
+    log("data-parallel (tti_torch.parallel: a one-rank NCCL mesh; two gloo ranks and cli train "
+        "with the TTI_* triple ran in phase 3b):")
     data_parallel = check_data_parallel(torch, ms, wp, card)
     mesh_launches = {**{tag: v["launches"] for tag, v in data_parallel["steps"].items()},
                      "dual": data_parallel["dual"]["launches"]}
@@ -5096,6 +5443,11 @@ def main() -> int:
         "host_overhead):")
     tools = check_tools(card)
     phase_done("5g (tools)")
+
+    # Phase 5h: __graft_entry__.py's forward chain and tti's public helpers.
+    log("__graft_entry__.py's forward chain (kernel D) and tti's public helpers on the card:")
+    entry_helpers = check_entry_helpers(torch, ms, wp, head, card)
+    phase_done("5h (entry chain, helpers)")
 
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
@@ -5206,6 +5558,8 @@ def main() -> int:
         **({k: d[k] for k in ("first_design_ms", "ms_again")} if first_nms else {}),
         "cluster_per_b_k": nms_clusters,
         "dual_launches": dual["greedy_keep_launches"],
+        "entry_chain_launches": {b: v["greedy_keep_launches"]
+                                 for b, v in entry_helpers["entry"].items()},
         "other_inputs": {f"{c} batch {b}": {k: t[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "shape", "cluster", "empty_ms",
             "first_design_ms", "ms_again") if k in t}
@@ -5256,13 +5610,13 @@ def main() -> int:
         # Launches per rank and step of the space step (phase 5f, two ranks).
         k["space_launches"] = {tag: n.get(k["name"], 0) for tag, n in space_launches.items()}
     phase_done("9 (kernel timings)")
-    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (1018.9 s on an H100 before the "
-        "space repeats and dual run and kernel D's redesign)")
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (its limit: 1200 s)")
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
         "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
-        "space": space, "tools": tools},
+        "space": space, "tools": tools, "entry_helpers": entry_helpers,
+        "side_by_side": side},
         "training": training, "application": application, "calibrate_measure": calibrated,
         "phase_s": phase_s}))
     log(card)

@@ -8,7 +8,11 @@ used), and ``tools/measure_report_torch.py``, ``tools/calibrate_int8_torch.py``,
 ``tools/space_cards_torch.py``, ``tools/tune_device_torch.py``,
 ``tools/host_overhead_torch.py``, ``tools/profile_forward_torch.py`` and
 ``tools/profile_train_torch.py`` import neither tti nor the tools they stand
-beside."""
+beside. ``tti``'s public helpers that no step calls (the dense-mask
+measurement primitives, ``project_points``, ``local_mm_per_px``,
+``masks_at_frame``, ``letterbox``, ``preprocess_frames``,
+``frame_points_to_input``, ``InferenceError``, ``ServiceError``) import
+and run with the same modules blocked."""
 
 import os
 import re
@@ -62,6 +66,34 @@ for name in ("calibrate_offsets", "tools.calibrate_offsets", "proto_ceiling",
              "profile_train", "tools.profile_train"):
     assert name not in sys.modules, name
 assert "parity_report" not in sys.modules and "test_predict_parity" not in sys.modules
+import torch
+from tti_torch.calib.geometry import local_mm_per_px, project_points
+from tti_torch.core import InferenceError, TtiError
+from tti_torch.core.errors import ServiceError
+from tti_torch.measure.ops import (fabric_edge_mask, fabric_lower_envelope,
+                                   fabric_upper_envelope, nearest_edge_candidates,
+                                   sample_envelope, stitch_stats)
+from tti_torch.postprocess.masks import masks_at_frame
+from tti_torch.preprocess.letterbox import (frame_points_to_input, letterbox, letterbox_spec,
+                                            preprocess_frames)
+assert issubclass(InferenceError, TtiError) and issubclass(ServiceError, TtiError)
+fab = torch.zeros(6, 8, dtype=torch.bool)
+fab[2:5, 1:7] = True
+assert fabric_lower_envelope(fab)[3] == 4 and fabric_upper_envelope(fab)[3] == 2
+assert nearest_edge_candidates(fabric_edge_mask(fab), 3.0, 0.0, k=4)[3].all()
+assert stitch_stats(fab[None].float(), torch.zeros(1, 4), torch.ones(1, dtype=torch.bool))[4]
+assert sample_envelope(fabric_lower_envelope(fab), torch.tensor([3.0]),
+                       torch.arange(-1, 2))[1].all()
+assert masks_at_frame(torch.zeros(4, 4, 8), torch.zeros(2, 8), torch.zeros(2, 4),
+                      torch.ones(2, dtype=torch.bool), (16, 16), (20, 24)).shape == (2, 20, 24)
+x, spec = preprocess_frames(torch.zeros(1, 12, 16, 3, dtype=torch.uint8), 8)
+assert x.shape == (1, 8, 8, 3) and letterbox(x, letterbox_spec(8, 8, 16)).shape == (1, 16, 16, 3)
+assert frame_points_to_input(torch.zeros(3, 2), spec).shape == (3, 2)
+K3 = [[90.0, 0, 64], [0, 90.0, 48], [0, 0, 1]]
+assert project_points(torch.tensor([[0.0, 0.0, 1.0]]), [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], K3,
+                      [0.0] * 5).shape == (1, 2)
+assert local_mm_per_px(torch.tensor([[64.0, 48.0]]), K3, [0.0] * 5, torch.eye(3),
+                       [0.0, 0.0, 0.1])[1].all()
 from tti_torch.calib.charuco import create_charuco_board
 from tti_torch.core.errors import CalibrationError
 try:

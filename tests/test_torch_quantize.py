@@ -6,9 +6,9 @@
   deploy checkpoints, and raises tti's errors.
 - The quantized ``Conv`` block's plain path (kernels E and F's plain
   versions) against tti's ``Conv.apply`` within 1e-5 at k 1/2/3, s 1/2,
-  pad 0/1, ci 3/12/16/48, and on a strided channel slice. The two differ
-  only in SiLU's formula (tti: x * sigmoid(x); PyTorch: x / (1 + exp(-x))),
-  one float32 rounding; the codes, the integer accumulators and the
+  pad 0/1, ci 3/12/16/48, and on a strided channel slice. Both take
+  SiLU as x * sigmoid(x); they differ only where XLA's exp and PyTorch's
+  differ in the last bit; the codes, the integer accumulators and the
   epilogue are equal.
 - The plain versions' pieces: F's scale, the codes and the accumulators
   (above 2^24 too) against tti's and an int64 product.

@@ -10,7 +10,8 @@ slabs (one MAX all-reduce per block), so every code, every integer sum and
 every output equals the step without a mesh bit for bit; the step is held
 to ``tti``'s jitted int8 step on its own space mesh with
 ``tests/test_torch_quantize_step.py``'s int8 tolerances (boxes 2 px, scores
-2e-2, mm 0.5: the two packages' SiLU differ by an ulp, which moves codes).
+2e-2, mm 0.5: the two packages' SiLU can differ by an ulp, their exp's
+last bit, which moves codes).
 """
 
 import json

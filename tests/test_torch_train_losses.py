@@ -18,11 +18,17 @@ from tti_torch.train import losses as tlo
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs in several worker processes at
-    once, and more threads per process only contend for the cores."""
+def _one_thread():
+    """One intra-op thread, whatever the host or ``OMP_NUM_THREADS``: the
+    chunked and unchunked seg losses are held bit for bit, and from two
+    threads on MKL splits the coefficients' gradient product (a sum over
+    the grid's cells, one row per anchor) over the threads by the chunk's
+    row count, so a chunk of 7 rows and one of 64 sum the same row in
+    other orders (up to 9.3e-10 apart at two threads on an 8-core AVX-512
+    host). At one thread each row is summed in one order. The suite runs
+    in several worker processes at once, so one thread costs little."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

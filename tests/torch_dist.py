@@ -79,14 +79,17 @@ def launch(argv_of_rank, world: int = 2, env_extra: dict | None = None,
     job (``TTI_COORDINATOR`` 127.0.0.1:<free>, ``TTI_NUM_PROCESSES`` world,
     ``TTI_PROCESS_ID`` r), wait for each within ``timeout`` seconds, kill
     whatever is left. Returns (exit code, output) per rank; a rank still
-    running at the limit reads -9."""
+    running at the limit reads -9. Each rank runs one intra-op thread: the
+    cases hold a rank's rows bit for bit to a step on another batch shape,
+    and from two threads on MKL and oneDNN block a product by the batch's
+    shape."""
     from tti_torch.parallel.dcn import free_local_coordinator
 
     coord = free_local_coordinator()
     procs = []
     for r in range(world):
         env = dict(os.environ, TTI_COORDINATOR=coord, TTI_NUM_PROCESSES=str(world),
-                   TTI_PROCESS_ID=str(r), PYTHONPATH=str(REPO), OMP_NUM_THREADS="2",
+                   TTI_PROCESS_ID=str(r), PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
                    **(env_extra or {}))
         procs.append(subprocess.Popen(argv_of_rank(r), env=env, cwd=REPO,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -327,7 +330,7 @@ def main(argv: list[str]) -> int:
     from tti_torch.parallel.mesh import create_mesh
 
     case, workdir = argv
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     assert dcn.init_distributed(device="cpu")  # the TTI_* triple, gloo
     try:
         shape = MESHES.get(case.split("_", 1)[0])

@@ -106,7 +106,7 @@ LAUNCHES = {
     "headline_banded": {"mask_stats_binary": 1, "greedy_keep": 1},
     "dual": {"mask_stats_binary": 2, "greedy_keep": 2},
 }
-REPEAT_TAG = "deploy/float32"  # its batch-1 check repeats (--repeat; 3 times in chip_smoke)
+REPEAT_TAG = "deploy/float32"  # its batch-1 check repeats (--repeat; once in chip_smoke)
 DUAL_SECOND = "yolov8n_textile_960.msgpack"  # beside the headline checkpoint, as in phase 5
 # (tag, configuration, dtype, pipeline arguments, batches, timed)
 CHECKED = (
@@ -523,6 +523,7 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
     ``TTI_WARP_BLOCKED`` when it is set and the run names no block, the
     batch-1 check of ``REPEAT_TAG`` ``repeat`` times (a miss dump on any
     rank's miss); writes ``rank<r>.json``. A failed check raises."""
+    t_start = time.perf_counter()
     sys.path[:0] = [HERE, os.path.join(HERE, "tests"), os.path.join(HERE, "tools")]
     import torch
     import torch.distributed as dist
@@ -559,10 +560,13 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
         return bool(t.item())
 
     spatial.Space.halo = timed_halo
-    result = {"rank": rank, "world": world, "backend": backend, "runs": {}}
+    # Seconds from the worker's entry to its joined group (imports, the card).
+    result = {"rank": rank, "world": world, "backend": backend, "runs": {},
+              "start_s": time.perf_counter() - t_start}
     try:
         mesh = create_mesh((1, world), ("data", "space"), device_type="cuda")
         for tag, config, dtype, kw, batches, timed in runs_of(runs):
+            t_run = time.perf_counter()
             hw, imgsz, ckpt = cs.CONFIGS[config]
             if block is not None and "warp_block" not in kw and "warp_pass1" not in kw:
                 kw = dict(kw, warp_block=block)  # the kernel route takes no block
@@ -580,6 +584,7 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
                 run["pass2"] = pass2_bytes(head.warp)
             want = LAUNCHES[tag.split("/")[0]]
             chains = 2 if dual else 1
+            t_checks = time.perf_counter()
             # bf16: the plain step's readings at BF16_BATCH, the first of the
             # variants of its own spread at batch 1 and 2 (plain_spread).
             ref_full = (plain.process_batch(cs.textile(hw, BF16_BATCH))
@@ -634,6 +639,7 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
                 if world > 1 and b == batches[0] and not dual:
                     run["inner_diffs"] = inner_diffs(
                         torch, plain, pipe, torch.from_numpy(cs.textile(hw, b)).cuda())
+            t_timed = time.perf_counter()
             if timed:
                 one = torch.from_numpy(cs.textile(hw, 1)).cuda()
                 if rank == 0:
@@ -655,6 +661,11 @@ def worker(rank: int, world: int, coordinator: str, backend: str, out_dir: str,
                                                        if "memcpy" in k.lower()),
                            halo_bytes_sent_per_step=spatial.COUNTS["halo_bytes"] / 3,
                            gather_bytes_per_step=spatial.COUNTS["gather_bytes"] / 3)
+            # Wall seconds of the run's parts: building its pipelines, the
+            # checks, the timing.
+            now = time.perf_counter()
+            run["wall_s"] = {"setup": t_checks - t_run, "checks": t_timed - t_checks,
+                             "timed": now - t_timed}
             result["runs"][tag] = run
             del plain, pipe, head, ref_full
             torch.cuda.empty_cache()
@@ -771,6 +782,9 @@ def summary_lines(ranks: list[dict], label: str) -> list[str]:
                          + f"; gather bytes per rank and step {run0['gather_bytes_per_step']:.0f}"
                          + "; halo bytes sent per rank and step "
                          + ", ".join(f"{r['halo_bytes_sent_per_step']:.0f}" for r in runs))
+        if "wall_s" in run0:
+            parts.append("wall s per rank (set-up, checks, timing) " + ", ".join(
+                "({setup:.1f}, {checks:.1f}, {timed:.1f})".format(**r["wall_s"]) for r in runs))
         lines.append("; ".join(parts))
     return lines
 

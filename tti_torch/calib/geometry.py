@@ -94,3 +94,31 @@ def pixels_to_plane_mm(uv: Tensor, K: Tensor, dist: Tensor, R: Tensor, t: Tensor
     """:func:`pixels_to_world` in millimetres."""
     world, valid = pixels_to_world(uv, K, dist, R, t, iters=iters)
     return world * 1000.0, valid
+
+
+def _f32(a, like: Tensor) -> Tensor:
+    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+
+
+def project_points(points_w: Tensor, rvec, tvec, K, dist) -> Tensor:
+    """World points (..., 3) -> distorted pixel coords (..., 2), as
+    cv2.projectPoints; in float32 on ``points_w``'s device, as ``tti``
+    computes it (its arrays are float32)."""
+    pts = points_w.to(torch.float32)
+    R = rodrigues(_f32(rvec, pts))
+    pc = pts @ R.T + _f32(tvec, pts).reshape(3)
+    return distort_points(pc[..., :2] / pc[..., 2:3], _f32(K, pts), _f32(dist, pts))
+
+
+def local_mm_per_px(uv: Tensor, K, dist, R, t, probe_px: float = 10.0,
+                    iters: int = 5) -> tuple[Tensor, Tensor]:
+    """Local mm-per-pixel scale at pixel(s) ``uv`` (..., 2): ``uv`` and ``uv +
+    (probe_px, 0)`` go to the fabric plane and the world distance is divided
+    by the probe length, in float32 on ``uv``'s device. Returns (scale
+    (...,), valid (...,) bool: both probe rays meet the plane)."""
+    uv = uv.to(torch.float32)
+    K, dist, R, t = (_f32(a, uv) for a in (K, dist, R, t))
+    uv2 = torch.stack([uv[..., 0] + probe_px, uv[..., 1]], -1)
+    w1, v1 = pixels_to_plane_mm(uv, K, dist, R, t, iters=iters)
+    w2, v2 = pixels_to_plane_mm(uv2, K, dist, R, t, iters=iters)
+    return torch.linalg.vector_norm(w1 - w2, dim=-1) / probe_px, v1 & v2

@@ -11,3 +11,11 @@ class ConfigError(TtiError):
 
 class CalibrationError(TtiError):
     """Intrinsics/extrinsics missing or calibration failed."""
+
+
+class InferenceError(TtiError):
+    """Model load / forward / postprocess failure."""
+
+
+class ServiceError(TtiError):
+    """Side-channel service (serial / db / mqtt / cleaner) failure."""

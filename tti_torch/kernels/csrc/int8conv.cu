@@ -25,11 +25,14 @@
 // 2^24, so it can round: the plain version convolves in float64 and converts
 // the same way); (xscale * wscale) is formed first, as tti forms it, and the
 // epilogue is written with __fmul_rn / __fadd_rn, which nvcc never contracts
-// into an FMA (one rounding where the reference has two). SiLU is PyTorch's
-// own formula, x / (1 + expf(-x)) in float32 on the rounded output, with an
-// IEEE division; expf is the CUDA math library's, which PyTorch's kernel also
-// calls, so the two agree unless the toolkits' expf differ (chip_smoke.py
-// prints the largest difference in ulps and holds it to 1). Zero padding, the
+// into an FMA (one rounding where the reference has two). SiLU is tti's
+// formula, x * sigmoid(x), in float32 on the rounded output: an IEEE
+// reciprocal of 1 + expf(-x), then a product (the plain version's
+// silu_plain; PyTorch's F.silu divides instead, which rounds otherwise in
+// about one value in four and flips the next block's codes); expf is the
+// CUDA math library's, which PyTorch's sigmoid also calls, so the two agree
+// unless the toolkits' expf differ (chip_smoke.py prints the largest
+// difference in ulps and holds it to 1). Zero padding, the
 // s2d stem's pre-pad and the K padding are zeros, which quantize to 0, as in
 // tti. F's max is order-independent: bit-equal.
 //
@@ -43,12 +46,12 @@
 // read and 5.6 MB written per frame). Then float work, about as much as the
 // bytes at deploy batch 128: every input element is an IEEE division, a
 // clamp and a rounding (5.2e9 of them per step), every output element a
-// dequantize, a bf16 rounding, expf, another IEEE division and a rounding
-// (4.3e9), with a MUFU op each for expf and the reciprocal and quarter-rate
-// conversions (int32 -> float32, float32 -> bf16). E comes near its bound
-// only if the loads, the quantization, the product and the epilogue
-// overlap and the float work keeps the SMs' issue slots busy. The design,
-// part by part:
+// dequantize, a bf16 rounding, expf, an IEEE reciprocal, a product and a
+// rounding (4.3e9), with a MUFU op each for expf and the reciprocal and
+// quarter-rate conversions (int32 -> float32, float32 -> bf16). E comes
+// near its bound only if the loads, the quantization, the product and the
+// epilogue overlap and the float work keeps the SMs' issue slots busy. The
+// design, part by part:
 //
 // - Persistent, warp-specialised blocks: a producer warpgroup and NC = 1 to
 //   3 consumer warpgroups (the planner's choice: the most that keep the
@@ -84,8 +87,8 @@
 //   layers (the first design's 8 x 16 tiles: about 2.3x for a 3x3). A block that keeps
 //   one group of co (the P4/P5 3x3 blocks of 128-256 channels) quantizes its
 //   windows once per group.
-// - Float work without per-element branches: the two IEEE divisions have
-//   branch-free fast forms whose rare possible misroundings are detected and
+// - Float work without per-element branches: the IEEE division and
+//   reciprocal have branch-free fast forms whose rare possible misroundings are detected and
 //   redone exactly (quantize_fast, silu_fast); SiLU runs in the store loop,
 //   8 values per thread at a time, and its on/off switch is never tested
 //   inside an unrolled loop.
@@ -165,27 +168,29 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, ui
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-// SiLU as PyTorch computes it, with an IEEE division.
+// SiLU as tti computes it: y times the IEEE reciprocal of 1 + expf(-y).
 __device__ __forceinline__ float silu(float y) {
-  return __fdiv_rn(y, __fadd_rn(1.0f, expf(-y)));
+  return __fmul_rn(y, __frcp_rn(__fadd_rn(1.0f, expf(-y))));
 }
 
-// Branch-free forms of the two IEEE divisions, each with a test of whether
-// its rounding could differ from the exact one's. A caller computes a batch
+// Branch-free forms of the quantizer's IEEE division and SiLU's IEEE
+// reciprocal, each with a test of whether its rounding could differ from
+// the exact one's. A caller computes a batch
 // of values this way (16 codes, or 8 bf16 outputs), collecting the tests in
 // a bit mask, and redoes the flagged values with quantize() / silu(), so the
 // results are the exact ones bit for bit. A branch per value in the hot loop
 // would cut it into one block per value and serialise their dependent chains
-// (the IEEE division has a slow-path branch of its own), and redoing a whole
-// batch would cost a warp the exact path whenever any of its threads asks.
-// The tests fire for about 1 value in 10^4 to 10^3 (bf16 inputs take few
-// distinct values; a few of them sit near a rounding boundary). Both
-// quotients are refined once: q0 = n * r (r = 1/d within 1 ulp), e = n - d *
-// q0 exactly (an FMA), q1 = q0 + e * r, which lies within 0.5 ulp (plus
-// 2^-23 of e) of n / d, so within 1 ulp of the IEEE quotient, as long as e is
-// exact: the ranges below keep every value of it, and any value that
-// matters, well inside the normal range. tests/test_torch_int8_plan.py
-// holds a numpy model of both forms to that on 10^7 values.
+// (the IEEE division and reciprocal have slow-path branches of their own),
+// and redoing a whole batch would cost a warp the exact path whenever any of
+// its threads asks. The tests fire for about 1 value in 10^4 to 10^3 (bf16
+// inputs take few distinct values; a few of them sit near a rounding
+// boundary). The quotient is refined once: q0 = n * r (r = 1/d within 1
+// ulp), e = n - d * q0 exactly (an FMA), q1 = q0 + e * r, which lies within
+// 0.5 ulp (plus 2^-23 of e) of n / d, so within 1 ulp of the IEEE quotient,
+// as long as e is exact: the ranges below keep every value of it, and any
+// value that matters, well inside the normal range; the reciprocal the same
+// way with n = 1. tests/test_torch_int8_plan.py holds a numpy model of both
+// forms to that on 10^7 values.
 // - quantize_fast: only the nearest integer of the clamped quotient is kept,
 //   so the codes agree unless q1 is within 1 ulp (< 2^-16 for |q| <= 127) of
 //   a half-integer; the test fires within 2^-15. |q0| >= 1024, an infinity
@@ -203,12 +208,15 @@ __device__ __forceinline__ uint32_t quantize_fast(float x, float s, float rcp, u
   return __float_as_uint(w);
 }
 
-// - silu_fast: rounding to bf16 rounds the float32 pattern to a multiple of
-//   2^16, ties to even, so q1 and the IEEE quotient round alike unless a
-//   midpoint (low 16 bits 0x8000) lies within 1 pattern of q1; the test
-//   fires within 2. It also fires outside 2^-40 <= |y| (or y = 0) and d <
-//   2^40 (y > -27.7). bf16 outputs only: a float32 output is the quotient
-//   itself and takes silu().
+// - silu_fast: r1 = r + r * (1 - d * r), refined once from rcp.approx,
+//   lies within 1 ulp of the IEEE reciprocal, so the exact products of y
+//   with the two lie within 2 ulps of each other, and the float32 products
+//   within 3 patterns. Rounding to bf16 rounds the float32 pattern to a
+//   multiple of 2^16, ties to even, so the two round alike unless a
+//   midpoint (low 16 bits 0x8000) lies within 3 patterns of the product;
+//   the test fires within 4. It also fires outside 2^-40 <= |y| (or y = 0)
+//   and d < 2^40 (y > -27.7). bf16 outputs only: a float32 output is the
+//   product itself and takes silu().
 __device__ __forceinline__ float rcp_approx(float d) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
@@ -218,12 +226,12 @@ __device__ __forceinline__ float rcp_approx(float d) {
 __device__ __forceinline__ float silu_fast(float y, uint32_t& redo, int i) {
   const float d = __fadd_rn(1.0f, expf(-y));
   const float r = rcp_approx(d);
-  const float q0 = __fmul_rn(y, r);
-  const float q1 = __fmaf_rn(__fmaf_rn(-d, q0, y), r, q0);
-  const bool near = ((__float_as_uint(q1) & 0xFFFFu) - 0x7FFEu) <= 4u || !(d < 0x1p40f)
+  const float r1 = __fmaf_rn(__fmaf_rn(-d, r, 1.0f), r, r);
+  const float p = __fmul_rn(y, r1);
+  const bool near = ((__float_as_uint(p) & 0xFFFFu) - 0x7FFCu) <= 8u || !(d < 0x1p40f)
                     || (fabsf(y) < 0x1p-40f && y != 0.0f);
   redo |= static_cast<uint32_t>(near) << i;
-  return q1;
+  return p;
 }
 
 // SiLU of one 16-byte chunk of staged outputs: 8 bf16 values (the fast

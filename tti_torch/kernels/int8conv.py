@@ -8,7 +8,8 @@ convolution is XLA's int8 ``conv_general_dilated``, not a ``pallas_call``):
 the input quantized by its scale, ``clamp(rint(x / s), -127, 127)``, an
 int8 x int8 -> int32 convolution with the packed weights, then ``acc *
 (xscale * wscale) + bias`` in float32, rounded to the input's dtype, then
-SiLU. :func:`act_scale_per_sample` (kernel F) is ``tti``'s
+SiLU in ``tti``'s form, ``y * sigmoid(y)`` (:func:`silu_plain`).
+:func:`act_scale_per_sample` (kernel F) is ``tti``'s
 ``quantize_act_per_sample`` scale: ``max(absmax, 1e-12) / 127`` per sample.
 
 Tensors are NCHW-indexed (the port's modules), any strides: a channel slice
@@ -100,6 +101,18 @@ def act_scale_per_sample_plain(x: Tensor) -> Tensor:
     return absmax / torch.full_like(absmax, 127.0)
 
 
+def silu_plain(y: Tensor) -> Tensor:
+    """SiLU as ``tti``'s block computes it, ``y * sigmoid(y)``: in float32
+    on ``y``'s value, ``sigmoid`` an IEEE reciprocal of ``1 + exp(-y)``, one
+    product, rounded once to ``y``'s dtype. ``F.silu`` divides ``y`` by ``1 +
+    exp(-y)`` instead, which rounds differently in about one value in four;
+    a code of the next block whose quotient lies within that ulp of a
+    half-integer then rounds the other way, and each such flip moves the
+    outputs it feeds by a quantization step."""
+    yf = y.float()
+    return (yf * torch.sigmoid(yf)).to(y.dtype)
+
+
 def quantize_act_plain(x: Tensor, xscale: Tensor) -> Tensor:
     """The int8 codes of ``x`` (as float32): ``clamp(round(x / s), -127,
     127)``, ``s`` per sample ((B,)) or one scale (0-d)."""
@@ -126,7 +139,7 @@ def int8_conv2d_plain(x: Tensor, qweight: Tensor, wscale: Tensor, bias: Tensor, 
     y = acc.float() * (xs * wscale.view(1, -1, 1, 1)) + bias.view(1, -1, 1, 1)
     y = y.to(x.dtype)
     if act:
-        y = F.silu(y)
+        y = silu_plain(y)
     return y.contiguous(memory_format=torch.channels_last)
 
 

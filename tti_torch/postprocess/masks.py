@@ -32,6 +32,22 @@ def crop_masks(masks: Tensor, boxes: Tensor) -> Tensor:
     return masks * inside
 
 
+def _frame_probs(protos: Tensor, coefs: Tensor) -> Tensor:
+    """``sigmoid(coefs . protos)`` in float32: protos (..., Hm, Wm, nm),
+    coefs (..., N, nm) -> (..., N, Hm, Wm). One product and one sigmoid per
+    frame, so that a frame's values are the same bits in any batch: a
+    batched product lets the library block each frame's sum by the batch's
+    shape (on the CPU, MKL splits a batch of two over its threads and sums
+    otherwise than for one frame), and PyTorch's CPU loop takes a tensor's
+    last few elements through the scalar ``exp``, the rest through the
+    vector one."""
+    hm, wm, nm = protos.shape[-3:]
+    c = coefs.float().reshape(-1, coefs.shape[-2], nm)
+    p = protos.float().reshape(-1, hm * wm, nm)
+    probs = torch.stack([torch.sigmoid(ci @ pi.T) for ci, pi in zip(c, p)])
+    return probs.reshape(*coefs.shape[:-1], hm, wm)
+
+
 def assemble_masks(protos: Tensor, coefs: Tensor, boxes_input_px: Tensor, valid: Tensor,
                    input_hw: tuple[int, int], threshold: float | None = 0.5) -> Tensor:
     """Instance masks at proto resolution. protos (..., Hm, Wm, nm); coefs
@@ -39,7 +55,7 @@ def assemble_masks(protos: Tensor, coefs: Tensor, boxes_input_px: Tensor, valid:
     valid (..., N). Returns (..., N, Hm, Wm) float32: sigmoid probabilities,
     or binarized when ``threshold`` is given. Invalid rows are zero."""
     hm, wm = protos.shape[-3], protos.shape[-2]
-    probs = torch.sigmoid(torch.einsum("...nc,...hwc->...nhw", coefs.float(), protos.float()))
+    probs = _frame_probs(protos, coefs)
     sx, sy = wm / input_hw[1], hm / input_hw[0]
     probs = crop_masks(probs, map_xyxy(boxes_input_px.float(), lambda x: x * sx,
                                        lambda y: y * sy))
@@ -82,6 +98,16 @@ def resize_nearest_cv2(masks: Tensor, out_hw: tuple[int, int]) -> Tensor:
         return torch.clamp(torch.floor(pos).long(), 0, n_in - 1).to(masks.device)
 
     return masks[..., index(oh, h)[:, None], index(ow, w)[None, :]]
+
+
+def masks_at_frame(protos: Tensor, coefs: Tensor, boxes_input_px: Tensor, valid: Tensor,
+                   input_hw: tuple[int, int], frame_hw: tuple[int, int]) -> Tensor:
+    """The reference's mask chain at frame resolution: :func:`masks_at_input`,
+    then cv2's INTER_NEAREST resize to the frame (:func:`resize_nearest_cv2`,
+    its float64 index map). Returns (..., N, frame_h, frame_w) float32 binary
+    masks."""
+    return resize_nearest_cv2(masks_at_input(protos, coefs, boxes_input_px, valid, input_hw),
+                              frame_hw)
 
 
 def mask_iou(a: Tensor, b: Tensor, eps: float = 1e-9) -> Tensor:

@@ -77,6 +77,22 @@ def normalize(frames: Tensor, dtype=torch.float32) -> Tensor:
     return frames.to(dtype) / torch.tensor(255.0, dtype=dtype)
 
 
+def letterbox(frames: Tensor, spec: LetterboxSpec, dtype=torch.float32) -> Tensor:
+    """(B, H, W, 3) float frames -> (B, dst_h, dst_w, 3): the bilinear resize
+    (no antialias prefilter, cv2.INTER_LINEAR) computed in ``dtype``, then the
+    centred pad with 114/255. ``F.interpolate`` clamps a sample position that
+    falls before the first pixel centre where ``jax.image.resize`` drops the
+    tap past the border and renormalises the other: for the triangle kernel
+    both read the edge pixel."""
+    x = F.interpolate(frames.to(dtype).permute(0, 3, 1, 2), size=(spec.new_h, spec.new_w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    pad_bottom = spec.dst_h - spec.new_h - spec.pad_top
+    pad_right = spec.dst_w - spec.new_w - spec.pad_left
+    return F.pad(x.permute(0, 2, 3, 1),
+                 (0, 0, spec.pad_left, pad_right, spec.pad_top, pad_bottom),
+                 value=PAD_VALUE / 255.0)
+
+
 def decimation_stride(spec: LetterboxSpec) -> int | None:
     """The stride k if the resize is an exact odd-integer decimation whose
     bilinear sample positions land on source pixel centers, else None."""
@@ -140,3 +156,19 @@ def scale_boxes_to_frame(boxes_xyxy: Tensor, spec: LetterboxSpec) -> Tensor:
         boxes_xyxy,
         lambda x: torch.clamp((x - spec.pad_left) / spec.scale, 0.0, spec.src_w),
         lambda y: torch.clamp((y - spec.pad_top) / spec.scale, 0.0, spec.src_h))
+
+
+def preprocess_frames(frames_bgr_u8: Tensor, target: int | tuple[int, int],
+                      dtype=torch.float32) -> tuple[Tensor, LetterboxSpec]:
+    """uint8 BGR (B, H, W, 3) -> normalized RGB letterboxed (B, T, T, 3) on the
+    square canvas (:func:`letterbox_spec`) through :func:`letterbox_u8`, and
+    the spec that maps detections back to the frame."""
+    spec = letterbox_spec(frames_bgr_u8.shape[1], frames_bgr_u8.shape[2], target)
+    return letterbox_u8(frames_bgr_u8, spec, dtype), spec
+
+
+def frame_points_to_input(points_xy: Tensor, spec: LetterboxSpec) -> Tensor:
+    """(..., 2) source-frame pixel coords -> letterboxed model-input coords,
+    ``p * scale + pad`` per axis with Python scalars (as :func:`map_xyxy`)."""
+    return torch.stack([points_xy[..., 0] * spec.scale + spec.pad_left,
+                        points_xy[..., 1] * spec.scale + spec.pad_top], -1)

@@ -105,28 +105,34 @@ class TwoPassWarp:
                 yo_hat = np.interp(ys, my[:, xo], yo_grid)
                 sxstar[:, xo] = np.interp(yo_hat, yo_grid, mx[:, xo])
 
-        w1 = np.zeros((hs, ws, wo), np.float32)
+        # The weights are laid out in float32 on the device (the dense
+        # matrices are mostly zeros, gigabytes at the deployed geometry:
+        # writing them there skips the host's pages and the copy). Every
+        # (row, tap, column) is written once (a point's two taps differ), so
+        # a plain indexed write is the reference's np.add.at sum.
+        on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        w1 = torch.zeros((hs, ws, wo), dtype=torch.float32, device=device)
         x0 = np.floor(sxstar).astype(np.int64)
         fx = (sxstar - x0).astype(np.float32)
         rows = np.broadcast_to(ys.astype(np.int64)[:, None], (hs, wo))
         cols = np.broadcast_to(np.arange(wo)[None, :], (hs, wo))
         for tap, wgt in ((x0, 1.0 - fx), (x0 + 1, fx)):
             ok = (tap >= 0) & (tap < ws) & col_live[None, :]
-            np.add.at(w1, (rows[ok], tap[ok], cols[ok]), wgt[ok])
+            w1[on_dev(rows[ok]), on_dev(tap[ok]), on_dev(cols[ok])] = on_dev(wgt[ok])
 
-        w2 = np.zeros((wo, ho, hs), np.float32)
+        w2 = torch.zeros((wo, ho, hs), dtype=torch.float32, device=device)
         y0 = np.floor(my).astype(np.int64)
         fy = (my - y0).astype(np.float32)
         vrows = np.broadcast_to(yo_grid.astype(np.int64)[:, None], (ho, wo))
         vcols = np.broadcast_to(np.arange(wo)[None, :], (ho, wo))
         for tap, wgt in ((y0, 1.0 - fy), (y0 + 1, fy)):
             ok = (tap >= 0) & (tap < hs) & ~sent
-            np.add.at(w2, (vcols[ok], vrows[ok], tap[ok]), wgt[ok])
+            w2[on_dev(vcols[ok]), on_dev(vrows[ok]), on_dev(tap[ok])] = on_dev(wgt[ok])
 
         self.col_expand = col_expand
         if col_expand is not None:
             k, off, full_w = col_expand
-            w1_full = np.zeros((hs, full_w, wo), np.float32)
+            w1_full = w1.new_zeros((hs, full_w, wo))
             w1_full[:, off:off + k * ws:k, :] = w1
             w1 = w1_full
 
@@ -134,13 +140,13 @@ class TwoPassWarp:
         if s2d_out:
             if dst_h % 2 or wo % 2:
                 raise ValueError("s2d_out requires even dst dims")
-            w2_full = np.zeros((wo, dst_h, hs), np.float32)
+            w2_full = w2.new_zeros((wo, dst_h, hs))
             w2_full[:, self.row_start:self.row_stop] = w2
             w2 = w2_full
         self.block = block
         self.pad_terms = split_exactly(self.pad_value, weight_dtype)
-        # Copied in float32, rounded to the weight type on the device.
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device).to(weight_dtype)
+        # Rounded from float32 to the weight type on the device.
+        to_type = lambda w: w.to(weight_dtype).contiguous()
         if block is not None:
             if s2d_out and block % 2:
                 raise ValueError("s2d_out blocked mode needs an even block")
@@ -149,16 +155,16 @@ class TwoPassWarp:
             self.w1_blocks = []  # (first source column, (hs, columns, block))
             for o0 in range(0, wo, block):
                 blk = w1[:, :, o0:o0 + block]
-                c0, c1 = _live_window(np.any(blk != 0.0, axis=(0, 2)))
-                self.w1_blocks.append((c0, to_dev(blk[:, c0:c1])))
+                c0, c1 = _live_window((blk != 0.0).any(2).any(0).cpu().numpy())
+                self.w1_blocks.append((c0, to_type(blk[:, c0:c1])))
             self.w2_blocks = []  # (first source row, weights + PAD_ROWS pad columns)
             for v0 in range(0, w2.shape[1], block):
                 blk = w2[:, v0:v0 + block, :]
-                y0, y1 = _live_window(np.any(blk != 0.0, axis=(0, 1)))
-                self.w2_blocks.append((y0, self._with_pad_terms(to_dev(blk[:, :, y0:y1]))))
+                y0, y1 = _live_window((blk != 0.0).any(1).any(0).cpu().numpy())
+                self.w2_blocks.append((y0, self._with_pad_terms(to_type(blk[:, :, y0:y1]))))
             return
-        self.w1 = to_dev(w1)
-        self.w2 = self._with_pad_terms(to_dev(w2))
+        self.w1 = to_type(w1)
+        self.w2 = self._with_pad_terms(to_type(w2))
         self.w1_window: torch.Tensor | None = None  # pass1_window()'s table, once asked for
 
     def pass1_window(self) -> torch.Tensor:
