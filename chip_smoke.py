@@ -68,7 +68,8 @@ result line:
    started together while this process only waits, then each waited for
    and held to its bar in turn, with its wall seconds (taken beside the
    others): ``tools/calibrate_int8_torch.py --synth 16`` for both
-   checkpoints (imgsz 960 and 640: the scales of phases 5c and 5g);
+   checkpoints (imgsz 960 and 640, scenes of ``tools/synth_textile_torch.py``:
+   the scales of phases 5c and 5g);
    ``python -m tti_torch.cli run --synthetic --max-frames 2`` three times,
    each from its own directory holding a .env and the calibration files:
    ``--skip-calibration`` (two measurement records), ``--cameras 4`` (eight
@@ -218,8 +219,8 @@ result line:
    exchanges and 2 gathers per rank and step; each run's wall seconds per
    rank (set-up, checks, timing);
 5g. the tools that time the card, each in a subprocess, the four side by
-   side (each run end to end checked; their times, taken beside the
-   others, are not measurements):
+   side and beside phase 5i's bench process (each run end to end checked;
+   their times, taken beside the others, are not measurements):
    ``python -m tti_torch.cli tune-device`` at the headline geometry
    (batches 1 and 32, 5 + 5 steps, the trials baseline, warp_blocked=64,
    approx_topk=1, maskstats=pallas2, quant=int8 and quant=int8s on phase
@@ -246,6 +247,18 @@ result line:
    envelopes, the edge mask, ``stitch_stats`` (centroids within rtol 1e-5),
    ``sample_envelope`` and ``nearest_edge_candidates`` (equal); the
    phase's wall time;
+5i. ``python -m tti_torch.cli bench`` (``bench_torch.py``, the port's
+   ``bench.py``) in a subprocess started with phase 5g's tools and beside
+   them, so its readings are checks, not measurements (``--bench-cli``:
+   the CLI run as ``-m`` runs it, the kernels' launch counts set to 0
+   before and read after) with
+   ``TTI_BENCH_CONFIGS=all`` and ``TTI_BENCH_ITERS=10`` at the default batch
+   of 128: exit 0; exactly two JSON lines on stdout, deploy first, with
+   ``bench.py``'s keys, the two committed checkpoints as weights and finite
+   positive values; the deploy, headline, dual and 4-stream lines on
+   standard error in order; kernel A once per deploy step, B and D once per
+   headline and 4-stream step and twice per dual step (:func:`bench_launches`);
+   its seconds from start to end;
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -338,14 +351,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# bench.py's deployment calibration (1280x960 sensor) and extrinsics.
-K_960 = np.array([[937.1384518987244, 0.0, 636.148901113533],
-                  [0.0, 884.022038878419, 422.3901781816556],
-                  [0.0, 0.0, 1.0]])
-DIST = np.array([0.07994929130530135, 0.04758675999900327, -0.04013555042332606,
-                 -0.005228657034776396, -0.1334157094005971])
-RVEC = np.array([-0.8631369244225452, -0.3919482615538663, -1.3591256137314185])
-TVEC = np.array([0.005016396186926285, 0.03590342712705542, 0.09382141278570659])
+# The bench's deployment calibration (1280x960 sensor), extrinsics, ROI and
+# configurations: bench_torch.py's, the one copy.
+from bench_torch import (  # noqa: E402
+    DEPLOY, DIST, HEADLINE, K_960, bench_calibration, bench_roi,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense bf16 tensor core; f32 FMA
@@ -1410,26 +1420,6 @@ def textile(frame_hw, n=8):
     return np.ascontiguousarray(np.tile(base, ((n + 7) // 8, 1, 1, 1))[:n])
 
 
-def bench_calibration(frame_hw):
-    """bench.py's calibration, its intrinsics scaled to the frame size."""
-    from tti_torch.calib.io import CalibrationData
-
-    h, w = frame_hw
-    K = K_960.copy()
-    K[0] *= w / 1280.0
-    K[1] *= h / 960.0
-    return CalibrationData(K=K, dist=DIST, rvec=RVEC, tvec=TVEC)
-
-
-def bench_roi(frame_hw):
-    """bench.py's ROI for the frame size."""
-    from tti_torch.core.config import RoiConfig
-
-    h, w = frame_hw
-    return RoiConfig(enabled=True, x_min=10, x_max=w - 10, y_min=min(300, h // 3),
-                     y_max=h - min(200, h // 5))
-
-
 def build_pipeline(torch, frame_hw, imgsz, ckpt, dtype="bfloat16", device="cuda", **kw):
     from tti_torch.core.config import MeasureConfig, ModelConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack
@@ -1840,9 +1830,9 @@ def check_dual(torch, ms, wp, head, got_head, frame_hw, imgsz, ckpt_b) -> dict:
 # Phase 5b: the step's opt-in modes
 # ---------------------------------------------------------------------------
 
-CONFIGS = {  # name: (frame_hw, imgsz, checkpoint), as phases 4-5 run them
-    "deploy": ((960, 1280), 960, "yolov8n_textile_cam.msgpack"),
-    "headline": ((1080, 1920), 640, "yolov8n_textile.msgpack"),
+CONFIGS = {  # name: (frame_hw, imgsz, checkpoint), as phases 4-5 and the bench run them
+    "deploy": (*DEPLOY, "yolov8n_textile_cam.msgpack"),
+    "headline": (*HEADLINE, "yolov8n_textile.msgpack"),
 }
 # Each mode where tti applies it: (name, configuration, pipeline arguments);
 # each is held to the default step of its configuration.
@@ -3987,6 +3977,118 @@ def check_entry_helpers(torch, ms, wp, head, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5i: ``python -m tti_torch.cli bench`` (bench_torch.py)
+# ---------------------------------------------------------------------------
+
+
+BENCH_ITERS = 10
+BENCH_DIR = os.path.join(HERE, "build", "bench_smoke")
+BENCH_ROW_KEYS = ["metric", "value", "unit", "vs_baseline", "weights", "p50_ms_unclamped",
+                  "sync_roundtrip_ms"]
+BENCH_METRICS = ("deploy_960p_imgsz960_s2_frames_per_sec_per_chip_e2e",
+                 "undistorted_1080p_frames_per_sec_per_chip_e2e")
+BENCH_ERR_LINES = ("deploy batch=", "headline batch=", "config4 dual-model: ",
+                   "config5 4-stream line host-fed: ")
+
+
+def bench_launches(iters: int) -> dict:
+    """Kernel launches of one ``TTI_BENCH_CONFIGS=all`` run at ``iters``:
+    each row's ``iters`` timed steps, a warm one and 1 + 10 at batch 1; the
+    dual step's iters + 1; the 4-stream line's 1 + 25 + 26. A once per
+    deploy step, B and D once per headline and 4-stream step and twice per
+    dual step."""
+    row, dual, streams = iters + 12, iters + 1, 52
+    return {"mask_stats_soft": row, "mask_stats_binary": row + 2 * dual + streams,
+            "greedy_keep": 2 * row + 2 * dual + streams}
+
+
+def bench_cli_main(out_path: str) -> int:
+    """Phase 5i's subprocess: ``python -m tti_torch.cli bench`` run in this
+    process (``runpy``, as ``-m`` runs it), every kernel's launch count set
+    to 0 before and written to ``out_path`` after. Its exit code."""
+    import runpy
+
+    from tti_torch.kernels import maskstats as ms
+    from tti_torch.kernels import warp_p1 as wp
+
+    reset_launch_counts(ms, wp)
+    sys.argv = ["tti_torch.cli", "bench"]
+    try:
+        runpy.run_module("tti_torch.cli", run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    with open(out_path, "w") as f:
+        json.dump(launch_counts(ms, wp), f)
+    return rc
+
+
+BENCH_LAUNCHES = os.path.join(BENCH_DIR, "launches.json")
+
+
+def start_bench():
+    """Phase 5i's process, started now (beside phase 5g's tools): the
+    process and its start time. It is killed at exit if still running."""
+    import atexit
+
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TTI_")}
+    env.update(TTI_BENCH_CONFIGS="all", TTI_BENCH_ITERS=str(BENCH_ITERS), PYTHONPATH=HERE)
+    proc = subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--bench-cli",
+                             BENCH_LAUNCHES], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    drain([proc])
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, time.perf_counter()
+
+
+def check_bench(card, started) -> dict:
+    """Phase 5i (see the module docstring): wait for :func:`start_bench`'s
+    process and hold what it printed and launched."""
+    proc, t0 = started
+    stdout, stderr = communicate(proc, timeout=300)
+    wall = seconds_to_end(proc, t0)
+    check(proc.returncode == 0, f"python -m tti_torch.cli bench exited {proc.returncode}:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    lines = [line for line in stdout.splitlines() if line.strip()]
+    check(len(lines) == 2, f"bench: {len(lines)} lines on stdout, want 2:\n{stdout[-3000:]}")
+    rows = [json.loads(line) for line in lines]
+    weights = [os.path.join(HERE, "checkpoints", c)
+               for c in ("yolov8n_textile_cam.msgpack", "yolov8n_textile.msgpack")]
+    for row, metric, ckpt in zip(rows, BENCH_METRICS, weights):
+        check(list(row) == BENCH_ROW_KEYS and row["metric"] == metric, f"bench row {row}")
+        check(row["weights"] == ckpt, f"bench: {metric} weighs {row['weights']}, want {ckpt}")
+        # The round trip of a finished step's sum may round to 0.00 ms.
+        check(all(np.isfinite(row[k]) and row[k] > 0
+                  for k in ("value", "vs_baseline", "p50_ms_unclamped"))
+              and np.isfinite(row["sync_roundtrip_ms"]) and row["sync_roundtrip_ms"] >= 0,
+              f"bench row {row}")
+        log(f"  {json.dumps(row)}")
+    err = stderr.splitlines()
+    found = []
+    for start in BENCH_ERR_LINES:
+        at = [i for i, line in enumerate(err) if line.startswith(start)]
+        check(len(at) == 1, f"bench: {len(at)} stderr lines start {start!r}:\n{stderr[-3000:]}")
+        found.append(at[0])
+        log(f"  {err[at[0]]}")
+    check(found == sorted(found), f"bench: stderr lines out of order: {found}")
+    dual_fps = float(err[found[2]].split()[2])
+    sync_fps, pipe_fps = (float(part.split()[0])
+                          for part in err[found[3]].split(": ", 1)[1].split(", ")[:2])
+    check(min(dual_fps, sync_fps, pipe_fps) > 0, "bench: a stderr line reads 0 frames/s")
+    with open(BENCH_LAUNCHES) as f:
+        launches = {k: v for k, v in json.load(f).items() if v}
+    want = bench_launches(BENCH_ITERS)
+    check(launches == want, f"bench launches {launches}, want {want}")
+    log(f"  launches in the bench process: {launches} (as counted for iters {BENCH_ITERS})")
+    log(f"bench (python -m tti_torch.cli bench, TTI_BENCH_CONFIGS=all, TTI_BENCH_ITERS="
+        f"{BENCH_ITERS}, batch 128): ended {wall:.1f} s after it started, beside phase 5g's "
+        f"tools (its readings are checks, not measurements) [{card}]")
+    return {"rows": rows, "dual_fps": dual_fps, "streams_fps": [sync_fps, pipe_fps],
+            "launches": launches, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: training
 # ---------------------------------------------------------------------------
 
@@ -5287,6 +5389,9 @@ def main() -> int:
                              "and nothing else (phase 5e starts them)")
     parser.add_argument("--gloo-coordinator", help="host:port of the gloo ranks' job")
     parser.add_argument("--gloo-out", help="where a gloo rank writes its outputs")
+    parser.add_argument("--bench-cli", metavar="PATH",
+                        help="run python -m tti_torch.cli bench in this process and write its "
+                             "kernel launch counts to PATH, and nothing else (phase 5i starts it)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -5297,6 +5402,8 @@ def main() -> int:
     sys.path.append(os.path.join(HERE, "tools"))
     if opts.gloo_rank is not None:
         return gloo_rank_main(torch, opts.gloo_rank, opts.gloo_coordinator, opts.gloo_out)
+    if opts.bench_cli is not None:
+        return bench_cli_main(opts.bench_cli)
     from tti_torch import native
     from tti_torch.kernels import build as kbuild
     from tti_torch.kernels import int8conv as ik
@@ -5438,9 +5545,11 @@ def main() -> int:
                       for tag, run in space["gloo_2"]["ranks"][0]["runs"].items()}
     phase_done("5f (space)")
 
-    # Phase 5g: tune-device and the card-timing tools, each in a subprocess.
+    # Phase 5g: tune-device and the card-timing tools, each in a subprocess,
+    # beside phase 5i's bench process.
     log("the tools that time the card (tune-device, profile_forward, profile_train, "
-        "host_overhead):")
+        "host_overhead; phase 5i's bench started beside them):")
+    bench_started = start_bench()
     tools = check_tools(card)
     phase_done("5g (tools)")
 
@@ -5448,6 +5557,12 @@ def main() -> int:
     log("__graft_entry__.py's forward chain (kernel D) and tti's public helpers on the card:")
     entry_helpers = check_entry_helpers(torch, ms, wp, head, card)
     phase_done("5h (entry chain, helpers)")
+
+    # Phase 5i: python -m tti_torch.cli bench, in the subprocess started in 5g.
+    log("python -m tti_torch.cli bench (bench_torch.py: bench.py's rows, the dual step and "
+        "four streams):")
+    bench_run = check_bench(card, bench_started)
+    phase_done("5i (bench)")
 
     # Phase 6: training.
     training = check_training(torch, ms, wp, card)
@@ -5609,13 +5724,15 @@ def main() -> int:
         k["mesh_launches"] = {tag: n.get(k["name"], 0) for tag, n in mesh_launches.items()}
         # Launches per rank and step of the space step (phase 5f, two ranks).
         k["space_launches"] = {tag: n.get(k["name"], 0) for tag, n in space_launches.items()}
+        # Launches in phase 5i's bench process (TTI_BENCH_CONFIGS=all).
+        k["bench_launches"] = bench_run["launches"].get(k["name"], 0)
     phase_done("9 (kernel timings)")
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (its limit: 1200 s)")
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
         "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
-        "space": space, "tools": tools, "entry_helpers": entry_helpers,
+        "space": space, "tools": tools, "entry_helpers": entry_helpers, "bench": bench_run,
         "side_by_side": side},
         "training": training, "application": application, "calibrate_measure": calibrated,
         "phase_s": phase_s}))

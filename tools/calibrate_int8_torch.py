@@ -14,7 +14,7 @@ file from either tool serves either package's ``int8s`` step. Each scale is
   TTI_QUANT=int8s TTI_QUANT_SCALES=build/int8_scales.json python -m tti_torch.cli run ...
 
 Input modes: ``--images`` <eval-format dataset dir> or ``--synth N`` (N
-``tools/synth_textile.make_scene`` scenes, numpy only, from ``--seed``).
+``tools/synth_textile_torch.make_scene`` scenes, numpy and OpenCV, from ``--seed``).
 ``--percentile`` below 100 clips outlier batches. Runs on the card unless
 ``--device cpu``.
 """
@@ -36,7 +36,7 @@ def calibration_frames(images: str, synth: int, imgsz: int, seed: int) -> np.nda
     """(N, imgsz, imgsz, 3) uint8 BGR frames: ``synth`` seeded scenes, or the
     dataset's images resized as the evaluation loads them."""
     if synth:
-        from tools.synth_textile import make_scene
+        from tools.synth_textile_torch import make_scene
 
         rng = np.random.default_rng(seed)
         return np.stack([make_scene(imgsz, rng)[0] for _ in range(synth)])

@@ -21,7 +21,9 @@
     tune-camera      exposure/brightness/contrast tuning [--set PROP=VALUE ...]
     tune-device      sweep the runtime switches on this card, write the winners as
                      .env lines (tools/tune_device_torch.py)
-    bench            not ported yet: refused, naming its ROADMAP item
+    bench            bench.py's two rows through the port (bench_torch.py): the deploy
+                     and headline steps' frames/s and batch-1 p50 on this card
+                     [TTI_BENCH_BATCH, TTI_BENCH_ITERS, TTI_BENCH_CONFIGS=all, ...]
 
 The flags are ``tti``'s, plus ``--device`` (default cuda; ``run``,
 ``check-model``, ``eval``, ``train``, ``export``, ``validate-reference``,
@@ -47,8 +49,9 @@ port's own artifact (:mod:`tti_torch.app.export`; ``--platforms`` defaults to
 ``train --host-aug`` trains on the reference's host recipe
 (:func:`tti_torch.train.data.batches`) and refuses ``--resume`` as ``tti``
 does. ``capture``, ``view`` and ``tune-camera`` are host OpenCV tools on the
-camera and touch no device. Refused, naming the reason or the ROADMAP item
-that ports them: ``bench`` and ``TTI_APPROX_TOPK=1``.
+camera and touch no device. ``bench`` runs :func:`bench_torch.main` (the
+port's ``bench.py``) on the card, with ``bench.py``'s ``TTI_BENCH_*`` knobs
+and the runtime switches. Refused, naming the reason: ``TTI_APPROX_TOPK=1``.
 Before every command, as ``tti`` does, the
 process joins the multi-host job of ``TTI_COORDINATOR`` (with
 ``TTI_NUM_PROCESSES`` and ``TTI_PROCESS_ID``;
@@ -498,9 +501,15 @@ def cmd_tune_camera(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    return _refuse("bench is not ported yet: the port's bench script (bench_torch.py, both "
-                   "configurations timed in repeated pairs) is ROADMAP Queue 1 item 1. "
-                   "python3 chip_smoke.py times the steps on the card meanwhile.")
+    """``bench.py``'s two rows through the port: :func:`bench_torch.main`
+    from the repository's root, on the card."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bench_torch
+
+    bench_torch.main()
+    return 0
 
 
 def cmd_tune_device(args) -> int:
@@ -837,7 +846,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="headless: apply values and exit (e.g. exposure=3.5)")
     p.set_defaults(func=cmd_tune_camera)
 
-    p = sub.add_parser("bench", help="run the throughput benchmark (not ported yet)")
+    p = sub.add_parser("bench", help="run the throughput benchmark (bench_torch.py)")
     p.set_defaults(func=cmd_bench)
 
     p = sub.add_parser("tune-device", help="auto-tune the env-gated perf variants on this "

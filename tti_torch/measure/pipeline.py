@@ -86,23 +86,28 @@ def init_measure_state(frame_buffer: int = 8, device: str | torch.device = "cuda
 
 # Mask grid <-> frame px. q is the ACTUAL proto stride (input / proto width):
 # NEAREST-upsampling by q maps a cell centroid c to q*c + (q-1)/2 input px.
+# The letterbox scale divides as tti's compiled step does: XLA turns a
+# division by a constant into a product with its reciprocal (and PyTorch's
+# CUDA division by a Python scalar does the same), so a true division here
+# would land an ulp away on the CPU, enough to flip the row split of
+# stitches whose heights sit on the midpoint of the two rows.
 
 
 def mask_center_to_frame(x_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_mask * q + (q - 1.0) / 2.0 - pad) / scale
+    return (x_mask * q + (q - 1.0) / 2.0 - pad) * (1.0 / scale)
 
 
 def mask_left_to_frame(x_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_mask * q - pad) / scale
+    return (x_mask * q - pad) * (1.0 / scale)
 
 
 def mask_right_to_frame(x_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_mask * q + (q - 1.0) - pad) / scale
+    return (x_mask * q + (q - 1.0) - pad) * (1.0 / scale)
 
 
 def mask_bottom_to_frame(y_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
     """Envelope rows are bottom-most pixels: block bottom row = q*e + q-1."""
-    return (y_mask * q + (q - 1.0) - pad) / scale
+    return (y_mask * q + (q - 1.0) - pad) * (1.0 / scale)
 
 
 def frame_x_to_mask_col(x_frame: Tensor, pad: float, scale: float, q: float) -> Tensor:
