@@ -102,7 +102,11 @@ result line:
    bytes bit-equal to the float resize it skips); the dual step (two
    checkpoints, one preprocess, kernel D twice) against each model's own
    pipeline; four 1080p streams through ``MultiStreamRunner`` (blocking and
-   pipelined);
+   pipelined); then the divisions by trace-time constants
+   (:func:`check_jit_division`: ``scale_boxes_to_frame`` at the deploy and
+   headline specs on 100,000 boxes, ``normalize`` of one headline batch in
+   float32 and bfloat16, ``undistort_points``) on the card bit-equal to the
+   CPU, with its wall seconds;
 5b. the step's opt-in modes at full width, each where ``tti`` applies it
    (:data:`MODES`: lazy decode, fused head and ``warp_block=64`` on both
    configurations, ``warp_col_expand`` on the headline, ``fold_bn=False``
@@ -258,7 +262,11 @@ result line:
    positive values; the deploy, headline, dual and 4-stream lines on
    standard error in order; kernel A once per deploy step, B and D once per
    headline and 4-stream step and twice per dual step (:func:`bench_launches`);
-   its seconds from start to end;
+   its seconds from start to end; then its two rows after the card line in
+   ``build/BENCH_torch_smoke.txt`` and ``tools/regen_docs_torch.py --root
+   build --readme build/README_smoke.md --tests 0`` on a copy of README:
+   the port's block must hold both rows' values and the card line (its
+   wall seconds);
 6. training (``tti_torch.train``, seeded synthetic scenes from
    ``tests/torch_scenes.py``): one float32 step at imgsz 64 on the card
    against the same step on the CPU; the deployed recipe r5s at full width
@@ -1856,6 +1864,44 @@ MODE_F32_BATCH = 8
 # equal in every mode, mm max 0.225 and median 0.0013 (fold_bn=False; every
 # other mode at most 8.8e-05).
 MODE_NVALID_SHARE, MODE_MM_MAX, MODE_MM_MEDIAN = 0.99, 0.25, 0.01
+
+
+def check_jit_division(torch) -> dict:
+    """Phases 4-5: the divisions by a constant fixed when ``tti`` traces its
+    step (``tti_torch.preprocess.letterbox.jit_divide``, the product with
+    the float32 reciprocal) on the card, bit-equal to the same inputs on the
+    CPU: ``scale_boxes_to_frame`` on 100,000 seeded boxes at the deploy and
+    headline specs, ``normalize`` of one headline batch of textile frames in
+    float32 and bfloat16, and ``undistort_points`` with the deployment
+    camera matrix on the card (zero distortion, as the undistorted step
+    measures). Its wall seconds."""
+    from tti_torch.calib.geometry import undistort_points
+    from tti_torch.preprocess import letterbox as lb
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    for label, ((h, w), imgsz) in (("deploy", DEPLOY), ("headline", HEADLINE)):
+        spec = lb.letterbox_spec(h, w, imgsz)
+        boxes = torch.from_numpy(rng.uniform(0, imgsz, (100_000, 4)).astype(np.float32))
+        got = lb.scale_boxes_to_frame(boxes.cuda(), spec).cpu()
+        check(torch.equal(got, lb.scale_boxes_to_frame(boxes, spec)),
+              f"scale_boxes_to_frame at the {label} spec: the card differs from the CPU")
+    frames = torch.from_numpy(textile(HEADLINE[0]))
+    for dtype in (torch.float32, torch.bfloat16):
+        got = lb.normalize(frames.cuda(), dtype).cpu()
+        check(got.dtype == dtype and torch.equal(got, lb.normalize(frames, dtype)),
+              f"normalize in {dtype}: the card differs from the CPU")
+    uv = torch.from_numpy(rng.uniform(0, [1280, 960], (100_000, 2)).astype(np.float32))
+    K = torch.from_numpy(K_960.astype(np.float32))
+    for iters in (0, 5):
+        got = undistort_points(uv.cuda(), K.cuda(), torch.zeros(5, device="cuda"), iters).cpu()
+        check(torch.equal(got, undistort_points(uv, K, torch.zeros(5), iters)),
+              f"undistort_points (iters {iters}): the card differs from the CPU")
+    wall = time.perf_counter() - t0
+    log(f"divisions by trace-time constants, card against CPU: scale_boxes_to_frame (deploy, "
+        f"headline; 100,000 boxes), normalize ({frames.shape[0]} headline frames, float32 and "
+        f"bfloat16), undistort_points (100,000 points): bit-equal ({wall:.1f} s wall)")
+    return {"wall_s": wall}
 
 
 def time_pair(torch, ref, pipe, frames, one, steps=4, p50_iters=8) -> dict:
@@ -4088,6 +4134,41 @@ def check_bench(card, started) -> dict:
             "launches": launches, "wall_s": wall}
 
 
+BENCH_RECORD = os.path.join(HERE, "build", "BENCH_torch_smoke.txt")
+
+
+def check_regen_docs(card, rows) -> dict:
+    """Phase 5i, after the bench: its two rows after the card line in
+    ``build/BENCH_torch_smoke.txt``, then ``tools/regen_docs_torch.py --root
+    build --readme build/README_smoke.md --tests 0`` on a copy of README;
+    the port's block must hold both rows' values and the card line. Its
+    wall seconds."""
+    import shutil
+
+    t0 = time.perf_counter()
+    with open(BENCH_RECORD, "w") as f:
+        f.write("\n".join([card, *(json.dumps(row) for row in rows)]) + "\n")
+    readme = os.path.join(HERE, "build", "README_smoke.md")
+    shutil.copy(os.path.join(HERE, "README.md"), readme)
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "tools", "regen_docs_torch.py"),
+                           "--root", os.path.join(HERE, "build"), "--readme", readme,
+                           "--tests", "0"], cwd=HERE, capture_output=True, text=True,
+                          timeout=120)
+    check(proc.returncode == 0, f"regen_docs_torch.py exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    with open(readme) as f:
+        block = f.read().split("<!-- AUTOGEN:PERF_TORCH -->", 1)[1].split(
+            "<!-- /AUTOGEN:PERF_TORCH -->", 1)[0]
+    for row in rows:
+        check(f"**{row['value']} frames/s per card**" in block,
+              f"README's port block lacks {row['metric']}'s value {row['value']}:\n{block}")
+    check(f"| {card} |" in block, f"README's port block lacks the card line {card!r}:\n{block}")
+    wall = time.perf_counter() - t0
+    log(f"  README's port block (tools/regen_docs_torch.py) from {BENCH_RECORD}: both rows' "
+        f"values and the card line ({wall:.1f} s wall)")
+    return {"wall_s": wall}
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: training
 # ---------------------------------------------------------------------------
@@ -5506,6 +5587,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     streams = check_streams(torch, head, head_hw)
     torch.cuda.empty_cache()
+    jit_division = check_jit_division(torch)
 
     phase_done("4-5 (the steps)")
 
@@ -5562,6 +5644,7 @@ def main() -> int:
     log("python -m tti_torch.cli bench (bench_torch.py: bench.py's rows, the dual step and "
         "four streams):")
     bench_run = check_bench(card, bench_started)
+    bench_run["readme"] = check_regen_docs(card, bench_run["rows"])
     phase_done("5i (bench)")
 
     # Phase 6: training.
@@ -5731,7 +5814,7 @@ def main() -> int:
     log(json.dumps({"card": card, "steps": {
         "deploy": dep_time, "headline": head_time, "headline_kernel_route": head_k_time,
         "kernel_route_vs_einsum": route, "packed": packed, "dual": dual, "streams": streams,
-        "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
+        "jit_division": jit_division, "modes": modes, "int8": int8, "frozen": frozen, "data_parallel": data_parallel,
         "space": space, "tools": tools, "entry_helpers": entry_helpers, "bench": bench_run,
         "side_by_side": side},
         "training": training, "application": application, "calibrate_measure": calibrated,

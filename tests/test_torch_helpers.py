@@ -38,6 +38,7 @@ Tolerances:
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -276,7 +277,8 @@ def test_preprocess_frames_matches_tti(switches, geometry, batch, monkeypatch):
     under ``TTI_LETTERBOX_DECIMATE=1``; its rows at batch <= 32 or under
     ``TTI_LETTERBOX_ROWSLICE=1``, never under ``=0``) where the port always
     takes the exact decimation (both switches ``NO_COUNTERPART``): the
-    values are the same."""
+    values are those of ``tti``'s jitted preprocess, whose division by 255
+    is XLA's product with the reciprocal."""
     for var in ("TTI_LETTERBOX_DECIMATE", "TTI_LETTERBOX_ROWSLICE"):
         monkeypatch.delenv(var, raising=False)
     for var, value in SWITCH_SETTINGS[switches].items():
@@ -284,7 +286,8 @@ def test_preprocess_frames_matches_tti(switches, geometry, batch, monkeypatch):
     (h, w), target = PREPROCESS[geometry]
     frames = np.random.default_rng(batch).integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
     got, spec = tlb.preprocess_frames(T(frames), target)
-    want, jspec = jlb.preprocess_frames(J(frames), target)
+    jspec = jlb.preprocess_frames(J(frames), target)[1]
+    want = jax.jit(lambda x: jlb.preprocess_frames(x, target)[0])(J(frames))
     assert spec == tlb.LetterboxSpec(**vars(jspec))
     assert got.shape == (batch, target, target, 3)
     if geometry == "decimate":

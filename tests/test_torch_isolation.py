@@ -7,9 +7,10 @@ used), and ``tools/measure_report_torch.py``, ``tools/calibrate_int8_torch.py``,
 ``tools/calibrate_offsets_torch.py``, ``tools/proto_ceiling_torch.py``,
 ``tools/space_cards_torch.py``, ``tools/tune_device_torch.py``,
 ``tools/host_overhead_torch.py``, ``tools/profile_forward_torch.py`` and
-``tools/profile_train_torch.py``, ``tools/synth_textile_torch.py`` and
-``bench_torch.py`` import neither tti nor the tools (or ``bench.py``) they
-stand beside; the bench builds its pipeline. ``tti``'s public helpers that
+``tools/profile_train_torch.py``, ``tools/synth_textile_torch.py``,
+``tools/regen_docs_torch.py`` and ``bench_torch.py`` import neither tti nor
+the tools (or ``bench.py``) they stand beside; the bench builds its
+pipeline and the README tool its block from no records. ``tti``'s public helpers that
 no step calls (the dense-mask measurement primitives, ``project_points``,
 ``local_mm_per_px``, ``masks_at_frame``, ``letterbox``,
 ``preprocess_frames``, ``frame_points_to_input``, ``InferenceError``,
@@ -60,7 +61,12 @@ import profile_forward_torch
 import profile_train_torch
 import warp_bands_torch
 import synth_textile_torch
+import regen_docs_torch
 import bench_torch
+import tempfile
+assert regen_docs_torch.build_block(tempfile.mkdtemp(), 5).endswith("Port tests: **5** collected "
+                                                                    "by `pytest --collect-only -q "
+                                                                    "tests/test_torch_*.py` on the CPU.")
 bench_pipe, used, _ = bench_torch._build_pipeline((96, 128), 64, None, bench_torch.deploy_arch,
                                                   dtype="float32", device="cpu")
 assert used == "random-init" and bench_torch.runtime_switches().quant == ""
@@ -70,7 +76,7 @@ for name in ("calibrate_offsets", "tools.calibrate_offsets", "proto_ceiling",
              "tools.proto_ceiling", "tune_device", "tools.tune_device", "host_overhead",
              "tools.host_overhead", "profile_forward", "tools.profile_forward",
              "profile_train", "tools.profile_train", "bench", "synth_textile",
-             "tools.synth_textile"):
+             "tools.synth_textile", "regen_docs", "tools.regen_docs"):
     assert name not in sys.modules, name
 assert "parity_report" not in sys.modules and "test_predict_parity" not in sys.modules
 import torch
@@ -184,7 +190,8 @@ def test_port_sources_name_no_forbidden_module():
                          r"|calibrate_offsets|tools\.proto_ceiling|proto_ceiling"
                          r"|tools\.tune_device|tune_device|tools\.host_overhead|host_overhead"
                          r"|tools\.profile_forward|profile_forward|tools\.profile_train"
-                         r"|profile_train|bench|tools\.synth_textile|synth_textile)\b", re.M)
+                         r"|profile_train|bench|tools\.synth_textile|synth_textile"
+                         r"|tools\.regen_docs|regen_docs)\b", re.M)
     sources = [p for ext in ("*.py", "*.cu", "*.cuh", "*.cpp") for p in PORT.rglob(ext)]
     sources += [REPO / "chip_smoke.py", REPO / "bench_torch.py",
                 REPO / "tests" / "torch_scenes.py", REPO / "tests" / "torch_synth.py",
@@ -204,7 +211,7 @@ def test_port_sources_name_no_forbidden_module():
                                   "proto_ceiling_torch.py", "tune_device_torch.py",
                                   "host_overhead_torch.py", "profile_forward_torch.py",
                                   "profile_train_torch.py", "bench_torch.py",
-                                  "synth_textile_torch.py"} <= names
+                                  "synth_textile_torch.py", "regen_docs_torch.py"} <= names
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in sources if pattern.search(p.read_text())}
     assert not offenders, offenders

@@ -132,7 +132,9 @@ def test_nms_chain_longer_than_a_block_matches_tti():
 
 def test_constants_without_host_copies_are_bit_equal():
     """Box scaling with per-axis Python scalars equals the list-built
-    constant tensors it replaced, bit for bit (NaN and inf included)."""
+    constant tensors it replaced, bit for bit (NaN and inf included); the
+    scale divides as ``tti``'s jitted step does, by the product with its
+    float32 reciprocal."""
     from tti_torch.preprocess import letterbox as tlb
 
     rng = np.random.default_rng(6)
@@ -143,7 +145,8 @@ def test_constants_without_host_copies_are_bit_equal():
                  tlb.letterbox_spec_rect(240, 320, 240)):
         shift = boxes.new_tensor([spec.pad_left, spec.pad_top, spec.pad_left, spec.pad_top])
         limit = boxes.new_tensor([spec.src_w, spec.src_h, spec.src_w, spec.src_h])
-        before = torch.minimum(torch.clamp((boxes - shift) / spec.scale, min=0.0), limit)
+        inv = float(np.float32(1.0) / np.float32(spec.scale))
+        before = torch.minimum(torch.clamp((boxes - shift) * inv, min=0.0), limit)
         assert same(tlb.scale_boxes_to_frame(boxes, spec), before)
     for sx, sy in ((480 / 960, 368 / 736), (160 / 640, 96 / 384), (80 / 320, 60 / 240)):
         before = boxes * boxes.new_tensor([sx, sy, sx, sy])

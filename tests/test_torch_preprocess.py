@@ -3,6 +3,7 @@ against tti on the same numpy inputs (float32 on both sides)."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,19 +48,22 @@ def test_letterbox_content_bilinear_075_matches_jax_resize():
 
 
 def test_letterbox_content_exact_decimation():
-    """x3 decimation: the strided slice equals tti's bit for bit, and equals
+    """x3 decimation: the strided slice equals tti's jitted one bit for bit
+    (its division by 255 is XLA's product with the reciprocal), and equals
     the bilinear resize of the same frames."""
     frames = np.random.default_rng(1).integers(0, 256, (2, 216, 384, 3), dtype=np.uint8)
     spec = tlb.make_letterbox_spec(216, 384, 128, "rect")
     jspec = jlb.make_letterbox_spec(216, 384, 128, "rect")
     assert tlb.decimation_stride(spec) == 3
     got = tlb.letterbox_content(torch.from_numpy(frames), spec, decimate=True).numpy()
-    ref = np.asarray(jlb.letterbox_content(jnp.asarray(frames), jspec, decimate=True))
+    ref = np.asarray(jax.jit(lambda x: jlb.letterbox_content(x, jspec, decimate=True))(
+        jnp.asarray(frames)))
     np.testing.assert_array_equal(got, ref)
     resized = tlb.letterbox_content(torch.from_numpy(frames), spec, decimate=False).numpy()
     np.testing.assert_allclose(resized, got, atol=1e-6)
     padded = tlb.letterbox_u8(torch.from_numpy(frames), spec).numpy()
-    np.testing.assert_array_equal(padded, np.asarray(jlb.letterbox_u8(jnp.asarray(frames), jspec)))
+    np.testing.assert_array_equal(
+        padded, np.asarray(jax.jit(lambda x: jlb.letterbox_u8(x, jspec))(jnp.asarray(frames))))
 
 
 def test_scale_boxes_to_frame():

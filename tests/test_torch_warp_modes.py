@@ -4,6 +4,7 @@
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,7 +108,8 @@ def test_blocked_mode_errors(geometry, ref_intrinsics):
 
 def test_u8_decimating_pack_matches_tti(geometry, monkeypatch):
     """The packed gather, which packs the decimated bytes at an exact
-    decimation, against tti's with ``TTI_REMAP_U8_DECIMATE=1``, and against
+    decimation, against tti's jitted one with ``TTI_REMAP_U8_DECIMATE=1``
+    (its division by 255 is XLA's product with the reciprocal), and against
     the float resize route it replaces: equal (the same words, the same
     blend)."""
     for var in ("TTI_REMAP_SKIP_PAD_ROWS", "TTI_REMAP_SWAR"):
@@ -118,8 +120,9 @@ def test_u8_decimating_pack_matches_tti(geometry, monkeypatch):
     remap = tremap.PackedRemap(small_map, src_hw, device="cpu")
     t = torch.from_numpy(frames)
     got = tremap.letterbox_then_undistort(t, spec, remap).numpy()
-    ref = np.asarray(jremap.letterbox_then_undistort(jnp.asarray(frames), jspec,
-                                                     jremap.PackedRemap(small_map, src_hw)))
+    ref_remap = jremap.PackedRemap(small_map, src_hw)
+    ref = np.asarray(jax.jit(lambda x: jremap.letterbox_then_undistort(x, jspec, ref_remap))(
+        jnp.asarray(frames)))
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(
         got, remap(tlb.letterbox_content(t, spec, torch.float32)).numpy())

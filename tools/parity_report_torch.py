@@ -36,6 +36,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+# The oracle and the scenes are test helpers, imported by module name from
+# tests/: a regular package named ``tests`` installed on the host would
+# shadow the repository's namespace package.
+sys.path.insert(1, str(ROOT / "tests"))
 
 import numpy as np  # noqa: E402
 
@@ -64,7 +68,7 @@ def textured_frame(h: int, w: int, seed: int) -> np.ndarray:
 def scene_frame(h: int, w: int, seed: int) -> np.ndarray:
     """A textile scene rendered at the frame's long side, centre-cropped to
     (h, w), BGR."""
-    from tests.torch_scenes import textile_scene
+    from torch_scenes import textile_scene
 
     rgb = textile_scene(max(h, w), np.random.default_rng(seed))[0]
     y0, x0 = (rgb.shape[0] - h) // 2, (rgb.shape[1] - w) // 2
@@ -85,7 +89,7 @@ def compare(predictor, tmodel, make_frame, frame_hw, n_frames: int, imgsz: int,
     """Oracle against the port on ``n_frames`` frames: greedy box matching
     (order may swap between near-equal scores), then box, score and mask IoU
     of each matched pair."""
-    from tests.torch_ref import ultralytics_predict
+    from torch_ref import ultralytics_predict
 
     stats = dict(frames=0, ref_dets=0, got_dets=0, matched=0, box_err=[], score_err=[],
                  ious=[], count_mismatch=0)
@@ -153,7 +157,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from tests.torch_ref import TorchYOLOv8Seg, make_detecting_model
+    from torch_ref import TorchYOLOv8Seg, make_detecting_model
     from tti_torch.app.predict import Predictor
     from tti_torch.core.config import ModelConfig
     from tti_torch.model.checkpoint import checkpoint_metadata, load_flax_msgpack

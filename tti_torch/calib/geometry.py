@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from tti_torch.preprocess.letterbox import jit_divide
+
 Tensor = torch.Tensor
 
 _DENOM_EPS = 1e-9  # degenerate-ray guard
@@ -61,8 +63,8 @@ def undistort_points(uv: Tensor, K: Tensor, dist: Tensor, iters: int = 5) -> Ten
     cv2.undistortPoints semantics (iters=5 reproduces cv2)."""
     k1, k2, p1, p2, k3 = dist[0], dist[1], dist[2], dist[3], dist[4]
     fx, fy, cx, cy, skew = K[0, 0], K[1, 1], K[0, 2], K[1, 2], K[0, 1]
-    v0 = (uv[..., 1] - cy) / fy
-    u0 = (uv[..., 0] - cx - skew * v0) / fx
+    v0 = jit_divide(uv[..., 1] - cy, fy)
+    u0 = jit_divide(uv[..., 0] - cx - skew * v0, fx)
     x, y = u0, v0
     for _ in range(iters):
         r2 = x * x + y * y
@@ -121,4 +123,4 @@ def local_mm_per_px(uv: Tensor, K, dist, R, t, probe_px: float = 10.0,
     uv2 = torch.stack([uv[..., 0] + probe_px, uv[..., 1]], -1)
     w1, v1 = pixels_to_plane_mm(uv, K, dist, R, t, iters=iters)
     w2, v2 = pixels_to_plane_mm(uv2, K, dist, R, t, iters=iters)
-    return torch.linalg.vector_norm(w1 - w2, dim=-1) / probe_px, v1 & v2
+    return jit_divide(torch.linalg.vector_norm(w1 - w2, dim=-1), probe_px), v1 & v2

@@ -15,7 +15,9 @@
 //   y = float(acc) * (xscale[b] * wscale[c]) + bias[c] in float32, rounded
 //       to the output dtype, then SiLU, written channels_last.
 // Kernel F is tti's quantize_act_per_sample scale (tti/model/layers.py:26-38):
-// per sample, max |x| over (H, W, C), then max(absmax, 1e-12) / 127.
+// per sample, max |x| over (H, W, C), then max(absmax, 1e-12) / 127, which
+// tti's jitted step computes as XLA rewrites a division by a constant: the
+// product with float32(1/127) (kRcp127), one rounding.
 //
 // Numerics, bit for bit those of the plain version (tti_torch/kernels/
 // int8conv.py): the quotient x / s is an IEEE division (__fdiv_rn; nvcc
@@ -136,6 +138,7 @@
 namespace {
 
 constexpr int kFThreads = 256;  // F
+constexpr float kRcp127 = 0x1.020408p-7f;  // float32(1 / 127.0f), F's scale
 
 // Storage types: bf16 travels as its 16-bit pattern.
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -941,7 +944,7 @@ __global__ void __launch_bounds__(kFThreads) act_absmax_kernel(
       const volatile float* part = partial + b * splits;
       float top = 0.0f;
       for (int i = 0; i < splits; ++i) top = fmaxf(top, part[i]);
-      scale[b] = __fdiv_rn(fmaxf(top, 1e-12f), 127.0f);
+      scale[b] = __fmul_rn(fmaxf(top, 1e-12f), kRcp127);
     }
   }
 }

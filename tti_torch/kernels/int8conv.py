@@ -10,7 +10,8 @@ int8 x int8 -> int32 convolution with the packed weights, then ``acc *
 (xscale * wscale) + bias`` in float32, rounded to the input's dtype, then
 SiLU in ``tti``'s form, ``y * sigmoid(y)`` (:func:`silu_plain`).
 :func:`act_scale_per_sample` (kernel F) is ``tti``'s
-``quantize_act_per_sample`` scale: ``max(absmax, 1e-12) / 127`` per sample.
+``quantize_act_per_sample`` scale: ``max(absmax, 1e-12) / 127`` per sample,
+as its jitted step computes it (the product with float32(1/127)).
 
 Tensors are NCHW-indexed (the port's modules), any strides: a channel slice
 of a channels_last tensor is read in place. The output is channels_last.
@@ -92,13 +93,18 @@ def _out_hw(h: int, w: int, k: int, stride: int, pad: int) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+# float32(1 / 127): F divides by 127 as tti's jitted step does, by the
+# product with the float32 reciprocal (tti_torch.preprocess.letterbox.
+# jit_divide; the kernels import no other package of the port, and the
+# kernel holds the same constant, kRcp127).
+RCP_127 = float.fromhex("0x1.020408p-7")
+
+
 def act_scale_per_sample_plain(x: Tensor) -> Tensor:
-    """(B, C, H, W) -> (B,) float32 ``max(max |x|, 1e-12) / 127``. The
-    divisor is a tensor: PyTorch's CUDA division by a Python scalar
-    multiplies by its reciprocal, which rounds differently from IEEE
-    division (the reference's and the kernel's)."""
+    """(B, C, H, W) -> (B,) float32 ``max(max |x|, 1e-12) / 127`` as
+    ``tti``'s jitted step computes it: the product with :data:`RCP_127`."""
     absmax = torch.clamp(x.float().abs().amax(dim=(1, 2, 3)), min=1e-12)
-    return absmax / torch.full_like(absmax, 127.0)
+    return absmax * RCP_127
 
 
 def silu_plain(y: Tensor) -> Tensor:

@@ -20,7 +20,8 @@ from tti_torch.kernels.maskstats import mask_stats_binary, mask_stats_soft, subc
 from tti_torch.measure.ops import kmeans_1d_two_clusters, masked_mean, masked_median
 from tti_torch.postprocess.decode import Detections
 from tti_torch.postprocess.nms import stable_topk
-from tti_torch.preprocess.letterbox import LetterboxSpec, map_xyxy, scale_boxes_to_frame
+from tti_torch.preprocess.letterbox import (LetterboxSpec, jit_divide, map_xyxy,
+                                            scale_boxes_to_frame)
 
 Tensor = torch.Tensor
 
@@ -86,32 +87,32 @@ def init_measure_state(frame_buffer: int = 8, device: str | torch.device = "cuda
 
 # Mask grid <-> frame px. q is the ACTUAL proto stride (input / proto width):
 # NEAREST-upsampling by q maps a cell centroid c to q*c + (q-1)/2 input px.
-# The letterbox scale divides as tti's compiled step does: XLA turns a
-# division by a constant into a product with its reciprocal (and PyTorch's
-# CUDA division by a Python scalar does the same), so a true division here
-# would land an ulp away on the CPU, enough to flip the row split of
-# stitches whose heights sit on the midpoint of the two rows.
+# The letterbox scale and q divide as tti's compiled step does
+# (preprocess.letterbox.jit_divide): a true division would land an ulp away
+# on the CPU, enough to flip the row split of stitches whose heights sit on
+# the midpoint of the two rows. The constant terms are summed first, as XLA
+# folds (a + c1) - c2 into a + (c1 - c2).
 
 
 def mask_center_to_frame(x_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_mask * q + (q - 1.0) / 2.0 - pad) * (1.0 / scale)
+    return jit_divide(x_mask * q + ((q - 1.0) / 2.0 - pad), scale)
 
 
 def mask_left_to_frame(x_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_mask * q - pad) * (1.0 / scale)
+    return jit_divide(x_mask * q - pad, scale)
 
 
 def mask_right_to_frame(x_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_mask * q + (q - 1.0) - pad) * (1.0 / scale)
+    return jit_divide(x_mask * q + ((q - 1.0) - pad), scale)
 
 
 def mask_bottom_to_frame(y_mask: Tensor, pad: float, scale: float, q: float) -> Tensor:
     """Envelope rows are bottom-most pixels: block bottom row = q*e + q-1."""
-    return (y_mask * q + (q - 1.0) - pad) * (1.0 / scale)
+    return jit_divide(y_mask * q + ((q - 1.0) - pad), scale)
 
 
 def frame_x_to_mask_col(x_frame: Tensor, pad: float, scale: float, q: float) -> Tensor:
-    return (x_frame * scale + pad) / q
+    return jit_divide(x_frame * scale + pad, q)
 
 
 def roi_center_gate(boxes_frame: Tensor, roi_bounds: tuple[float, float, float, float] | None

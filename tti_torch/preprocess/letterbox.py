@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,14 +68,35 @@ def make_letterbox_spec(src_h: int, src_w: int, target: int | tuple[int, int],
     raise ValueError(f"letterbox mode must be 'square' or 'rect', got {mode!r}")
 
 
+def jit_divide(x: Tensor, c) -> Tensor:
+    """``x / c`` for a divisor fixed when ``tti`` traces its step (a Python
+    number, or a float32 tensor the step closes over, such as the camera
+    matrix's focal lengths), computed as that jitted step computes it.
+
+    XLA rewrites a division by a constant into a product with its reciprocal,
+    and PyTorch's CUDA division by a Python scalar does the same: ``1 / c``
+    taken in float32 from the float32 ``c``, rounded once, then multiplied.
+    A true division rounds otherwise in up to a third of the values (an ulp),
+    enough to move a box centre across an ROI bound; a reciprocal taken in
+    float64 and rounded afterwards can land an ulp from the float32 one. The
+    product here is the same on every device, so the CPU route runs the
+    card's arithmetic and ``tti``'s. A divisor computed at run time is a
+    true division in both packages and does not come here."""
+    if isinstance(c, Tensor):
+        return x * torch.reciprocal(c)
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
 def bgr_to_rgb(frames: Tensor) -> Tensor:
     """(..., 3) channel flip."""
     return frames.flip(-1)
 
 
 def normalize(frames: Tensor, dtype=torch.float32) -> Tensor:
-    """uint8 [0,255] -> float [0,1] (divides in ``dtype``, as the reference)."""
-    return frames.to(dtype) / torch.tensor(255.0, dtype=dtype)
+    """uint8 [0,255] -> float [0,1] in ``dtype``: the product with
+    float32(1/255) (:func:`jit_divide`), which equals ``tti``'s jitted
+    division in float32 and bfloat16 alike."""
+    return jit_divide(frames.to(dtype), 255.0)
 
 
 def letterbox(frames: Tensor, spec: LetterboxSpec, dtype=torch.float32) -> Tensor:
@@ -154,8 +176,8 @@ def scale_boxes_to_frame(boxes_xyxy: Tensor, spec: LetterboxSpec) -> Tensor:
     """xyxy boxes in letterboxed model-input px -> source-frame px, clipped."""
     return map_xyxy(
         boxes_xyxy,
-        lambda x: torch.clamp((x - spec.pad_left) / spec.scale, 0.0, spec.src_w),
-        lambda y: torch.clamp((y - spec.pad_top) / spec.scale, 0.0, spec.src_h))
+        lambda x: torch.clamp(jit_divide(x - spec.pad_left, spec.scale), 0.0, spec.src_w),
+        lambda y: torch.clamp(jit_divide(y - spec.pad_top, spec.scale), 0.0, spec.src_h))
 
 
 def preprocess_frames(frames_bgr_u8: Tensor, target: int | tuple[int, int],

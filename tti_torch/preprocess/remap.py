@@ -109,7 +109,7 @@ def undistort_letterbox_frames(frames_bgr_u8: Tensor, map_xy: Tensor | np.ndarra
     """uint8 BGR frames -> normalized RGB undistorted letterboxed frames in
     one remap pass over the full-resolution operand (``map_xy`` from
     :func:`build_undistort_letterbox_map`)."""
-    return remap_bilinear(frames_bgr_u8.flip(-1).to(dtype) / 255.0, map_xy)
+    return remap_bilinear(normalize(frames_bgr_u8.flip(-1), dtype), map_xy)
 
 
 class PackedRemap:
@@ -220,7 +220,7 @@ class PackedRemap:
             words = lerp(lerp(take(0), take(1), self.wx8), lerp(take(2), take(3), self.wx8),
                          self.wy8)
         v = words.reshape(b, *self.live_hw)
-        live = torch.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF], dim=-1).to(out_dtype) / 255.0
+        live = normalize(torch.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF], dim=-1), out_dtype)
         return torch.nn.functional.pad(
             live, (0, 0, 0, 0, self.row_start, self.dst_hw[0] - self.row_stop),
             value=self.pad_value)
