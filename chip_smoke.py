@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/H100 port (``tti_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--first-design PATH] [--first-design-int8 PATH]
-                          [--first-design-warp PATH] [--first-design-nms PATH] [--ablate]
+                          [--first-design-warp PATH] [--first-design-nms PATH]
+                          [--first-design-scale PATH] [--ablate]
 
 ``--first-design`` names a copy of the first design of ``maskstats.cu`` (the
 file as the commit that added the port's measurement path had it); it is
@@ -20,7 +21,12 @@ first). ``--first-design-nms`` names a copy of kernel D's first design
 (``git show d4bb171:tti_torch/kernels/csrc/nms.cu``): phase 3 holds it
 bit-equal to D on the deploy and headline steps' candidates at batch 128
 and 1, and phase 9 times it beside D on every input D is timed on (first,
-D, D, first). Nothing else uses them. ``--ablate`` runs phases 1-2
+D, D, first). ``--first-design-scale`` names a copy of kernel F's first
+design (``git show b58ffc1:tti_torch/kernels/csrc/int8conv.cu``): phase 5c
+holds it bit-equal to F on every distinct input of the deploy int8 forward
+at batch 128 and times it beside F there (first, F, F, first) and, bound in
+F's place, on the whole deploy int8 step (F, then it, then F again). Nothing
+else uses them. ``--ablate`` runs phases 1-2
 and then only :func:`ablate`: variants of ``maskstats.cu`` that leave one
 part of the design out or tune it otherwise, timed on synthetic inputs
 shaped like the steps' (what each part costs or buys).
@@ -127,7 +133,11 @@ result line:
    tile, batch 1 at the smallest deploy block, co 128 and 256, two TMA
    boxes, NCHW inputs, a walk across 33 samples with scales 1e-3 to 1e3
    apart, C2f slices at channels 16, 32, 64 and 128): F bit-equal, E bit-equal before SiLU and
-   within 1 ulp after, every call launched twice with equal outputs. Then
+   within 1 ulp after, every call launched twice with equal outputs; F
+   alone on the layouts its routes split (``int8conv.scale_plan``: spans
+   starting off their 16-byte boundary, 8- and 4-byte vectors, C = 12
+   slices, single elements, float32 and bf16, NaN, -inf and zero samples,
+   batch 1 at the largest deploy input) and on two CUDA streams at once. Then
    the deploy and headline steps under ``quant="int8"`` and ``"int8s"`` at
    batch 128: E 66 launches per step, F 66 (int8) or 0 (int8s), A or B and
    D once; no synchronising call at batch 128 and 1; equal to the same step
@@ -143,7 +153,10 @@ result line:
    turns with the bf16 step; the mm report's first 16 scenes through the deploy int8 and int8s steps
    under phase 8's gate; E's time on the deploy step's largest blocks
    beside its bound, cuDNN's bf16 convolution and (1x1) ``torch._int_mm``,
-   F's beside its bound; E on every one of the 66 block inputs of the
+   F's beside its bound; F on every distinct input of the deploy int8
+   forward at batch 128 (its route, time in two turns, byte bound,
+   ``torch.linalg.vector_norm(inf)``'s time) and the sums over the 66
+   inputs beside the profiler's F per step; E on every one of the 66 block inputs of the
    deploy int8 forward at batch 128, a table sorted by ms - bound ms and
    the sums, E's time per step against its bound per step (the headline's
    bound per step too); the contract exactly (every detection at IoU >
@@ -2224,11 +2237,87 @@ def check_int8_kernels(torch, ik) -> dict:
         base[:, :c] = 1e4
         qp, ws, b = weights(c, 3, c)
         check_int8_call(torch, ik, f"C2f slice at channel {c}", base[:, c:], qp, ws, b, 3, 1, 1)
+    out["scale_routes"] = check_scale_layouts(torch, ik, g)
     torch.cuda.synchronize()
     log(f"  kernels E and F against their plain versions on {INT8_TALLY['calls']} synthetic "
         f"calls: F bit-equal, E bit-equal before SiLU, SiLU within "
         f"{INT8_TALLY['max_ulp']} ulp; largest accumulator {out['largest_accumulator']:.0f}")
     return out
+
+
+def check_scale(torch, ik, label, x) -> None:
+    """Kernel F alone against its plain version, launched twice: bit-equal
+    (a NaN sample's scale NaN in both)."""
+    got = [ik.act_scale_per_sample(x) for _ in range(2)]
+    plain = ik.act_scale_per_sample_plain(x)
+    same = lambda a, b: torch.allclose(a, b, rtol=0, atol=0, equal_nan=True)
+    check(same(got[0], got[1]), f"{label}: two launches of F differ")
+    check(same(got[0], plain), f"{label}: F differs from its plain version (max |diff| "
+          f"{float((got[0] - plain).abs().max())})")
+    INT8_TALLY["f_calls"] += 1
+    INT8_TALLY["f_values"] += plain.numel()
+
+
+def check_scale_layouts(torch, ik, g) -> dict:
+    """Kernel F on the layouts its routes split (int8conv.scale_plan): dense
+    samples starting at each of 8 elements past a 16-byte boundary and at
+    odd sample strides (the span's head and tail), 8- and 4-byte vectors
+    (slices off alignment), C = 12 slices, an NCHW slice (a dense span) and
+    every other column (single elements), bf16 and float32; a NaN, an
+    infinity and an all-zero sample; batch 1 at the largest deploy input
+    (8 blocks in one cluster); then two CUDA streams running F at once on
+    different inputs, each bit-equal to its plain version. Returns the
+    (route, vector, cluster) of each labelled layout."""
+    cl = torch.channels_last
+    rnd = lambda shape, dtype: (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+    routes = {}
+
+    def one(label, x):
+        check_scale(torch, ik, label, x)
+        pl = ik.scale_plan(tuple(x.shape), x.stride(), x.element_size(), x.data_ptr(),
+                           ik._sm_count(x.device))
+        routes[label] = (pl.route, pl.vec, pl.cluster)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "float32"
+        for off in range(8):
+            buf = rnd(3 * 12 * 7 * 9 + 8, dtype)
+            one(f"{tag} span at element {off}",
+                torch.as_strided(buf, (3, 12, 7, 9), (756, 1, 108, 12), off))
+        one(f"{tag} stem, odd sample stride", rnd((5, 12, 37, 49), dtype).contiguous(
+            memory_format=cl))
+        for nbytes in (8, 4):
+            lo = nbytes // torch.tensor([], dtype=dtype).element_size()
+            one(f"{tag} slice {nbytes} bytes off", rnd((4, 24, 20, 24), dtype).contiguous(
+                memory_format=cl)[:, lo:lo + 16])
+        one(f"{tag} C = 12 of 24", rnd((3, 24, 21, 19), dtype).contiguous(
+            memory_format=cl)[:, 12:])
+        one(f"{tag} NCHW slice", rnd((2, 32, 20, 24), dtype)[:, 3:19])
+        one(f"{tag} every other column", rnd((2, 16, 20, 24), dtype)[..., ::2])
+        special = rnd((3, 16, 8, 8), dtype)
+        special[0] = 0.0
+        special[1, 3, 2, 2] = float("nan")
+        special[2, 5, 1, 1] = float("-inf")
+        one(f"{tag} zero, NaN and -inf samples", special)
+    one("batch 1, 64 x 184 x 240", rnd((1, 64, 184, 240), torch.bfloat16).contiguous(
+        memory_format=cl))
+    xa = rnd((128, 64, 92, 120), torch.bfloat16).contiguous(memory_format=cl)
+    xb = rnd((128, 64, 46, 60), torch.bfloat16).contiguous(memory_format=cl)[:, 32:]
+    want = [ik.act_scale_per_sample_plain(xa), ik.act_scale_per_sample_plain(xb)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(10):
+        got = []
+        for st, x in zip(streams, (xa, xb)):
+            with torch.cuda.stream(st):
+                got.append(ik.act_scale_per_sample(x))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "F on two streams at once differs from its plain version")
+    log(f"  F alone on {len(routes)} layouts (route, vector, blocks per sample): "
+        + "; ".join(f"{k} {v}" for k, v in routes.items())
+        + "; two streams at once, 10 times: bit-equal")
+    return routes
 
 
 def check_int8_layers(torch, ik, pipe, frames, label) -> int:
@@ -2481,12 +2570,22 @@ def time_int8_layers(torch, ik, pipe, frames, flush, n_largest=4) -> dict:
     return {"layers": rows, "row": next(t for t in rows if t["block"] == row_block), "f": f}
 
 
+def first_vec_width(x, c: int) -> int:
+    """Elements per load in the first designs of kernels E and F (their
+    wrappers'): 8, 4 or 1, as channels, strides and alignment allow."""
+    if x.stride(1) != 1:
+        return 1
+    for v in (8, 4):
+        if (c % v == 0 and x.data_ptr() % (v * x.element_size()) == 0
+                and all(s % v == 0 for s in (x.stride(0), x.stride(2), x.stride(3)))):
+            return v
+    return 1
+
+
 def _first_int8_route(x, c, k, stride, bn):
     """The first design's choice of route (its wrapper's): the halo
     route's bytes per window pixel, or 0 for the direct route."""
-    from tti_torch.kernels import int8conv as ik
-
-    load_bytes = ik._vec_width(x, c) * x.element_size()
+    load_bytes = first_vec_width(x, c) * x.element_size()
     cp = (c if c % 32 == 16 else c + 16) if stride == 1 else c + 8
     hh, hw = 7 * stride + k, 15 * stride + k
     smem = (hh * hw * cp + 15) // 16 * 16 + 2 * bn * 48
@@ -2524,7 +2623,7 @@ def load_first_int8(torch, path):
             x.data_ptr(), *x.stride(), b, c, h, w, qpacked.data_ptr(), kp, co, k, stride, pad,
             wscale.data_ptr(), bias.data_ptr(), xscale.data_ptr(), int(xscale.dim() == 1),
             y.data_ptr(), ho, wo, int(act), int(x.dtype == torch.bfloat16),
-            ik._vec_width(x, c), bn, _first_int8_route(x, c, k, stride, bn),
+            first_vec_width(x, c), bn, _first_int8_route(x, c, k, stride, bn),
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"first design of kernel E: cudaError {err}")
         return y
@@ -2532,17 +2631,106 @@ def load_first_int8(torch, path):
     return call
 
 
+def load_first_scale(torch, path):
+    """Build kernel F's first design (the ``int8conv.cu`` of commit b58ffc1,
+    from ``path``) into its own library and return ``call(x)``, which
+    launches it as its own wrapper did: a (splits, B) grid, a ticket per
+    sample zeroed by a memset before the launch (not counted)."""
+    import ctypes
+
+    from tti_torch.kernels import build as kbuild
+
+    out = kbuild.BUILD_DIR / "libtti_int8conv_first_scale.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out), path], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tti_act_scale_per_sample.argtypes = [p, ll, ll, ll, ll, i, i, i, i, i, i, i, i, p, p, p]
+    lib.tti_act_scale_per_sample.restype = i
+
+    def call(x):
+        b, c, h, w = x.shape
+        vec = first_vec_width(x, c)
+        cpp = c // vec
+        fast = int(x.stride(2) == w * x.stride(3) and 256 % cpp == 0)
+        splits = max(1, min(-(-2 * 132 // b), h * w * cpp // 1024))
+        buf = torch.empty(b + b * splits + b, dtype=torch.float32, device=x.device)
+        err = lib.tti_act_scale_per_sample(
+            x.data_ptr(), *x.stride(), b, c, h, w, int(x.dtype == torch.bfloat16), vec, splits,
+            fast, buf[:b].data_ptr(), buf[b:].data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"first design of kernel F: cudaError {err}")
+        return buf[:b]
+
+    return call
+
+
+def time_scale_inputs(torch, ik, blocks, flush, profiler_ms, first=None) -> dict:
+    """Kernel F on every distinct input layout of one forward (``blocks``:
+    (name, block, input)), CUDA events, L2 flushed: its route, time in two
+    turns, its byte bound and ``torch.linalg.vector_norm(inf)``'s time (the
+    absmax alone); with ``first``, F's first design on the same input, held
+    equal to F and timed in turns (first, F, F, first). Prints the table and
+    the sums over every input of the forward (each layout as often as the
+    forward takes it) beside ``profiler_ms``, the profiler's F per step."""
+    rows = {}
+    with torch.inference_mode():
+        for name, _, x in blocks:
+            key = (tuple(x.shape), x.stride(), x.data_ptr() % 16, x.dtype)
+            if key in rows:
+                rows[key]["inputs"] += 1
+                continue
+            pl = ik.scale_plan(tuple(x.shape), x.stride(), x.element_size(), x.data_ptr(),
+                               ik._sm_count(x.device))
+            nbytes = x.numel() * x.element_size() + 4 * x.shape[0]
+            t = {"block": name, "shape": list(x.shape), "strides": list(x.stride()), "inputs": 1,
+                 "route": "span" if pl.route == ik.SCALE_SPAN else "grid", "vec": pl.vec,
+                 "cluster": pl.cluster, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes"}
+            f = lambda: ik.act_scale_per_sample(x)
+            if first is not None:
+                check(torch.equal(first(x), f()), f"{name}: F's first design disagrees with F")
+                t["first_design_ms"] = [time_ms(torch, lambda: first(x), flush=flush)]
+            t["ms"] = [time_ms(torch, f, flush=flush), time_ms(torch, f, flush=flush)]
+            if first is not None:
+                t["first_design_ms"].append(time_ms(torch, lambda: first(x), flush=flush))
+            t["absmax_norm_ms"] = time_ms(torch, lambda: torch.linalg.vector_norm(
+                x, float("inf"), dim=(1, 2, 3)), flush=flush)
+            rows[key] = t
+    rows = list(rows.values())
+    mean = lambda v: sum(v) / len(v)
+    sums = {k: sum(t["inputs"] * (mean(t[k]) if isinstance(t[k], list) else t[k]) for t in rows)
+            for k in ("ms", "bound_ms", "absmax_norm_ms", "first_design_ms") if k in rows[0]}
+    sums["inputs"] = sum(t["inputs"] for t in rows)
+    log(f"  F on each of the {len(rows)} distinct inputs of one forward ({sums['inputs']} "
+        f"inputs; ms in two turns, bound ms, x bound, vector_norm(inf) ms"
+        + (", first design ms before and after" if first else "") + "):")
+    for t in rows:
+        log(f"    {t['block']:14s} x{t['inputs']} {str(tuple(t['shape'])):22s} {t['route']:4s} "
+            f"v{t['vec']} cl{t['cluster']}: {t['ms'][0]:.4f} {t['ms'][1]:.4f} "
+            f"{t['bound_ms']:.4f} {mean(t['ms']) / t['bound_ms']:5.2f}x "
+            f"{t['absmax_norm_ms']:.4f}"
+            + (" | {:.4f} {:.4f}".format(*t["first_design_ms"]) if first else ""))
+    log(f"  F per step (sum over the {sums['inputs']} inputs): {sums['ms']:.4f} ms against its "
+        f"bound {sums['bound_ms']:.4f} ms ({sums['ms'] / sums['bound_ms']:.2f}x), the "
+        f"profiler's {profiler_ms:.4f} ms; "
+        f"vector_norm(inf) {sums['absmax_norm_ms']:.4f} ms"
+        + (f"; the first design {sums['first_design_ms']:.4f} ms" if first else ""))
+    return {"inputs": rows, **{f"per_step_{k}": v for k, v in sums.items()}}
+
+
 @contextlib.contextmanager
-def int8_conv_bound(call):
-    """The model's ``Conv`` blocks call ``call`` in kernel E's place."""
+def bound_in_layers(name: str, call):
+    """The model's ``Conv`` blocks call ``call`` in the place of kernel E
+    (``name`` "int8_conv2d") or F ("act_scale_per_sample")."""
     import tti_torch.model.layers as layers
 
-    saved = layers.int8_conv2d
-    layers.int8_conv2d = call
+    saved = getattr(layers, name)
+    setattr(layers, name, call)
     try:
         yield
     finally:
-        layers.int8_conv2d = saved
+        setattr(layers, name, saved)
 
 
 def time_int8_blocks(torch, ik, blocks, flush, first=None) -> dict:
@@ -2606,9 +2794,10 @@ INT8_DIR = os.path.join(HERE, "build", "int8_smoke")
 INT8_SCALES = {c: os.path.join(INT8_DIR, f"scales_{c}.json") for c in CONFIGS}
 
 
-def check_int8(torch, ms, wp, ik, flush, first_int8=None) -> dict:
+def check_int8(torch, ms, wp, ik, flush, first_int8=None, first_scale=None) -> dict:
     """Phase 5c (see the module docstring). ``first_int8``: kernel E's
-    first design (:func:`load_first_int8`), timed beside E."""
+    first design (:func:`load_first_int8`), timed beside E; ``first_scale``:
+    kernel F's (:func:`load_first_scale`), timed beside F."""
     from step_syncs_torch import count_step_syncs
 
     t_phase = time.perf_counter()
@@ -2695,15 +2884,36 @@ def check_int8(torch, ms, wp, ik, flush, first_int8=None) -> dict:
                 res["e_ms_per_step"] = sum(v for k, v in parts.items() if "int8_conv" in k)
                 res["f_ms_per_step"] = sum(v for k, v in parts.items() if "act_absmax" in k)
                 out["timing"] = time_int8_layers(torch, ik, pipe, frames, flush)
-                out["blocks"] = blk = time_int8_blocks(
-                    torch, ik, capture_block_inputs(torch, pipe, frames), flush, first_int8)
+                block_inputs = capture_block_inputs(torch, pipe, frames)
+                out["blocks"] = blk = time_int8_blocks(torch, ik, block_inputs, flush,
+                                                       first_int8)
+                out["scale"] = sc = time_scale_inputs(torch, ik, block_inputs, flush,
+                                                      res["f_ms_per_step"], first_scale)
+                del block_inputs
                 res["e_bound_ms_per_step"] = blk["per_step_bound_ms"]
+                res["f_bound_ms_per_step"] = sc["per_step_bound_ms"]
+                if first_scale is not None:
+                    # F per step from the profiler (and the memsets of the
+                    # step): the first design bound in its place, then F.
+                    def f_step():
+                        parts = device_time(torch, lambda: pipe.step(frames), 2)[0]
+                        return (sum(v for k, v in parts.items() if "act_absmax" in k),
+                                sum(v for k, v in parts.items() if "memset" in k.lower()))
+                    with bound_in_layers("act_scale_per_sample", first_scale):
+                        (res["first_design_f_ms_per_step"],
+                         res["first_design_memset_ms_per_step"]) = f_step()
+                    res["f_ms_per_step_again"], res["memset_ms_per_step"] = f_step()
+                    log(f"  {label}: F per step (profiler) {res['f_ms_per_step']:.3f} and "
+                        f"{res['f_ms_per_step_again']:.3f} ms, the first design between them "
+                        f"{res['first_design_f_ms_per_step']:.3f} ms (memsets per step "
+                        f"{res['first_design_memset_ms_per_step']:.3f} ms with it, "
+                        f"{res['memset_ms_per_step']:.3f} without)")
                 if first_int8 is not None:
                     # E per step from the profiler: the first design bound in
                     # its place, then the current design again.
                     e_step = lambda: sum(v for k, v in device_time(
                         torch, lambda: pipe.step(frames), 2)[0].items() if "int8_conv" in k)
-                    with int8_conv_bound(first_int8):
+                    with bound_in_layers("int8_conv2d", first_int8):
                         res["first_design_e_ms_per_step"] = e_step()
                     res["e_ms_per_step_again"] = e_step()
                     log(f"  {label}: E per step (profiler) {res['e_ms_per_step']:.3f} and "
@@ -2731,6 +2941,8 @@ def check_int8(torch, ms, wp, ik, flush, first_int8=None) -> dict:
                    if "e_ms_per_step" in res else "")
                 + (f"; E's bound per step {res['e_bound_ms_per_step']:.3f} ms"
                    if "e_bound_ms_per_step" in res else "")
+                + (f", F's {res['f_bound_ms_per_step']:.3f} ms"
+                   if "f_bound_ms_per_step" in res else "")
                 + ("; mm report (16 scenes): " + "; ".join(
                     f"{k} {v['coverage']} p50 {v['p50']:.4f} p95 {v['p95']:.4f}"
                     for k, v in res["report"].items()) if "report" in res else ""))
@@ -5463,6 +5675,9 @@ def main() -> int:
     parser.add_argument("--first-design-nms", metavar="PATH",
                         help="a copy of kernel D's first nms.cu (commit d4bb171), held equal "
                              "to kernel D and timed beside it")
+    parser.add_argument("--first-design-scale", metavar="PATH",
+                        help="a copy of kernel F's first int8conv.cu (commit b58ffc1), held "
+                             "equal to kernel F and timed beside it in phase 5c")
     parser.add_argument("--ablate", action="store_true",
                         help="time variants of maskstats.cu on synthetic inputs, and nothing else")
     parser.add_argument("--gloo-rank", type=int, default=None,
@@ -5525,6 +5740,8 @@ def main() -> int:
     first_warp = (load_first_warp(torch, opts.first_design_warp) if opts.first_design_warp
                   else None)
     first_nms = load_first_nms(torch, opts.first_design_nms) if opts.first_design_nms else None
+    first_scale = (load_first_scale(torch, opts.first_design_scale) if opts.first_design_scale
+                   else None)
     if opts.ablate:
         ablate(torch, ms, kbuild, first)
         log(card)
@@ -5600,7 +5817,7 @@ def main() -> int:
     log("int8 inference (kernels E and F; CUDA events, L2 flushed before each timed call):")
     flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
-    int8 = check_int8(torch, ms, wp, ik, flush, first_int8)
+    int8 = check_int8(torch, ms, wp, ik, flush, first_int8, first_scale)
     phase_done("5c (int8)")
 
     # Phase 5d: the frozen step, exported, saved, loaded and run on the card.
@@ -5797,6 +6014,18 @@ def main() -> int:
         "bound_by": f["bound_by"], "library_ms": None, "absmax_norm_ms": f["absmax_norm_ms"],
         "timed_on": f"the deploy int8 step's block {f['block']} input at batch {BATCH}",
         "timed_shape": f["shape"], "ms_per_step": dep8["f_ms_per_step"],
+        "per_step_ms": int8["scale"]["per_step_ms"],
+        "per_step_bound_ms": int8["scale"]["per_step_bound_ms"],
+        "per_step_absmax_norm_ms": int8["scale"]["per_step_absmax_norm_ms"],
+        "routes": {r: sum(t["inputs"] for t in int8["scale"]["inputs"] if t["route"] == r)
+                   for r in ("span", "grid")},
+        "inputs": [{k: t[k] for k in ("block", "shape", "inputs", "route", "vec", "cluster", "ms",
+                                      "bound_ms", "absmax_norm_ms", "first_design_ms") if k in t}
+                   for t in int8["scale"]["inputs"]],
+        "synthetic_routes": {k: list(v) for k, v in int8["synthetic"]["scale_routes"].items()},
+        **({"first_design_per_step_ms": int8["scale"]["per_step_first_design_ms"],
+            "first_design_ms_per_step": dep8["first_design_f_ms_per_step"],
+            "ms_per_step_again": dep8["f_ms_per_step_again"]} if first_scale else {}),
         "launches_per_step": {k: v["launches"]["act_scale_per_sample"]
                               for k, v in int8.items() if isinstance(v, dict) and "launches" in v},
     })

@@ -211,6 +211,148 @@ def test_tile_walk_covers_every_output_once():
 
 
 # ---------------------------------------------------------------------------
+# Kernel F's plan (int8conv.scale_plan): its route, vector width and blocks
+# per sample, and the kernel's walk of a sample modelled here.
+# ---------------------------------------------------------------------------
+
+def first_design_slow(shape, strides, offset, base=1 << 20) -> bool:
+    """F's first design took its per-element loop (three integer divisions
+    per element) unless its vectors per pixel divided its 256 threads."""
+    c = shape[1]
+    vec = next((v for v in (8, 4) if c % v == 0 and (base + offset) % (2 * v) == 0
+                and all(st % v == 0 for st in (strides[0], strides[2], strides[3]))), 1)
+    return 256 % (c // vec) != 0
+
+
+def scale_plan_of(shape, strides, offset, batch=BATCH, esize=2, base=1 << 20, sms=132):
+    return ik.scale_plan((batch, *shape[1:]), strides, esize, base + offset, sms)
+
+
+def walk_offsets(pl: ik.ScalePlan, address: int, esize: int) -> list[int]:
+    """The element offsets one sample's units read, as the kernel computes
+    them: the span from its first 16-byte boundary (elements before it and
+    after the last whole vector one at a time), or a grid unit k split by
+    the multiply-high divisions into (i0, i1, i2)."""
+    if pl.route == ik.SCALE_SPAN:
+        head = min(pl.units, (16 - address % 16) % 16 // esize)
+        nvec = (pl.units - head) // pl.vec
+        body = [head + k * pl.vec + e for k in range(nvec) for e in range(pl.vec)]
+        return list(range(head)) + body + list(range(head + nvec * pl.vec, pl.units))
+    (_, n1, n2), (s0, s1, s2) = pl.dims, pl.strides
+    (m1, l1), (m2, l2) = ik.fast_div(n1), ik.fast_div(n2)
+    out = []
+    for k in range(pl.units):
+        r = ((k * m2 >> 32) + k) >> l2
+        i0 = ((r * m1 >> 32) + r) >> l1
+        out += [i0 * s0 + (r - i0 * n1) * s1 + (k - r * n2) * s2 + e for e in range(pl.vec)]
+    return out
+
+
+def element_offsets(shape, strides) -> list[int]:
+    c, h, w = shape[1:]
+    _, sc, sh, sw = strides
+    return [ci * sc + y * sh + xi * sw for ci in range(c) for y in range(h) for xi in range(w)]
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("esize,batch", [(2, BATCH), (2, 1), (4, 8)])
+def test_scale_plan_every_input(config, esize, batch):
+    """Every one of the int8 forward's 66 inputs gets 16-byte vectors: 58
+    dense samples (the stem's padded input and the concatenated C2f inputs
+    among them) read flat, the 8 bottleneck halves of cv1's output (pixels
+    of C channels at a pitch of 2C) as a grid of pixels; none takes single
+    elements. At batch 128 two blocks per sample fill the 264 resident
+    blocks, at batch 1 eight (the cluster's most). At deploy, these are the
+    11 inputs the first design read element by element."""
+    blocks = block_inputs(config)
+    assert len(blocks) == 66
+    routes = {}
+    for name, shape, strides, offset, *_ in blocks:
+        pl = scale_plan_of(shape, strides, offset, batch=batch, esize=esize)
+        routes[name] = pl.route
+        assert pl.vec == 16 // esize, name
+        if pl.route == ik.SCALE_GRID:
+            assert offset and strides[3] == 2 * shape[1] and pl.dims[2] * pl.vec == shape[1]
+            assert pl.strides == (strides[2], strides[3], pl.vec)
+        else:
+            assert pl.units == shape[1] * shape[2] * shape[3]
+        per_block = ik.F_THREADS * ik.F_UNROLL * pl.vec
+        work = -(-shape[1] * shape[2] * shape[3] // per_block)
+        assert pl.cluster == min({BATCH: 2, 1: 8, 8: 8}[batch], work), name
+    grid = sorted(n for n, r in routes.items() if r == ik.SCALE_GRID)
+    assert len(grid) == 8 and all(".m0.cv1" in n for n in grid)
+    if config != "deploy":
+        return
+    slow = [(n, sh) for n, sh, st, off, *_ in blocks if first_design_slow(sh, st, off)]
+    assert len(slow) == 11 and all(routes[n] == ik.SCALE_SPAN for n, _ in slow)
+    assert {sh[1] for _, sh in slow} == {12, 48, 96, 192, 384}
+    assert ("m0s2d", (1, 12, 369, 481)) in slow
+
+
+@pytest.mark.parametrize("case,shape,strides,offset,esize,want", [
+    # (route, vec, cluster) at the case's batch
+    ("channel slice", (128, 32, 92, 120), (706560, 1, 7680, 64), 64, 2,
+     (ik.SCALE_GRID, 8, 2)),
+    ("slice 8 bytes off", (4, 16, 20, 24), (11520, 1, 576, 24), 8, 2, (ik.SCALE_GRID, 4, 1)),
+    ("slice 4 bytes off", (4, 16, 20, 24), (11520, 1, 576, 24), 4, 2, (ik.SCALE_GRID, 2, 1)),
+    ("C = 12, dense", (4, 12, 49, 65), (38220, 1, 780, 12), 0, 2, (ik.SCALE_SPAN, 8, 2)),
+    ("C = 12 of 24, bf16", (3, 12, 21, 19), (9576, 1, 456, 24), 24, 2, (ik.SCALE_GRID, 4, 1)),
+    ("C = 12 of 24, float32", (3, 12, 21, 19), (9576, 1, 456, 24), 48, 4,
+     (ik.SCALE_GRID, 4, 1)),
+    ("batch 1, 64 x 184 x 240", (1, 64, 184, 240), (2826240, 1, 15360, 64), 0, 2,
+     (ik.SCALE_SPAN, 8, 8)),
+    ("NCHW slice", (2, 16, 20, 24), (15360, 480, 24, 1), 1440, 4, (ik.SCALE_SPAN, 4, 1)),
+    ("every other column", (2, 16, 20, 12), (15360, 480, 24, 2), 0, 4, (ik.SCALE_GRID, 1, 1)),
+])
+def test_scale_plan_layouts(case, shape, strides, offset, esize, want):
+    """The route, vector width and blocks per sample of layouts beside the
+    deploy step's; the kernel's walk of one sample (the last, whose start
+    moves with the sample stride) reads each of its elements once."""
+    base = 1 << 20
+    pl = ik.scale_plan(shape, strides, esize, base + offset, 132)
+    assert (pl.route, pl.vec, pl.cluster) == want
+    if shape[1] * shape[2] * shape[3] <= 200_000:
+        address = base + offset + (shape[0] - 1) * strides[0] * esize
+        got = walk_offsets(pl, address, esize)
+        assert sorted(got) == sorted(element_offsets(shape, strides))
+
+
+def test_scale_walk_of_the_deploy_grid_inputs():
+    """The 8 grid inputs' walk, a sample each: every element of the slice
+    once, none of the other half's channels."""
+    for name, shape, strides, offset, *_ in block_inputs("deploy"):
+        pl = scale_plan_of(shape, strides, offset)
+        if pl.route == ik.SCALE_GRID:
+            got = walk_offsets(pl, (1 << 20) + offset, 2)
+            assert len(got) == len(set(got)) == shape[1] * shape[2] * shape[3], name
+            assert set(got) == set(element_offsets(shape, strides)), name
+
+
+def test_fast_div_is_exact():
+    """``(umulhi(n, mul) + n) >> shift == n // d`` for every divisor the
+    plans use and others, at n up to 2^31 - 1; mul fits 32 bits."""
+    rng = np.random.default_rng(12)
+    ns = np.concatenate([np.arange(5000), rng.integers(0, 2 ** 31, 20000),
+                         2 ** 31 - 1 - np.arange(5000)]).astype(object)
+    divisors = list(range(1, 300)) + [460, 2760, 44160, 2 ** 20, 2 ** 20 + 1, 3 ** 19,
+                                      2 ** 30 - 1, 2 ** 30, 2 ** 30 + 1, 2 ** 31 - 1]
+    for d in divisors:
+        mul, shift = ik.fast_div(d)
+        assert 0 < mul < 2 ** 32
+        for n in ns:
+            assert ((n * mul >> 32) + n) >> shift == n // d, (d, n)
+
+
+def test_scale_constants_mirror_the_kernel():
+    """F's launch constants and routes are the kernel's (csrc/int8conv.cu)."""
+    src = (Path(ik.__file__).parent / "csrc" / "int8conv.cu").read_text()
+    for name, value in (("kFThreads", ik.F_THREADS), ("kFBlocksPerSm", ik.F_BLOCKS_PER_SM),
+                        ("kFUnroll", ik.F_UNROLL), ("kFMaxCluster", ik.F_MAX_CLUSTER),
+                        ("kScaleSpan", ik.SCALE_SPAN), ("kScaleGrid", ik.SCALE_GRID)):
+        assert f"constexpr int {name} = {value};" in src, name
+
+
+# ---------------------------------------------------------------------------
 # The kernel's fast divisions (csrc/int8conv.cu, quantize_fast and silu_fast)
 # modelled in numpy: float32 values, an FMA as the float64 sum of an exact
 # float32 product cast back once, rcp.approx as the rounded reciprocal moved
@@ -350,3 +492,39 @@ def test_kernel_layouts_on_card(cuda_device):
     walk = act((33, 32, 9, 70)) * torch.logspace(-3, 3, 33, device="cuda").view(-1, 1, 1, 1).to(
         torch.bfloat16)
     hold(walk.contiguous(memory_format=torch.channels_last), 32, 3, 1, 1)
+
+
+def hold_scale(x):
+    """Kernel F against its plain version: two launches equal, bit-equal
+    (a NaN sample's scale NaN in both)."""
+    got = [ik.act_scale_per_sample(x) for _ in range(2)]
+    plain = ik.act_scale_per_sample_plain(x)
+    assert torch.equal(got[0], got[1]) or torch.allclose(got[0], got[1], 0, 0, equal_nan=True)
+    assert torch.allclose(got[0], plain, rtol=0, atol=0, equal_nan=True), (
+        f"max |diff| {float((got[0] - plain).abs().max())}")
+
+
+@pytest.mark.cuda
+def test_scale_matches_plain_on_card(cuda_device):
+    """Kernel F on every deploy input layout at batch 2 and 1 and on the
+    layouts of :func:`test_scale_plan_layouts`, in bf16 and float32 (each
+    sample's span starting off its 16-byte boundary too), with a NaN, an
+    infinity and all-zero samples."""
+    for batch in (2, 1):
+        for name, shape, strides, offset, *_ in block_inputs("deploy"):
+            buf = torch.randn(batch * strides[0] + offset // 2 + 8, device="cuda").to(
+                torch.bfloat16)
+            hold_scale(torch.as_strided(buf, (batch, *shape[1:]), strides, offset // 2))
+    for dtype in (torch.bfloat16, torch.float32):
+        for off in range(8):
+            buf = torch.randn(3 * 12 * 7 * 9 + 8, device="cuda").to(dtype)
+            hold_scale(torch.as_strided(buf, (3, 12, 7, 9), (756, 1, 108, 12), off))
+        hold_scale(act((3, 24, 21, 19), dtype)[:, 12:])
+        hold_scale(act((4, 24, 20, 24), dtype)[:, 4:20])
+        hold_scale(act((2, 32, 20, 24), dtype).contiguous()[:, 3:19])
+        hold_scale(act((2, 16, 20, 24), dtype).contiguous()[..., ::2])
+        special = act((3, 16, 8, 8), dtype)
+        special[0] = 0.0
+        special[1, 3, 2, 2] = float("nan")
+        special[2, 5, 1, 1] = float("-inf")
+        hold_scale(special)

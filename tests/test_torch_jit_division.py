@@ -24,12 +24,28 @@ its spec and camera:
 - ``undistort_points`` with the focal lengths of a closed-over camera
   matrix, as the undistorted step runs it (zero distortion);
 - kernel F's plain version, the per-sample scale ``max(absmax, 1e-12) / 127``
-  of ``TTI_QUANT=int8``.
+  of ``TTI_QUANT=int8``;
+- the trainer, whose augment (``make_augment_fn``'s ``batch_fn``) and step
+  (``make_train_step``) ``tti`` jits: the hue's ``/ 6`` in ``_rgb_to_hsv``
+  (float32 and bfloat16), the GT boxes' ``/ s_px`` at imgsz 640 and 96, the
+  EMA ramp's ``/ ema_tau`` over steps 1-20,000, optax's warmup and cosine
+  divisions over a run's steps (and XLA's fold of ``pi / decay``), the
+  batch mean of the loss terms and the global-batch BatchNorm's division by
+  its count.
+
+XLA's CPU backend also contracts ``a * b + c`` into a fused multiply-add
+and takes its own ``exp`` and ``cos``; PyTorch and numpy do neither. Where
+such an operation follows a division, the case holds the port against
+``tti``'s expression with the division from ``jax.jit`` and the rest in
+float32 without contraction, so the division itself is compared bit for bit
+(ROADMAP Queue 3 records the rest).
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
+import math
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +55,11 @@ import torch
 
 from tti.calib import geometry as jgeo
 from tti.model.layers import quantize_act_per_sample
+from tti.train import augment as jaug
+from tti.train.step import make_train_step
+from tti_torch.model.layers import stats_from_sums
+from tti_torch.train import augment as taug
+from tti_torch.train import step as tstep
 from tti_torch.calib import geometry as tgeo
 from tti_torch.kernels import int8conv as ik
 from tti_torch.measure import pipeline as tpipe
@@ -217,3 +238,107 @@ def test_act_scale_equals_tti_jit():
     assert n == 0, f"{n} of {scale.numel()} scales differ from tti's jitted scale"
     codes = ik.quantize_act_plain(nchw, scale).permute(0, 2, 3, 1)
     np.testing.assert_array_equal(codes.numpy(), np.asarray(q_ref))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rgb_to_hsv_equals_tti_jit(dtype):
+    """A million RGB triples, uniform and on the 8-bit grid: the hue's ``/
+    6.0`` (a constant) as the product, the divisions by the chroma and the
+    value (run-time) true divisions."""
+    tdt, jdt = DTYPES[dtype]
+    rgb = np.random.default_rng(8).uniform(0, 1, (1_000_000, 3)).astype(np.float32)
+    rgb[::2] = np.round(rgb[::2] * 255.0) / 255.0
+    want = jax.jit(jaug._rgb_to_hsv)(jnp.asarray(rgb, jdt))
+    got = taug._rgb_to_hsv(torch.from_numpy(rgb).to(tdt))
+    assert got.dtype == tdt
+    n = _count_differing(got, want)
+    assert n == 0, f"{n} of {got.numel()} values differ from tti's jitted _rgb_to_hsv"
+
+
+@pytest.mark.parametrize("s_px", [640, 96])
+def test_canvas_to_out_equals_tti_jit(s_px):
+    """The GT boxes' canvas -> output mapping at imgsz ``s_px`` on 100,000
+    seeded coordinates, windows, scales and shifts: ``(c - origin) / s_px``
+    from ``tti``'s jit, the rest of its ``canvas_to_out`` in float32."""
+    rng = np.random.default_rng(9)
+    n, f32 = 100_000, np.float32
+    c, origin = rng.uniform(0, 2 * s_px, n).astype(f32), rng.uniform(0, s_px, n).astype(f32)
+    sc, shift = rng.uniform(0.5, 1.5, n).astype(f32), rng.uniform(-0.1, 0.1, n).astype(f32)
+    u = np.asarray(jax.jit(lambda a, b: (a - b) / s_px)(c, origin))
+    want = ((u - f32(0.5)) * sc + f32(0.5) + shift) * f32(s_px)
+    t = torch.from_numpy
+    got = taug.canvas_to_out(t(c), t(origin), t(sc), t(shift), s_px)
+    n = _count_differing(got, want)
+    assert n == 0, f"{n} of {c.size} coordinates differ from tti's jitted mapping"
+
+
+def test_ema_decay_equals_tti_jit():
+    """Steps 1-20,000 at ``make_train_step``'s defaults: ``-step / ema_tau``
+    from ``tti``'s jit, then ``ema_decay * (1 - exp(.))`` in float32."""
+    params = inspect.signature(make_train_step).parameters
+    decay, tau = params["ema_decay"].default, params["ema_tau"].default
+    assert (decay, tau) == (tstep.EMA_DECAY, tstep.EMA_TAU)
+    steps = np.arange(1, 20_001, dtype=np.int32)
+    f32 = np.float32
+    arg = np.asarray(jax.jit(lambda s: -s.astype(jnp.float32) / tau)(steps))
+    want = f32(decay) * (f32(1) - np.exp(arg))
+    got = np.array([tstep.ema_decay(int(s)) for s in steps], f32)
+    n = _count_differing(got, want)
+    assert n == 0, f"{n} of {steps.size} EMA weights differ from tti's jitted ramp"
+
+
+@pytest.mark.parametrize("total", [100, 7777, 20_000])
+def test_schedule_equals_tti_jit(total):
+    """Every update of a run of ``total`` steps and a few past it: the
+    warmup's ``count / warmup`` and the cosine's ``pi * count / decay`` (XLA
+    folds ``pi / decay``) from ``tti``'s jit of optax's expressions, the rest
+    of ``warmup_cosine_decay_schedule`` in float32."""
+    lr, f32 = 1e-3, np.float32
+    warmup = max(20, min(1000, total // 20))
+    warmup = max(min(warmup, max(total // 5, 1), total - 1), 0)
+    decay = total - warmup
+    init = end = lr * 1e-2
+    alpha = end / lr
+    counts = np.arange(0, total + 5, dtype=np.int32)
+    frac = np.asarray(jax.jit(lambda c: jnp.clip(c, 0, warmup) / warmup)(counts))
+    angle = np.asarray(jax.jit(lambda c: jnp.pi * jnp.minimum(c - warmup, float(decay))
+                               / float(decay))(counts))
+    ramp = f32(init - lr) * (f32(1) - frac) + f32(lr)
+    cosine = f32(0.5) * (f32(1) + np.cos(angle))
+    want = np.where(counts < warmup, ramp, f32(lr) * (f32(1 - alpha) * cosine + f32(alpha)))
+    schedule = tstep.warmup_cosine_schedule(lr, total)
+    got = np.array([schedule(int(c)) for c in counts], f32)
+    n = _count_differing(got, want)
+    assert n == 0, f"{n} of {counts.size} learning rates differ from tti's jitted schedule"
+
+
+@pytest.mark.parametrize("batch", [3, 6])
+def test_batch_mean_equals_tti_jit(batch):
+    """The loss terms' mean over a batch that is not a power of two, on
+    10,000 seeded batches: ``jnp.mean``'s division by the batch from
+    ``tti``'s jit, on the port's sum (XLA sums a row in order, PyTorch's CPU
+    sum in lanes: the CPU libraries' own rounding, recorded)."""
+    v = torch.from_numpy(np.random.default_rng(10).exponential(size=(10_000, batch)
+                                                               ).astype(np.float32))
+    want = jax.jit(lambda s: s / batch)(torch.stack([r.sum(0) for r in v]).numpy())
+    got = torch.stack([tstep.batch_mean(r) for r in v])
+    n = _count_differing(got, want)
+    assert n == 0, f"{n} of {v.shape[0]} means differ from tti's jitted mean"
+
+
+@pytest.mark.parametrize("count", [2 * 40 * 40, 3 * 23 * 30 * 2])
+def test_batchnorm_stats_equal_tti_jit(count):
+    """The global-batch BatchNorm's statistics from its per-channel sums
+    over ``count`` values (flax's ``jnp.mean`` under ``tti``'s jit, a shape
+    as divisor): ``sum / count`` from the jit, ``max(mean(x^2) - mean^2,
+    0)`` in float32."""
+    rng = np.random.default_rng(11)
+    c = 4096
+    s1 = (rng.normal(size=c) * count).astype(np.float32)
+    s2 = (np.abs(rng.normal(size=c)) * count * 4).astype(np.float32)
+    mean = np.asarray(jax.jit(lambda s: s / count)(s1))
+    mean2 = np.asarray(jax.jit(lambda s: s / count)(s2))
+    want_var = np.maximum(mean2 - mean * mean, np.float32(0))
+    got_mean, got_var = stats_from_sums(torch.from_numpy(np.concatenate([s1, s2])), count)
+    assert _count_differing(got_mean, mean) == 0
+    assert _count_differing(got_var, want_var) == 0

@@ -22,6 +22,7 @@
 import logging
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,6 +186,25 @@ def test_quantized_conv_on_a_channel_slice(qmode):
                                atol=1e-5)
     np.testing.assert_array_equal(ik.act_scale_per_sample(sl).numpy(),
                                   np.asarray(quantize_act_per_sample(x)[1]).reshape(-1))
+
+
+def test_scale_on_the_deploy_inputs_against_tti_jit():
+    """Kernel F's plain version (the CPU route of ``act_scale_per_sample``)
+    on every distinct input layout of the deploy int8 forward at batch 2, in
+    place (channel slices and padded stem included), bit-equal to ``tti``'s
+    jitted ``quantize_act_per_sample`` scale on the same values (NHWC)."""
+    from tests.test_torch_int8_plan import block_inputs
+
+    rng = np.random.default_rng(13)
+    jitted = jax.jit(lambda v: quantize_act_per_sample(v)[1])
+    layouts = {(shape, strides, offset) for _, shape, strides, offset, *_ in
+               block_inputs("deploy")}
+    for shape, strides, offset in sorted(layouts):
+        flat = (rng.normal(size=2 * strides[0] + offset // 2) * 3.0).astype(np.float32)
+        x = torch.as_strided(torch.from_numpy(flat), (2, *shape[1:]), strides, offset // 2)
+        want = jitted(np.ascontiguousarray(x.permute(0, 2, 3, 1).numpy()))
+        np.testing.assert_array_equal(ik.act_scale_per_sample(x).numpy(),
+                                      np.asarray(want).reshape(-1), err_msg=str(shape))
 
 
 def test_plain_pieces_against_tti_and_int64():

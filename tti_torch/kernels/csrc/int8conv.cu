@@ -121,12 +121,36 @@
 //   (rows padded by 16 bytes: bank-free fragment stores) and written with
 //   16-byte coalesced stores, one row's co channels contiguous.
 //
-// F: a grid of (S, B) blocks, each a max over 1/S of one sample, with
-// 16-byte loads where possible; the last block of a sample to finish (an
-// atomic ticket after a fence) combines the S partial maxima and writes the
-// scale. The tickets are zeroed on the stream before the launch. One launch,
-// no host synchronisation.
+// What bounds F: bytes. It reads each input element once and writes one
+// float per sample; its arithmetic is an integer maximum per 32-bit word.
+// It reaches the card's memory rate only with enough bytes in flight and no
+// per-element work. The design:
+// - No index arithmetic per element. A sample that is one dense span (any
+//   order of C, H, W; the s2d stem's padded input, the concatenated C2f
+//   inputs, every whole channels_last tensor) is read as flat aligned
+//   16-byte vectors, the elements before the first 16-byte boundary and
+//   after the last whole vector one by one. Any other layout is a grid of
+//   (d0, d1, d2) with d2 contiguous (the C2f bottlenecks' channel slices:
+//   pixels of C channels at a pitch of 2C) read in 16-, 8- or 4-byte
+//   vectors along d2, a unit's indices by two multiply-high divisions
+//   (int8conv.py, fast_div); a layout without a contiguous dimension takes
+//   single elements the same way.
+// - Bytes in flight: 1024 threads a block, each with four independent
+//   vector loads issued before it reduces them, and as many blocks as are
+//   resident at once (two per SM at 32 registers), spread over the batch
+//   (wrapper's scale_plan): 128 KB in flight per SM at batch 128. The
+//   shape was chosen on the card against 512 threads in four blocks per
+//   SM, 256 in eight, eight loads in flight and 2 to 8 blocks per sample
+//   (tools/scale_shapes_torch.py times them on deploy inputs).
+// - The maximum of |x| on bit patterns (absmax_word): one AND and one
+//   integer max per 32-bit word, two bf16 values at a time with __vmaxu2.
+// - One launch and no state: the blocks of one sample form a cluster; each
+//   block's maximum goes into the leader's shared memory (distributed shared
+//   memory) and the leader writes the scale. There is no scratch, no ticket
+//   and no memset, so two streams can run F at once. max is
+//   order-independent: bit-equal to the plain version, no float atomics.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,9 +159,20 @@
 
 #include <algorithm>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kFThreads = 256;  // F
+// F: threads per block, resident blocks per SM (the register cap of 32 that
+// lets two fill the SM's 2048 threads), independent vector loads in flight
+// per thread, the most blocks per sample (the portable cluster size), and
+// its routes (int8conv.py, scale_plan).
+constexpr int kFThreads = 1024;
+constexpr int kFBlocksPerSm = 2;
+constexpr int kFUnroll = 4;
+constexpr int kFMaxCluster = 8;
+constexpr int kScaleSpan = 0;
+constexpr int kScaleGrid = 1;
 constexpr float kRcp127 = 0x1.020408p-7f;  // float32(1 / 127.0f), F's scale
 
 // Storage types: bf16 travels as its 16-bit pattern.
@@ -884,92 +919,182 @@ int launch_conv_nc(const CUtensorMap& map, const ConvArgs& a, const Geo& g,
 // Kernel F
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float block_max(float m) {
-  __shared__ float warp_max[kFThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < kFThreads / 32 ? warp_max[threadIdx.x] : 0.0f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
-  }
-  return m;
-}
-
-// Pixels evenly strided (sH == W * sW): thread (chunk cc, pixel p) with cc
-// fixed per thread when the chunks of a pixel divide the block; otherwise
-// every element is decomposed on its own.
-template <typename S, int V>
-__global__ void __launch_bounds__(kFThreads) act_absmax_kernel(
-    const void* xp, long long sN, long long sC, long long sH, long long sW, int C, int H, int W,
-    int splits, int fast, float* scale, float* partial, unsigned* ticket) {
-  const int b = blockIdx.y, s = blockIdx.x;
-  const S* x = static_cast<const S*>(xp) + b * sN;
-  float m = 0.0f;
-  if (fast) {
-    const int cpp = C / V;  // chunks per pixel; divides kFThreads
-    const int P = H * W;
-    const int per = (P + splits - 1) / splits;
-    const int lo = s * per, hi = min(P, lo + per);
-    const int cc = threadIdx.x % cpp, step = kFThreads / cpp;
-    for (int p = lo + threadIdx.x / cpp; p < hi; p += step) {
-      const S* q = x + p * sW + cc * V * sC;
-      Vec<S, V> v;
-      if constexpr (V == 1) {
-        v.v[0] = *q;
-      } else {
-        v = load_vec<S, V>(q);
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) m = fmaxf(m, fabsf(to_f32(v.v[i])));
-    }
-  } else {
-    const int total = C * H * W;
-    const int per = (total + splits - 1) / splits;
-    const int lo = s * per, hi = min(total, lo + per);
-    for (int i = lo + threadIdx.x; i < hi; i += kFThreads) {
-      const int c = i % C, p = i / C;
-      const int y = p / W, xx = p - (p / W) * W;
-      m = fmaxf(m, fabsf(to_f32(x[y * sH + xx * sW + c * sC])));
-    }
-  }
-  m = block_max(m);
-  if (threadIdx.x == 0) {
-    partial[b * splits + s] = m;
-    __threadfence();
-    if (atomicAdd(&ticket[b], 1u) == static_cast<unsigned>(splits - 1)) {
-      __threadfence();
-      const volatile float* part = partial + b * splits;
-      float top = 0.0f;
-      for (int i = 0; i < splits; ++i) top = fmaxf(top, part[i]);
-      scale[b] = __fmul_rn(fmaxf(top, 1e-12f), kRcp127);
-    }
-  }
-}
-
+// |x| as ordered bits: a non-negative float orders as its bit pattern, so the
+// maximum is an integer maximum, exact and order-independent (a NaN's bits
+// lie above +inf's and carry through). float32 words keep one value each;
+// bfloat16 words keep two, whose halves are taken together by __vmaxu2.
 template <typename S>
-int launch_absmax(const void* x, long long sN, long long sC, long long sH, long long sW, int B,
-                  int C, int H, int W, int vec, int splits, int fast, float* scale,
-                  float* partial, unsigned* ticket, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned) * B, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(splits, B);
-  if (vec == 8)
-    act_absmax_kernel<S, 8><<<grid, kFThreads, 0, stream>>>(x, sN, sC, sH, sW, C, H, W, splits,
-                                                            fast, scale, partial, ticket);
-  else if (vec == 4)
-    act_absmax_kernel<S, 4><<<grid, kFThreads, 0, stream>>>(x, sN, sC, sH, sW, C, H, W, splits,
-                                                            fast, scale, partial, ticket);
-  else if (vec == 1)
-    act_absmax_kernel<S, 1><<<grid, kFThreads, 0, stream>>>(x, sN, sC, sH, sW, C, H, W, splits,
-                                                            fast, scale, partial, ticket);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+__device__ __forceinline__ unsigned absmax_word(unsigned acc, unsigned w);
+template <>
+__device__ __forceinline__ unsigned absmax_word<float>(unsigned acc, unsigned w) {
+  return max(acc, w & 0x7FFFFFFFu);
+}
+template <>
+__device__ __forceinline__ unsigned absmax_word<uint16_t>(unsigned acc, unsigned w) {
+  return __vmaxu2(acc, w & 0x7FFF7FFFu);
+}
+// The accumulator as float32 bits.
+template <typename S>
+__device__ __forceinline__ unsigned absmax_bits(unsigned acc) {
+  if constexpr (sizeof(S) == 2) return max(acc & 0xFFFFu, acc >> 16) << 16;
+  return acc;
+}
+
+// V elements of S as 32-bit words (one for 2 or 4 bytes).
+template <typename S, int V>
+__device__ __forceinline__ unsigned absmax_vec(unsigned acc, const S* p) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(S));
+  if constexpr (kBytes == 16) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+    acc = absmax_word<S>(acc, w.x);
+    acc = absmax_word<S>(acc, w.y);
+    acc = absmax_word<S>(acc, w.z);
+    return absmax_word<S>(acc, w.w);
+  } else if constexpr (kBytes == 8) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    return absmax_word<S>(absmax_word<S>(acc, w.x), w.y);
+  } else if constexpr (kBytes == 4) {
+    return absmax_word<S>(acc, __ldg(reinterpret_cast<const unsigned*>(p)));
+  } else {
+    return absmax_word<S>(acc, __ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+
+// n / d for n < 2^31 by the wrapper's multiplier (Granlund and Montgomery:
+// l = ceil(log2 d), mul = floor(2^32 (2^l - d) / d) + 1; d = 1 gives mul 1,
+// l 0).
+struct FastDiv {
+  unsigned mul;
+  int shift;
+};
+__device__ __forceinline__ unsigned fast_div(unsigned n, FastDiv f) {
+  return (__umulhi(n, f.mul) + n) >> f.shift;
+}
+
+struct ScaleArgs {
+  const void* x;
+  long long sN;      // sample stride (elements)
+  long long s0, s1;  // strides of index dims 0 and 1 (elements); dim 2 is contiguous on
+                     // the grid routes with vectors, strided by s2 on the element route
+  long long s2;
+  unsigned n1, n2;   // sizes of dims 1 and 2 (dim 2 in units: vectors or elements)
+  FastDiv by_n1, by_n2;
+  unsigned units;    // per sample: span route elements, grid routes units
+  float* scale;
+};
+
+// One sample's share of units for thread g of the cluster's G threads:
+// unit k = g + G i, kFUnroll independent loads in flight per thread.
+template <typename S, int V, int kRoute>
+__device__ __forceinline__ unsigned absmax_units(const ScaleArgs& a, const S* x, unsigned nunits,
+                                                 unsigned g, unsigned G, unsigned acc) {
+  auto addr = [&](unsigned k) -> const S* {
+    if constexpr (kRoute == kScaleSpan) {
+      return x + static_cast<long long>(k) * V;
+    } else {
+      const unsigned r = fast_div(k, a.by_n2), i2 = k - r * a.n2;
+      const unsigned i0 = fast_div(r, a.by_n1), i1 = r - i0 * a.n1;
+      return x + i0 * a.s0 + i1 * a.s1 + static_cast<long long>(i2) * a.s2;
+    }
+  };
+  unsigned k = g;
+  for (; k + (kFUnroll - 1) * G < nunits; k += kFUnroll * G) {
+    const S* p[kFUnroll];
+#pragma unroll
+    for (int u = 0; u < kFUnroll; ++u) p[u] = addr(k + u * G);
+#pragma unroll
+    for (int u = 0; u < kFUnroll; ++u) acc = absmax_vec<S, V>(acc, p[u]);
+  }
+  for (; k < nunits; k += G) acc = absmax_vec<S, V>(acc, addr(k));
+  return acc;
+}
+
+// A cluster of `cl` blocks per sample (cl = gridDim.x / B). Each block
+// reduces its units to one maximum; the blocks of the cluster write theirs
+// into the leader's shared memory (distributed shared memory) and the leader
+// writes the scale. Nothing outlives the launch: no scratch, no tickets, no
+// state between calls, so two streams may run F at once.
+template <typename S, int V, int kRoute>
+__global__ void __launch_bounds__(kFThreads, kFBlocksPerSm) act_absmax_kernel(ScaleArgs a) {
+  __shared__ unsigned warp_max[kFThreads / 32];
+  __shared__ unsigned block_max[kFMaxCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned cl = cluster.num_blocks(), rank = cluster.block_rank();
+  const long long b = blockIdx.x / cl;
+  // Arrive now, wait before the first remote write: every block of the
+  // cluster has started by then, at no cost to the loads in between.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const S* x = static_cast<const S*>(a.x) + b * a.sN;
+  const unsigned g = rank * kFThreads + threadIdx.x, G = cl * kFThreads;
+  unsigned acc = 0;
+  if constexpr (kRoute == kScaleSpan) {
+    // Elements up to the first 16-byte boundary and after the last whole
+    // vector one by one, the rest as aligned vectors.
+    const unsigned n = a.units;
+    const unsigned lead = (16u - (reinterpret_cast<uintptr_t>(x) & 15u)) & 15u;
+    const unsigned head = min(n, lead / static_cast<unsigned>(sizeof(S)));
+    const unsigned nvec = (n - head) / V, tail = n - head - nvec * V;
+    if (g < head) acc = absmax_vec<S, 1>(acc, x + g);
+    if (g < tail) acc = absmax_vec<S, 1>(acc, x + head + nvec * V + g);
+    acc = absmax_units<S, V, kRoute>(a, x + head, nvec, g, G, acc);
+  } else {
+    acc = absmax_units<S, V, kRoute>(a, x, a.units, g, G, acc);
+  }
+  acc = __reduce_max_sync(0xFFFFFFFFu, absmax_bits<S>(acc));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (threadIdx.x < 32) {
+    acc = threadIdx.x < kFThreads / 32 ? warp_max[threadIdx.x] : 0u;
+    acc = __reduce_max_sync(0xFFFFFFFFu, acc);
+    if (threadIdx.x == 0) *cluster.map_shared_rank(&block_max[rank], 0) = acc;
+  }
+  cluster.sync();  // release the remote writes, acquire them in the leader
+  if (rank == 0 && threadIdx.x == 0) {
+    unsigned top = 0;
+    for (unsigned r = 0; r < cl; ++r) top = max(top, block_max[r]);
+    const float m = __uint_as_float(top);
+    // max(absmax, 1e-12) as the plain version's clamp: a NaN stays NaN.
+    a.scale[b] = __fmul_rn(top > 0x7F800000u ? m : fmaxf(m, 1e-12f), kRcp127);
+  }
+}
+
+template <typename S, int V, int kRoute>
+int launch_absmax(const ScaleArgs& a, int B, int cl, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * cl));
+  cfg.blockDim = dim3(kFThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cl);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, act_absmax_kernel<S, V, kRoute>, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The span route takes 16-byte vectors; a grid route 16-, 8- or 4-byte
+// vectors or single elements (vec elements each).
+template <typename S>
+int launch_absmax_vec(const ScaleArgs& a, int B, int route, int vec, int cl,
+                      cudaStream_t stream) {
+  constexpr int kV16 = 16 / static_cast<int>(sizeof(S));
+  if (route == kScaleSpan)
+    return vec == kV16 ? launch_absmax<S, kV16, kScaleSpan>(a, B, cl, stream)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  if (route != kScaleGrid) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == kV16) return launch_absmax<S, kV16, kScaleGrid>(a, B, cl, stream);
+  if (vec == kV16 / 2) return launch_absmax<S, kV16 / 2, kScaleGrid>(a, B, cl, stream);
+  if constexpr (sizeof(S) == 2) {
+    if (vec == 2) return launch_absmax<S, 2, kScaleGrid>(a, B, cl, stream);
+  }
+  if (vec == 1) return launch_absmax<S, 1, kScaleGrid>(a, B, cl, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 }  // namespace
 
 extern "C" {
@@ -1017,21 +1142,24 @@ int tti_int8_conv2d(const void* x, long long sN, long long sC, long long sH, lon
   return dtype ? launch_conv_nc<uint16_t>(map, a, g, s) : launch_conv_nc<float>(map, a, g, s);
 }
 
-// Kernel F. scratch: B * splits floats of partial maxima, then B tickets.
-int tti_act_scale_per_sample(const void* x, long long sN, long long sC, long long sH,
-                             long long sW, int B, int C, int H, int W, int dtype, int vec,
-                             int splits, int fast, void* scale, void* scratch, void* stream) {
-  if (B < 1 || splits < 1 || C % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  float* partial = static_cast<float*>(scratch);
-  unsigned* ticket = reinterpret_cast<unsigned*>(partial + static_cast<long long>(B) * splits);
+// Kernel F (see the header and int8conv.py's scale_plan). route 0: each
+// sample is one dense span of `units` elements; route 1: a grid of (units /
+// (n1 n2), n1, n2) units of vec elements, dim 2 contiguous when vec > 1,
+// strides s0, s1, s2 in elements. mul1/shift1 and mul2/shift2 divide by n1
+// and n2. cluster: blocks per sample, 1 to 8. dtype 0: float32, 1: bfloat16.
+int tti_act_scale_per_sample(const void* x, long long sN, long long s0, long long s1,
+                             long long s2, int B, int dtype, int route, int vec, int units,
+                             int n1, int n2, unsigned mul1, int shift1, unsigned mul2,
+                             int shift2, int cluster, void* scale, void* stream) {
+  if (B < 1 || cluster < 1 || cluster > kFMaxCluster || units < 0 || n1 < 1 || n2 < 1
+      || static_cast<long long>(B) * cluster > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ScaleArgs a{x, sN, s0, s1, s2, static_cast<unsigned>(n1), static_cast<unsigned>(n2),
+                    FastDiv{mul1, shift1}, FastDiv{mul2, shift2},
+                    static_cast<unsigned>(units), static_cast<float*>(scale)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(scale);
-  if (dtype == 0)
-    return launch_absmax<float>(x, sN, sC, sH, sW, B, C, H, W, vec, splits, fast, out, partial,
-                                ticket, s);
-  if (dtype == 1)
-    return launch_absmax<uint16_t>(x, sN, sC, sH, sW, B, C, H, W, vec, splits, fast, out,
-                                   partial, ticket, s);
+  if (dtype == 0) return launch_absmax_vec<float>(a, B, route, vec, cluster, s);
+  if (dtype == 1) return launch_absmax_vec<uint16_t>(a, B, route, vec, cluster, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

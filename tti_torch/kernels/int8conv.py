@@ -51,7 +51,8 @@ LAUNCHES = {"int8_conv2d": 0, "act_scale_per_sample": 0}
 
 _lib: ctypes.CDLL | None = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMS = 132  # H100 SXM: F spreads each batch over about two blocks per SM
+_DTYPES_BY_SIZE = {4: 0, 2: 1}
+_SMS = 132  # H100 SXM; the planners' default, the card's own count at launch
 
 
 def reset_launch_counts() -> None:
@@ -68,8 +69,9 @@ def build() -> ctypes.CDLL:
         lib.tti_int8_conv2d.argtypes = [p, ll, ll, ll, ll, i, i, i, i, p, i, i, i, i, i, p, p,
                                         p, i, p, i, i, i, i, p, p]
         lib.tti_int8_conv2d.restype = i
-        lib.tti_act_scale_per_sample.argtypes = [p, ll, ll, ll, ll, i, i, i, i, i, i, i, i, p,
-                                                 p, p]
+        u = ctypes.c_uint
+        lib.tti_act_scale_per_sample.argtypes = [p, ll, ll, ll, ll, i, i, i, i, i, i, i, u, i,
+                                                 u, i, i, p, p]
         lib.tti_act_scale_per_sample.restype = i
         _lib = lib
     return _lib
@@ -362,17 +364,6 @@ def _geo(plan: ConvPlan) -> ctypes.Array:
     return (ctypes.c_int * len(GEO_FIELDS))(*plan.as_ints())
 
 
-def _vec_width(x: Tensor, c: int) -> int:
-    """Elements per load: 8, 4 or 1, as channels, strides and alignment allow."""
-    if x.stride(1) != 1:
-        return 1
-    for v in (8, 4):
-        if (c % v == 0 and x.data_ptr() % (v * x.element_size()) == 0
-                and all(s % v == 0 for s in (x.stride(0), x.stride(2), x.stride(3)))):
-            return v
-    return 1
-
-
 def _check_input(x: Tensor, what: str) -> None:
     if x.dim() != 4:
         raise ValueError(f"{what}: input must be (B, C, H, W), got {tuple(x.shape)}")
@@ -382,21 +373,91 @@ def _check_input(x: Tensor, what: str) -> None:
         raise ValueError(f"{what}: input {tuple(x.shape)} too large for one launch")
 
 
+# Kernel F's launch (csrc/int8conv.cu, kFThreads ... kScaleGrid).
+F_THREADS = 1024
+F_BLOCKS_PER_SM = 2
+F_UNROLL = 4
+F_MAX_CLUSTER = 8
+SCALE_SPAN, SCALE_GRID = 0, 1
+
+
+@dataclass(frozen=True)
+class ScalePlan:
+    """Kernel F's route for one input. ``route``: :data:`SCALE_SPAN` (each
+    sample one dense span of ``units`` elements, read as 16-byte vectors
+    from its first 16-byte boundary) or :data:`SCALE_GRID` (``dims`` (d0, d1,
+    d2) of ``units = d0 * d1 * d2`` units of ``vec`` elements, ``strides`` in
+    elements per unit step, d2 contiguous when ``vec`` > 1). ``cluster``:
+    blocks per sample."""
+
+    route: int
+    vec: int
+    units: int
+    dims: tuple[int, int, int]
+    strides: tuple[int, int, int]
+    cluster: int
+
+
+def fast_div(d: int) -> tuple[int, int]:
+    """(mul, shift) with ``n // d == (umulhi(n, mul) + n) >> shift`` for
+    every 0 <= n < 2^31 (Granlund and Montgomery; the kernel's fast_div)."""
+    shift = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def scale_plan(shape: tuple, strides: tuple, esize: int, address: int,
+               sms: int = _SMS) -> ScalePlan:
+    """Kernel F's route, vector width and blocks per sample for a (B, C, H,
+    W) input with these element strides, element size and data address.
+
+    A sample whose C*H*W elements fill one span (its dimensions of size
+    above 1 dense in some order) is read flat. Otherwise its dimensions go
+    outermost first by stride, and the innermost is read in 16-, 8- or
+    4-byte vectors when it is contiguous and the vector divides its size,
+    the other strides and the address; else one element at a time. The
+    batch is spread over the resident blocks (``sms`` x
+    :data:`F_BLOCKS_PER_SM`), at most :data:`F_MAX_CLUSTER` per sample and
+    no more than give each thread :data:`F_UNROLL` vectors."""
+    b, n = shape[0], shape[1] * shape[2] * shape[3]
+    live = sorted(((st, sz) for sz, st in zip(shape[1:], strides[1:]) if sz > 1), reverse=True)
+    dense, span = True, 1
+    for st, sz in reversed(live):
+        dense, span = dense and st == span, span * sz
+    if dense:
+        route, vec, units = SCALE_SPAN, 16 // esize, n
+        dims, steps = (1, 1, n), (0, 0, 1)
+    else:
+        live = [(1, 0)] * (3 - len(live)) + [(sz, st) for st, sz in live]
+        (d0, s0), (d1, s1), (d2, s2) = live
+        vec = next((v for v in (16 // esize, 8 // esize, 4 // esize) if v > 1 and s2 == 1
+                    and d2 % v == 0 and address % (v * esize) == 0
+                    and all(st % v == 0 for st in (strides[0], s0, s1))), 1)
+        route, units = SCALE_GRID, d0 * d1 * (d2 // vec)
+        dims, steps = (d0, d1, d2 // vec), (s0, s1, s2 * vec)
+    per_block = F_THREADS * F_UNROLL * vec
+    cluster = max(1, min(F_MAX_CLUSTER, sms * F_BLOCKS_PER_SM // b, -(-n // per_block)))
+    return ScalePlan(route, vec, units, dims, steps, cluster)
+
+
+@functools.lru_cache(maxsize=1024)
+def _scale_args(shape: tuple, strides: tuple, esize: int, align: int, sms: int) -> tuple:
+    """The kernel's arguments between the sample stride and the scale
+    pointer (``align``: the address mod 16, all the plan reads of it)."""
+    pl = scale_plan(shape, strides, esize, align, sms)
+    (_, n1, n2), (s0, s1, s2) = pl.dims, pl.strides
+    return (s0, s1, s2, shape[0], _DTYPES_BY_SIZE[esize], pl.route, pl.vec, pl.units, n1, n2,
+            *fast_div(n1), *fast_div(n2), pl.cluster)
+
+
 def _launch_scale(x: Tensor) -> Tensor:
-    b, c, h, w = x.shape
-    vec = _vec_width(x, c)
-    cpp = c // vec
-    fast = int(x.stride(2) == w * x.stride(3) and 256 % cpp == 0)
-    chunks = h * w * cpp
-    splits = max(1, min(-(-2 * _SMS // b), chunks // 1024))
+    args = _scale_args(tuple(x.shape), x.stride(), x.element_size(), x.data_ptr() % 16,
+                       _sm_count(x.device))
     lib = build()
-    buf = torch.empty(b + b * splits + b, dtype=torch.float32, device=x.device)
-    scale, scratch = buf[:b], buf[b:]
+    scale = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tti_act_scale_per_sample(
-            x.data_ptr(), x.stride(0), x.stride(1), x.stride(2), x.stride(3), b, c, h, w,
-            _DTYPES[x.dtype], vec, splits, fast, scale.data_ptr(), scratch.data_ptr(), stream)
+        err = lib.tti_act_scale_per_sample(x.data_ptr(), x.stride(0), *args, scale.data_ptr(),
+                                           stream)
     if err != 0:
         raise RuntimeError(f"activation-scale kernel launch failed: cudaError {err}")
     LAUNCHES["act_scale_per_sample"] += 1
@@ -418,6 +479,7 @@ def act_scale_per_sample(x: Tensor) -> Tensor:
     return _SCALE_OP(x)
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

@@ -25,6 +25,7 @@ from torch import nn
 
 from tti_torch.kernels.int8conv import act_scale_per_sample, int8_conv2d, pack_qweight
 from tti_torch.parallel.mesh import all_reduce_sum
+from tti_torch.preprocess.letterbox import jit_divide
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -109,15 +110,24 @@ class BatchNorm(nn.Module):
         xf = x.float()
         sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]),
                               self.group)
-        count = (x.numel() // c) * dist.get_world_size(self.group)
-        mean = sums[:c] / count
-        var = (sums[c:] / count - mean * mean).clamp(min=0.0)
+        mean, var = stats_from_sums(sums, (x.numel() // c) * dist.get_world_size(self.group))
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean * self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var * self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def stats_from_sums(sums: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax's batch statistics from the per-channel sums of ``x`` and ``x *
+    x`` (``sums``, (2C,) float32) over ``count`` values: ``mean``, ``var =
+    max(mean(x^2) - mean^2, 0)``. The count is a shape, fixed when ``tti``
+    traces its step, so ``jnp.mean``'s division is the product with its
+    float32 reciprocal (:func:`jit_divide`)."""
+    c = sums.shape[0] // 2
+    mean = jit_divide(sums[:c], count)
+    return mean, (jit_divide(sums[c:], count) - mean * mean).clamp(min=0.0)
 
 
 def set_batchnorm_group(model: nn.Module, group) -> None:

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tti_torch.preprocess.letterbox import jit_divide
 from tti_torch.train.step import Targets
 
 Tensor = torch.Tensor
@@ -133,7 +134,9 @@ def _rgb_to_hsv(rgb: Tensor) -> Tensor:
     safe_c = torch.where(pos, c, torch.ones_like(c))
     h = torch.where(v == r, (g - b) / safe_c,
                     torch.where(v == g, 2.0 + (b - r) / safe_c, 4.0 + (r - g) / safe_c))
-    h = torch.where(pos, torch.remainder(h / 6.0, 1.0), torch.zeros_like(h))
+    # / 6 as tti's jitted augment takes it (jit_divide); the run-time divisors
+    # above and below are true divisions in both.
+    h = torch.where(pos, torch.remainder(jit_divide(h, 6.0), 1.0), torch.zeros_like(h))
     s = torch.where(v > 0, c / torch.where(v > 0, v, torch.ones_like(v)), torch.zeros_like(v))
     return torch.stack([h, s, v], dim=-1)
 
@@ -193,6 +196,14 @@ def draw_params(generator: torch.Generator, n: int, n_images: int, scale: float 
     }
 
 
+def canvas_to_out(c: Tensor, origin: Tensor, sc: Tensor, shift: Tensor, s_px: int) -> Tensor:
+    """Canvas px -> output px along one axis of the window at ``origin``,
+    scaled by ``sc`` and shifted by ``shift`` (a fraction of the output):
+    ``tti``'s ``canvas_to_out``, whose ``/ s_px`` its jitted augment takes as
+    the product with the float32 reciprocal (:func:`jit_divide`)."""
+    return ((jit_divide(c - origin, s_px) - 0.5) * sc + 0.5 + shift) * s_px
+
+
 def apply(data: DeviceDataset, params: dict[str, Tensor], max_gt: int,
           image_dtype: torch.dtype = torch.float32) -> tuple[Tensor, Targets]:
     """One augmented batch from the draws of :func:`draw_params`: images
@@ -243,8 +254,8 @@ def apply(data: DeviceDataset, params: dict[str, Tensor], max_gt: int,
     cand_valid = data.valid[idx].reshape(b, -1) & (mosaic[:, None] | (tile_of == 0)[None])
 
     col = lambda t: t[:, None]
-    to_out_x = lambda xc: (((xc - col(x0)) / s_px - 0.5) * col(sc) + 0.5 + col(tx)) * s_px
-    to_out_y = lambda yc: (((yc - col(y0)) / s_px - 0.5) * col(sc) + 0.5 + col(ty)) * s_px
+    to_out_x = lambda xc: canvas_to_out(xc, col(x0), col(sc), col(tx), s_px)
+    to_out_y = lambda yc: canvas_to_out(yc, col(y0), col(sc), col(ty), s_px)
     bx0, by0 = to_out_x(cand_boxes[..., 0]), to_out_y(cand_boxes[..., 1])
     bx1, by1 = to_out_x(cand_boxes[..., 2]), to_out_y(cand_boxes[..., 3])
     fl = col(flip)

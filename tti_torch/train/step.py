@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from tti_torch.model.layers import set_batchnorm_group
 from tti_torch.model.yolo import REG_MAX, STRIDES, RawPredictions, YOLOv8Seg
 from tti_torch.postprocess.decode import dfl_expectation, flatten_predictions, make_anchors
+from tti_torch.preprocess.letterbox import jit_divide
 from tti_torch.train.assigner import task_aligned_assign
 from tti_torch.train.losses import bbox_ciou, dfl_loss, seg_loss
 
@@ -71,22 +72,42 @@ def warmup_cosine_schedule(learning_rate: float, total_steps: int | None
     decay = total_steps - warmup
     if decay <= 0:
         raise ValueError(f"total_steps must exceed the warmup ({total_steps} <= {warmup})")
-    # optax's arithmetic: constants combined in float64, then float32 with
-    # the step count. The warmup's first value is f32(init - peak) + peak,
-    # which float32 does not round back to init.
+    # optax's arithmetic as tti's jitted step runs it: constants combined in
+    # float64, then float32 with the step count; the divisions by the warmup
+    # and the decay length are products with their float32 reciprocals, and
+    # XLA folds pi / decay and 0.5 * (1 - alpha) into one constant each. The
+    # warmup's first value is f32(init - peak) + peak, which float32 does not
+    # round back to init.
     f32 = np.float32
     init = end = learning_rate * 1e-2
     alpha = 0.0 if learning_rate == 0.0 else end / learning_rate
+    rcp_warmup = f32(1) / f32(warmup) if warmup else f32(0)
+    angle = f32(math.pi) * (f32(1) / f32(decay))
+    half = f32(0.5) * f32(1 - alpha)
 
     def schedule(count: int) -> float:
         if count < warmup:
-            frac = f32(1) - f32(min(max(count, 0), warmup)) / f32(warmup)
+            frac = f32(1) - f32(min(max(count, 0), warmup)) * rcp_warmup
             return float(f32(init - learning_rate) * frac + f32(learning_rate))
-        c = f32(min(count - warmup, decay))
-        cosine = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / f32(decay)))
-        return float(f32(learning_rate) * (f32(1 - alpha) * cosine + f32(alpha)))
+        cosine = f32(1) + np.cos(f32(min(count - warmup, decay)) * angle)
+        return float(f32(learning_rate) * (cosine * half + f32(alpha)))
 
     return schedule
+
+
+def ema_decay(step: int) -> np.float32:
+    """The EMA's weight of its old value at update number ``step`` (1 for
+    the first): ``EMA_DECAY * (1 - exp(-step / EMA_TAU))`` in float32, the
+    division taken as ``tti``'s jitted step takes it, the product with
+    float32(1 / EMA_TAU)."""
+    f32 = np.float32
+    return f32(EMA_DECAY) * (f32(1) - np.exp(-f32(step) * (f32(1) / f32(EMA_TAU))))
+
+
+def batch_mean(v: Tensor) -> Tensor:
+    """The mean over a batch of per-image terms, as ``jnp.mean`` under
+    ``jax.jit``: the sum times float32(1 / B) (:func:`jit_divide`)."""
+    return jit_divide(v.sum(0), v.shape[0])
 
 
 @dataclass
@@ -220,7 +241,7 @@ class TrainStep:
                                for k in ("box", "cls", "mcoef")), raw.protos.float())
         per_image = yolo_seg_loss(raw, targets, self.input_hw, self.gains, self.seg_dtype,
                                   self.seg_chunk)
-        losses = {k: v.mean() for k, v in per_image.items()}
+        losses = {k: batch_mean(v) for k, v in per_image.items()}
         total = (BOX_GAIN * losses["box"] + CLS_GAIN * losses["cls"]
                  + DFL_GAIN * losses["dfl"] + BOX_GAIN * SEG_GAIN * losses["seg"])
         return total, losses
@@ -234,12 +255,11 @@ class TrainStep:
             group["lr"] = state.schedule(state.step)
         state.optimizer.step()
         state.step += 1
-        one = np.float32(1.0)
-        d = np.float32(EMA_DECAY) * (one - np.exp(-np.float32(state.step) / np.float32(EMA_TAU)))
+        d = ema_decay(state.step)
         ema = list(state.ema.values())
         torch._foreach_mul_(ema, float(d))
         torch._foreach_add_(ema, [p.detach() for _, p in state.model.named_parameters()],
-                            alpha=float(one - d))
+                            alpha=float(np.float32(1.0) - d))
 
     def all_reduce_grads(self, state: TrainState) -> None:
         """Average the gradients over ``group``: one flat bucket, summed,
