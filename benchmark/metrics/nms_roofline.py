@@ -1,0 +1,8 @@
+"""% of its roofline (``benchmark/rooflines/nms.py``) that the kernel's
+traced device time per launch reaches."""
+
+from benchmark.metrics import roofline_share
+
+
+def read(ctx):
+    return roofline_share(ctx, "nms")
