@@ -207,6 +207,10 @@ class Orchestrator:
                 cv2.destroyWindow(self._window)
             except Exception:
                 pass
+        stages = self.timer.summary()
+        log.info("stage times: %s", ", ".join(
+            f"{name} n {st['n']} mean {st['mean_ms']:.3f} ms p50 {st['p50_ms']:.3f} ms"
+            for name, st in stages.items()) or "none", extra={"tti_stages": stages})
         log.info("shutdown complete: %d frames processed", self.frame_count)
 
     # -- one measurement tick --------------------------------------------------

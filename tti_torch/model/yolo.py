@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tti_torch.core.logging import span
 from tti_torch.model.layers import C2f, Conv, Conv2d, Proto, SPPF, make_divisible
 
 SCALES: dict[str, tuple[float, float, int]] = {
@@ -34,6 +35,9 @@ SCALES: dict[str, tuple[float, float, int]] = {
 
 STRIDES = (8, 16, 32)
 REG_MAX = 16  # DFL bins per box side
+BLOCK_SPANS = {name: f"forward.{name}" for name in (
+    "m0", "m0s2d", "m1", "m2", "m3", "m4", "m5", "m6", "m7", "m8", "m9", "m12", "m15", "m16",
+    "m18", "m19", "m21", "m22")}  # YOLOv8Seg's top-level blocks
 
 
 def model_channels(variant: str) -> dict[str, int]:
@@ -200,26 +204,39 @@ class YOLOv8Seg(nn.Module):
                            mask_stride, proto_head, fused_entry=fused_head, **q)
 
     def forward(self, x: torch.Tensor) -> RawPredictions:
+        """The span ``forward``, over one ``forward.<block>`` per top-level
+        block; its self time is the input's cast and layout change, the
+        upsamples and the concatenations."""
+        with span("forward", x):
+            return self._forward(x)
+
+    def _block(self, name: str, x, device: torch.device):
+        with span(BLOCK_SPANS[name], device):
+            return getattr(self, name)(x)
+
+    def _forward(self, x: torch.Tensor) -> RawPredictions:
         dtype = self.dtype or next(self.parameters()).dtype
         if self.s2d_stem and not self.s2d_input:
             x = space_to_depth2(x)
         z = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        d = x.device
+        b = self._block
         if not self.s2d_stem:
-            x0 = self.m0(z)
+            x0 = b("m0", z, d)
         elif self.space is None:
-            x0 = self.m0s2d(F.pad(z, (1, 0, 1, 0)))
+            x0 = b("m0s2d", F.pad(z, (1, 0, 1, 0)), d)
         else:
-            x0 = self.m0s2d(F.pad(self.space.halo(z, 1, 0), (1, 0, 0, 0)))
-        x2 = self.m2(self.m1(x0))
-        x4 = self.m4(self.m3(x2))  # P3
-        x6 = self.m6(self.m5(x4))  # P4
-        x9 = self.m9(self.m8(self.m7(x6)))  # P5
+            x0 = b("m0s2d", F.pad(self.space.halo(z, 1, 0), (1, 0, 0, 0)), d)
+        x2 = b("m2", b("m1", x0, d), d)
+        x4 = b("m4", b("m3", x2, d), d)  # P3
+        x6 = b("m6", b("m5", x4, d), d)  # P4
+        x9 = b("m9", b("m8", b("m7", x6, d), d), d)  # P5
         up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")
-        x12 = self.m12(torch.cat([up(x9), x6], dim=1))
-        x15 = self.m15(torch.cat([up(x12), x4], dim=1))
-        x18 = self.m18(torch.cat([self.m16(x15), x12], dim=1))
-        x21 = self.m21(torch.cat([self.m19(x18), x9], dim=1))
-        return self.m22((x15, x18, x21))
+        x12 = b("m12", torch.cat([up(x9), x6], dim=1), d)
+        x15 = b("m15", torch.cat([up(x12), x4], dim=1), d)
+        x18 = b("m18", torch.cat([b("m16", x15, d), x12], dim=1), d)
+        x21 = b("m21", torch.cat([b("m19", x18, d), x9], dim=1), d)
+        return b("m22", (x15, x18, x21), d)
 
 
 def create_model(variant: str = "n", nc: int = 2, nm: int = 32, mask_stride: int = 4,

@@ -27,6 +27,15 @@ Host-fed callers use ``process_batch_async`` + ``outputs_to_host``: the
 upload goes from a pinned buffer on a side stream, the step waits on the
 copy's event only, and nothing synchronises before ``outputs_to_host``.
 
+Spans and counts (:mod:`tti_torch.core.logging`, recorded only while the
+process's tracer is on): ``batch`` around each entry point, its id the
+pipeline's step number, over ``upload`` (``upload.wait`` where a staging
+buffer's last copy still runs), ``preprocess``, ``forward`` and its blocks,
+``detect`` and ``measure``; ``to_host`` around ``outputs_to_host``, over
+``to_host.wait`` until the first copy returns, and the count
+``d2h_copies``. While tracing, the step's outputs carry the batch id
+(:data:`TRACE_BATCH`) to ``outputs_to_host``.
+
 With a ``mesh`` (:func:`tti_torch.parallel.mesh.create_mesh`, one process
 per card) the entry points take the global batch, as the reference's
 sharded step does: each rank runs the unchanged step on its rows
@@ -59,7 +68,7 @@ import torch
 from tti_torch.calib.io import CalibrationData
 from tti_torch.core.config import MeasureConfig, ModelConfig, RoiConfig
 from tti_torch.core.errors import ConfigError
-from tti_torch.core.logging import get_logger
+from tti_torch.core.logging import count, get_logger, span
 from tti_torch.kernels.warp_p1 import card_geometry_error, warp_pass1_decimated
 from tti_torch.measure.pipeline import (
     CameraParams, FrameMeasurement, StitchSet, measure_frame, prepare_frame_inputs,
@@ -88,6 +97,7 @@ from tti_torch.preprocess.warp2pass import TwoPassWarp
 log = get_logger("runtime")
 
 MASKSTATS_LOGITS = {"auto": None, "f32": torch.float32, "bf16": torch.bfloat16}
+TRACE_BATCH = "trace_batch"  # the step outputs' batch id, while tracing
 
 
 @dataclass
@@ -175,11 +185,20 @@ def inference_model(model_cfg: ModelConfig, variables: dict, device: torch.devic
     return model.to(memory_format=torch.channels_last)
 
 
-def _to_host(obj: Any) -> Any:
+def _to_host(obj: Any, host) -> Any:
     if obj is None:
         return None
-    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu().numpy()
+    return dataclasses.replace(obj, **{f.name: host(getattr(obj, f.name))
                                        for f in dataclasses.fields(obj)})
+
+
+def _tagged(outs, batch_span):
+    """The step's outputs (a dict, or one per model), carrying the batch
+    id while tracing."""
+    if batch_span is not None:
+        for o in (outs if isinstance(outs, tuple) else (outs,)):
+            o[TRACE_BATCH] = batch_span.batch
+    return outs
 
 
 class _Uploader:
@@ -205,7 +224,8 @@ class _Uploader:
         slot = self._slots[shape][self._turn[shape]]
         self._turn[shape] ^= 1
         if slot[2] is not None:
-            slot[2].synchronize()  # that buffer's copy of two uploads ago
+            with span("upload.wait"):
+                slot[2].synchronize()  # that buffer's copy of two uploads ago
         return slot
 
     def staging(self, shape: tuple[int, ...]) -> np.ndarray:
@@ -214,16 +234,17 @@ class _Uploader:
         return self._next_slot(shape)[1]
 
     def upload(self, frames: np.ndarray) -> torch.Tensor:
-        slot = next((s for s in self._slots.get(frames.shape, ()) if s[1] is frames), None)
-        if slot is None:  # not one of the staging buffers: copy it into the next
-            slot = self._next_slot(frames.shape)
-            np.copyto(slot[1], frames)
-        if self.stream is None:
-            return slot[0].clone()
-        with torch.cuda.stream(self.stream):
-            dev = slot[0].to(self.device, non_blocking=True)
-            slot[2] = torch.cuda.Event()
-            slot[2].record(self.stream)
+        with span("upload", self.device, stream=self.stream):
+            slot = next((s for s in self._slots.get(frames.shape, ()) if s[1] is frames), None)
+            if slot is None:  # not one of the staging buffers: copy it into the next
+                slot = self._next_slot(frames.shape)
+                np.copyto(slot[1], frames)
+            if self.stream is None:
+                return slot[0].clone()
+            with torch.cuda.stream(self.stream):
+                dev = slot[0].to(self.device, non_blocking=True)
+                slot[2] = torch.cuda.Event()
+                slot[2].record(self.stream)
         current = torch.cuda.current_stream(self.device)
         current.wait_event(slot[2])
         dev.record_stream(current)
@@ -369,6 +390,7 @@ class InspectionPipeline:
                          model_cfg.image_size, type(self.warp).__name__ if self.warp is not None
                          else "no undistort warp")
         self._uploader: _Uploader | None = None
+        self.steps = 0  # batches handed to an entry point: the spans' batch ids
 
     def _build_warp(self, calibration: CalibrationData, remap: str, interp: str,
                     warp_s2d: bool, block: int | None,
@@ -392,57 +414,60 @@ class InspectionPipeline:
         (the s2d-emitting warp gives that for free, every other path blocks
         here), else (B, H, W, 3). On a space mesh: this rank's slab of
         those rows."""
-        want_s2d = self.model.s2d_input
-        warp = self.warp
-        if isinstance(warp, TwoPassWarp):
-            if self.warp_pass1 == "kernel":
-                k = decimation_stride(self.spec)
-                y0, y1 = warp.src_rows
-                if (y0, y1) != (0, self.spec.new_h):  # the frames' rows of the slab's band
-                    frames_u8 = frames_u8[:, k * y0:k * y1].contiguous()
-                i1 = warp_pass1_decimated(frames_u8, warp.w1, warp.pass1_window(),
-                                          k=k, off=(k - 1) // 2,
-                                          hs=y1 - y0, ws=self.spec.new_w,
-                                          pad_value=warp.pad_value)
-                out = warp.apply_pass2_ycbo(i1, self.dtype)
-            else:
+        with span("preprocess", self.device):
+            want_s2d = self.model.s2d_input
+            warp = self.warp
+            if isinstance(warp, TwoPassWarp):
+                if self.warp_pass1 == "kernel":
+                    k = decimation_stride(self.spec)
+                    y0, y1 = warp.src_rows
+                    if (y0, y1) != (0, self.spec.new_h):  # the frames' rows of the slab's band
+                        frames_u8 = frames_u8[:, k * y0:k * y1].contiguous()
+                    i1 = warp_pass1_decimated(frames_u8, warp.w1, warp.pass1_window(),
+                                              k=k, off=(k - 1) // 2,
+                                              hs=y1 - y0, ws=self.spec.new_w,
+                                              pad_value=warp.pad_value)
+                    out = warp.apply_pass2_ycbo(i1, self.dtype)
+                else:
+                    out = letterbox_then_undistort(frames_u8, self.spec, warp, self.dtype)
+                return out  # blocked iff the model takes it so: both follow ``warp_s2d``
+            if warp is not None:
                 out = letterbox_then_undistort(frames_u8, self.spec, warp, self.dtype)
-            return out  # blocked iff the model takes it so: both follow ``warp_s2d``
-        if warp is not None:
-            out = letterbox_then_undistort(frames_u8, self.spec, warp, self.dtype)
-        else:
-            out = letterbox_u8(frames_u8, self.spec, self.dtype, rows=self.input_rows)
-        return space_to_depth2(out) if want_s2d else out
+            else:
+                out = letterbox_u8(frames_u8, self.spec, self.dtype, rows=self.input_rows)
+            return space_to_depth2(out) if want_s2d else out
 
     def detect(self, raw: RawPredictions) -> tuple[Detections, dict]:
         """Raw head outputs -> DFL decode -> NMS (or, ``lazy_decode``, NMS on
         raw logits with the candidates' decode), with budget telemetry."""
-        mcfg = self.model_cfg
-        nms_kw = dict(conf_thresh=mcfg.conf_thresh, iou_thresh=mcfg.iou_thresh,
-                      max_det=mcfg.max_detections, pre_topk=mcfg.nms_pre_topk)
-        if self.lazy_decode:
-            dets = nms_from_raw(raw, **nms_kw)
-            n_candidates = raw_candidate_counts(raw, mcfg.conf_thresh)
-        else:
-            boxes, probs, coefs = decode_predictions(raw)
-            dets = batched_nms(boxes, probs, coefs, **nms_kw)
-            n_candidates = (probs.amax(-1) > mcfg.conf_thresh).sum(-1).to(torch.int32)
-        telemetry = {"n_candidates": n_candidates,
-                     "n_valid": dets.valid.sum(-1).to(torch.int32)}
-        return dets, telemetry
+        with span("detect", self.device):
+            mcfg = self.model_cfg
+            nms_kw = dict(conf_thresh=mcfg.conf_thresh, iou_thresh=mcfg.iou_thresh,
+                          max_det=mcfg.max_detections, pre_topk=mcfg.nms_pre_topk)
+            if self.lazy_decode:
+                dets = nms_from_raw(raw, **nms_kw)
+                n_candidates = raw_candidate_counts(raw, mcfg.conf_thresh)
+            else:
+                boxes, probs, coefs = decode_predictions(raw)
+                dets = batched_nms(boxes, probs, coefs, **nms_kw)
+                n_candidates = (probs.amax(-1) > mcfg.conf_thresh).sum(-1).to(torch.int32)
+            telemetry = {"n_candidates": n_candidates,
+                         "n_valid": dets.valid.sum(-1).to(torch.int32)}
+            return dets, telemetry
 
     def measure(self, dets: Detections, protos: torch.Tensor) -> dict:
         """Detections + protos -> mask statistics, stitch set, envelope and
         the mm measurements (requires a calibration)."""
-        mcfg, cfg = self.model_cfg, self.measure_cfg
-        stitches, envelope, fabric_any, counts = prepare_frame_inputs(
-            dets, protos, self.spec, mcfg.stitch_class_id, mcfg.fabric_class_id,
-            self.roi_bounds, cfg.max_stitches, cfg.max_stats_dets,
-            subcell=bool(cfg.subcell_edge), subcell_envelope=cfg.envelope_subcell,
-            logits_dtype=self.logits_dtype)
-        return {"measurements": measure_frame(stitches, envelope, fabric_any, self.cam,
-                                              self.spec, cfg),
-                "stitches": stitches, "envelope": envelope, "counts": counts}
+        with span("measure", self.device):
+            mcfg, cfg = self.model_cfg, self.measure_cfg
+            stitches, envelope, fabric_any, counts = prepare_frame_inputs(
+                dets, protos, self.spec, mcfg.stitch_class_id, mcfg.fabric_class_id,
+                self.roi_bounds, cfg.max_stitches, cfg.max_stats_dets,
+                subcell=bool(cfg.subcell_edge), subcell_envelope=cfg.envelope_subcell,
+                logits_dtype=self.logits_dtype)
+            return {"measurements": measure_frame(stitches, envelope, fabric_any, self.cam,
+                                                  self.spec, cfg),
+                    "stitches": stitches, "envelope": envelope, "counts": counts}
 
     def postprocess_chain(self, x: torch.Tensor) -> dict:
         """Model input -> forward, detect, measure, optional masks and frame
@@ -468,7 +493,9 @@ class InspectionPipeline:
     def step(self, frames_u8: torch.Tensor) -> dict:
         """One device step on frames already on the device (with a mesh: the
         global batch, of which this rank runs its rows)."""
-        return self._local_step(self.local_frames(frames_u8))
+        with self.batch_span() as batch:
+            outs = self._local_step(self.local_frames(frames_u8))
+        return _tagged(outs, batch)
 
     @torch.inference_mode()
     def _local_step(self, frames_u8: torch.Tensor) -> dict:
@@ -482,6 +509,12 @@ class InspectionPipeline:
         n = len(frames)
         rows = slice(0, n) if self.mesh is None else batch_slice(self.mesh, n)
         return frames if rows == slice(0, n) else frames[rows]
+
+    def batch_span(self):
+        """The root span of one batch handed to an entry point; its id is
+        this pipeline's step number."""
+        self.steps += 1
+        return span("batch", self.device, batch=self.steps)
 
     # -- host API ----------------------------------------------------------
 
@@ -499,32 +532,49 @@ class InspectionPipeline:
 
     def process_batch(self, frames_bgr_u8: np.ndarray) -> PipelineOutputs:
         """frames (B, H, W, 3) uint8 BGR -> host results (blocking)."""
-        frames = torch.from_numpy(np.ascontiguousarray(self.local_frames(frames_bgr_u8)))
-        return self.outputs_to_host(self._local_step(frames.to(self.device)))
+        with self.batch_span() as batch:
+            frames = torch.from_numpy(np.ascontiguousarray(self.local_frames(frames_bgr_u8)))
+            outs = self._local_step(frames.to(self.device))
+        return self.outputs_to_host(_tagged(outs, batch))
 
     def process_batch_async(self, frames_bgr_u8: np.ndarray) -> dict:
         """Dispatch without blocking: device tensors come back, to be read
         later with :meth:`outputs_to_host`, so the host can prepare the next
         batch under the device's work on this one."""
-        return self._local_step(self.uploader.upload(self.local_frames(frames_bgr_u8)))
+        with self.batch_span() as batch:
+            outs = self._local_step(self.uploader.upload(self.local_frames(frames_bgr_u8)))
+        return _tagged(outs, batch)
 
     @staticmethod
     def outputs_to_host(outs: dict) -> PipelineOutputs:
-        """Bring a device step result to the host (waits for it)."""
+        """Bring a device step result to the host, one copy per array; the
+        first waits for the step."""
+        copies = 0
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            nonlocal copies
+            copies += 1
+            return t.cpu().numpy()
+
         dets = outs["dets"]
         env = outs.get("envelope")
         masks = outs.get("masks")
-        return PipelineOutputs(
-            boxes_frame=outs["boxes_frame"].cpu().numpy(),
-            scores=dets.scores.cpu().numpy(),
-            classes=dets.classes.cpu().numpy(),
-            valid=dets.valid.cpu().numpy(),
-            masks=None if masks is None else masks.cpu().numpy(),
-            measurements=_to_host(outs.get("measurements")),
-            stitches=_to_host(outs.get("stitches")),
-            envelope=None if env is None else env.cpu().numpy(),
-            telemetry={k: v.cpu().numpy() for k, v in outs["telemetry"].items()},
-        )
+        with span("to_host", dets.valid, outs.get(TRACE_BATCH)):
+            with span("to_host.wait"):
+                boxes_frame = host(outs["boxes_frame"])
+            result = PipelineOutputs(
+                boxes_frame=boxes_frame,
+                scores=host(dets.scores),
+                classes=host(dets.classes),
+                valid=host(dets.valid),
+                masks=None if masks is None else host(masks),
+                measurements=_to_host(outs.get("measurements"), host),
+                stitches=_to_host(outs.get("stitches"), host),
+                envelope=None if env is None else host(env),
+                telemetry={k: host(v) for k, v in outs["telemetry"].items()},
+            )
+            count("d2h_copies", copies)
+        return result
 
 
 class DualPipeline:
@@ -576,7 +626,9 @@ class DualPipeline:
     def step(self, frames_u8: torch.Tensor) -> tuple[dict, dict]:
         """One device step on frames already on the device (with a mesh: the
         global batch)."""
-        return self._local_step(self.primary.local_frames(frames_u8))
+        with self.primary.batch_span() as batch:
+            outs = self._local_step(self.primary.local_frames(frames_u8))
+        return _tagged(outs, batch)
 
     @torch.inference_mode()
     def _local_step(self, frames_u8: torch.Tensor) -> tuple[dict, dict]:
@@ -589,13 +641,17 @@ class DualPipeline:
         return outs if self.primary.mesh is None else gather_batch(self.primary.mesh, outs)
 
     def process_batch(self, frames_bgr_u8: np.ndarray) -> tuple[PipelineOutputs, PipelineOutputs]:
-        frames = torch.from_numpy(np.ascontiguousarray(self.primary.local_frames(frames_bgr_u8)))
-        outs_a, outs_b = self._local_step(frames.to(self.primary.device))
+        with self.primary.batch_span() as batch:
+            frames = torch.from_numpy(np.ascontiguousarray(
+                self.primary.local_frames(frames_bgr_u8)))
+            outs_a, outs_b = _tagged(self._local_step(frames.to(self.primary.device)), batch)
         return (InspectionPipeline.outputs_to_host(outs_a),
                 InspectionPipeline.outputs_to_host(outs_b))
 
     def process_batch_async(self, frames_bgr_u8: np.ndarray) -> tuple[dict, dict]:
         """Dispatch without blocking; read each element later with
         ``InspectionPipeline.outputs_to_host``."""
-        return self._local_step(
-            self.primary.uploader.upload(self.primary.local_frames(frames_bgr_u8)))
+        with self.primary.batch_span() as batch:
+            outs = self._local_step(
+                self.primary.uploader.upload(self.primary.local_frames(frames_bgr_u8)))
+        return _tagged(outs, batch)
