@@ -161,7 +161,15 @@ result line:
    the sums, E's time per step against its bound per step (the headline's
    bound per step too); the contract exactly (every detection at IoU >
    0.9) on ``tti``'s own scene (the test's: the mm report's seed-7 scene,
-   imgsz 640, float32), int8 and int8s; the phase's wall time;
+   imgsz 640, float32), int8 and int8s; kernel G in the four int8 steps
+   once per float convolution with a bias (the exit convs and the deconv,
+   10 in the deploy model); the phase's wall time;
+5j. kernel G (``csrc/conv_epilogue.cu``, the float convolutions' bias and
+   SiLU; after 5c): 76 launches per deploy step at batch 128, and its
+   device ms in a profiled step; each of the deploy forward's 76 epilogues
+   at batch 128 bit-equal to the parent route (cuDNN's in-place bias add,
+   then ``F.silu``), timed beside that route, the plain version and its
+   byte bound, and the sums per step; the phase's wall time;
 5d. the frozen step (``tti_torch.app.export``; every kernel is a registered
    operator, ``torch.ops.tti_torch.*``), each at batch 1: deploy bf16,
    the headline with ``warp_pass1="kernel"`` (its artifact also
@@ -1391,6 +1399,7 @@ def plain_routes(ms, wp):
 
 
 def reset_launch_counts(ms, wp) -> None:
+    from tti_torch.kernels import conv_epilogue as ce
     from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import nms as nk
 
@@ -1398,9 +1407,12 @@ def reset_launch_counts(ms, wp) -> None:
     wp.reset_launch_counts()
     nk.reset_launch_counts()
     ik.reset_launch_counts()
+    ce.reset_launch_counts()
 
 
 def launch_counts(ms, wp) -> dict:
+    """Kernels A-F's launches since :func:`reset_launch_counts` (kernel G's,
+    the convolutions' epilogue, are read in phases 5c and 5j)."""
     from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import nms as nk
 
@@ -1968,8 +1980,11 @@ def check_modes(torch, ms, wp) -> dict:
     (batch 8) it agrees with its reference step within 1e-3 px and 1e-3 mm;
     in bf16 (batch 128) the detection counts agree on most frames and the
     mm within the kernel route's limits; frames/s at batch 128 and the
-    batch-1 p50 beside its reference step's."""
+    batch-1 p50 beside its reference step's; kernel G once per biased
+    convolution."""
     from step_syncs_torch import count_step_syncs
+
+    from tti_torch.kernels import conv_epilogue as ce
 
     t_phase = time.perf_counter()
     out: dict = {}
@@ -1999,6 +2014,9 @@ def check_modes(torch, ms, wp) -> dict:
             reset_launch_counts(ms, wp)
             got = pipe.process_batch(frames_np)
             launches = launch_counts(ms, wp)
+            launches_g, want_g = ce.LAUNCHES["bias_act"], biased_convs(pipe.model)
+            check(launches_g == want_g, f"{label}: {launches_g} launches of kernel G, "
+                  f"{want_g} expected (one per biased convolution)")
             stats_kernel = ("mask_stats_soft" if pipe.measure_cfg.subcell_edge
                             else "mask_stats_binary")
             check(launches["greedy_keep"] == 1 and launches[stats_kernel] == 1,
@@ -2033,7 +2051,8 @@ def check_modes(torch, ms, wp) -> dict:
                 f"{MODE_F32_BATCH}): boxes {box32:.3g} px, mm {mm32:.3g}; two-pass warp "
                 f"weights {warp_mb[0]:.0f} MB (reference {warp_mb[1]:.0f} MB); set-up "
                 f"{setup_s:.1f} s")
-            out[label] = {**t, "reference": ref_label, "bf16_nvalid_equal_share": same_n,
+            out[label] = {**t, "reference": ref_label, "bias_act_launches": launches_g,
+                          "bf16_nvalid_equal_share": same_n,
                           "bf16_mm_max": mm_max, "bf16_mm_median": mm_med,
                           "f32_box_max": box32, "f32_mm_max": mm32, "setup_s": setup_s,
                           "warp_weight_mb": warp_mb[0], "ref_warp_weight_mb": warp_mb[1]}
@@ -2800,6 +2819,8 @@ def check_int8(torch, ms, wp, ik, flush, first_int8=None, first_scale=None) -> d
     kernel F's (:func:`load_first_scale`), timed beside F."""
     from step_syncs_torch import count_step_syncs
 
+    from tti_torch.kernels import conv_epilogue as ce
+
     t_phase = time.perf_counter()
     scales = INT8_SCALES  # written by phase 3b's calibrations
     out: dict = {"synthetic": check_int8_kernels(torch, ik)}
@@ -2822,6 +2843,9 @@ def check_int8(torch, ms, wp, ik, flush, first_int8=None, first_scale=None) -> d
             reset_launch_counts(ms, wp)
             got = pipe.process_batch(frames_np)
             launches = launch_counts(ms, wp)
+            launches_g, want_g = ce.LAUNCHES["bias_act"], biased_convs(pipe.model)
+            check(launches_g == want_g, f"{label}: {launches_g} launches of kernel G, "
+                  f"{want_g} expected (one per biased convolution)")
             stats_kernel = ("mask_stats_soft" if pipe.measure_cfg.subcell_edge
                             else "mask_stats_binary")
             want_f = INT8_BLOCKS if quant == "int8" else 0
@@ -2858,8 +2882,9 @@ def check_int8(torch, ms, wp, ik, flush, first_int8=None, first_scale=None) -> d
                       else check_int8_layers(torch, ik, pipe, frames[:MODE_F32_BATCH], label)
                       if config == "headline" else 0)
             t = time_pair(torch, ref, pipe, frames, one)
-            res = {**t, "launches": {k: launches[k] for k in (
+            res = {**t, "launches": {**{k: launches[k] for k in (
                 "int8_conv2d", "act_scale_per_sample", stats_kernel, "greedy_keep")},
+                "bias_act": launches_g},
                 "syncs": {b: n for b, (n, _) in syncs.items()}, "plain_mm_max": plain_mm,
                 "contract_detections": n, "contract_below": lost,
                 "contract_f32_detections": n32, "contract_f32_below": lost32,
@@ -3145,6 +3170,117 @@ def time_warp_p1(torch, wp, pipe, frame_hw, flush, first=None) -> dict:
                 f"of W1 (non-zero {share['nonzero_share']:.3%}); pass 2 from (y,c,b,o) "
                 f"{t['pass2_from_ycbo_ms']:.4f} ms, from (b,y,o,c) {t['pass2_from_byoc_ms']:.4f} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5j: kernel G, the float convolutions' bias and SiLU
+# ---------------------------------------------------------------------------
+
+EPILOGUES = 76  # kernel G per deploy step: 66 Conv blocks, 9 exit convs, the deconv
+
+
+def biased_convs(model) -> int:
+    """Kernel G's launches per forward of ``model`` on the card: one per
+    float convolution with a bias (a quantized ``Conv`` block has none, its
+    bias and SiLU are kernel E's)."""
+    from tti_torch.model.layers import Conv2d, ConvTranspose2d
+
+    return sum(isinstance(m, (Conv2d, ConvTranspose2d)) and m.bias is not None
+               for m in model.modules())
+
+
+def epilogue_parent(y, b, act):
+    """What the port ran before kernel G on a convolution's output ``y``:
+    cuDNN's route adds the bias in place, then ``F.silu``."""
+    import torch.nn.functional as F
+
+    out = y.add_(b.view(1, -1, 1, 1))
+    return F.silu(out) if act else out
+
+
+def capture_epilogues(torch, pipe, frames) -> list:
+    """(y, bias, act) of every kernel G call of one forward of ``pipe`` on
+    ``frames`` (uint8, on the card)."""
+    import tti_torch.model.layers as layers
+
+    seen, real = [], layers.bias_act
+
+    def record(y, b, act=True):
+        seen.append((y, b, act))
+        return real(y, b, act)
+
+    layers.bias_act = record
+    try:
+        with torch.inference_mode():
+            pipe.model(pipe.preprocess(frames))
+    finally:
+        layers.bias_act = real
+    return seen
+
+
+def check_epilogue(torch, ce, flush) -> dict:
+    """Phase 5j: kernel G on the deploy step at batch 128. Its launches per
+    step (:data:`EPILOGUES`); each of the forward's epilogues against the
+    parent route (cuDNN's in-place bias add, then ``F.silu``) bit for bit,
+    timed with CUDA events (L2 flushed) beside that route (``library_ms``),
+    the plain version and its byte bound (the output read and written once,
+    the biases read); the sums per step; kernel G's device ms in a profiled
+    step."""
+    t_phase = time.perf_counter()
+    hw, imgsz, ckpt = CONFIGS["deploy"]
+    pipe = build_pipeline(torch, hw, imgsz, ckpt)
+    frames_np = textile(hw, BATCH)
+    ce.reset_launch_counts()
+    pipe.process_batch(frames_np)
+    launches = ce.LAUNCHES["bias_act"]
+    check(launches == EPILOGUES, f"deploy step: {launches} launches of kernel G, "
+          f"{EPILOGUES} expected")
+    frames = torch.from_numpy(frames_np).cuda()
+    per_name, _, _ = device_time(torch, lambda: pipe.step(frames), 2)
+    step_g_ms = sum(t for n, t in per_name.items() if "bias_act_pointwise" in n)
+    seen = capture_epilogues(torch, pipe, frames)
+    check(len(seen) == EPILOGUES, f"{len(seen)} epilogues in the deploy forward")
+    del pipe, frames
+    torch.cuda.empty_cache()
+    rows, differ, compared = [], 0, 0
+    with torch.inference_mode():
+        for y, b, act in seen:
+            got, want = ce.bias_act(y, b, act), epilogue_parent(y.clone(), b, act)
+            differ += int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            compared += got.numel()
+            del got, want
+            scratch = y.clone()  # the parent route adds in place
+            nbytes = 2 * y.numel() * y.element_size() + b.numel() * b.element_size()
+            rows.append({
+                "shape": list(y.shape), "act": act,
+                "route": ce.plan(tuple(y.shape), not y.is_contiguous(), y.element_size(),
+                                 y.data_ptr() % 16 == 0).route,
+                "ms": time_ms(torch, lambda: ce.bias_act(y, b, act), flush=flush),
+                "plain_ms": time_ms(torch, lambda: ce.bias_act_plain(y, b, act), iters=5,
+                                    flush=flush),
+                "library_ms": time_ms(torch, lambda: epilogue_parent(scratch, b, act),
+                                      flush=flush),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes})
+            del scratch
+    del seen
+    torch.cuda.empty_cache()
+    check(differ == 0, f"kernel G differs from the parent route in {differ} of {compared} "
+          "elements")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"kernel G on the deploy step's {len(rows)} epilogues at batch {BATCH}: bit-equal to "
+        f"the parent route on {compared} elements; {launches} launches per step")
+    log(f"  per step (sums, L2 flushed): G {total['ms']:.3f} ms ({total['ms'] / total['bound_ms']:.2f}x "
+        f"its bound {total['bound_ms']:.3f} ms), parent route (add_ + F.silu) "
+        f"{total['library_ms']:.3f} ms, plain version {total['plain_ms']:.3f} ms; in a profiled "
+        f"step {step_g_ms:.3f} ms")
+    for r in sorted(rows, key=lambda r: -r["ms"])[:6]:
+        log(f"  {tuple(r['shape'])} act={r['act']} route {r['route']}: {r['ms']:.4f} ms "
+            f"({r['ms'] / r['bound_ms']:.2f}x its bound {r['bound_ms']:.4f}), parent route "
+            f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}")
+    wall = time.perf_counter() - t_phase
+    log(f"kernel G phase: {wall:.1f} s")
+    return {"launches": launches, "rows": rows, "per_step": total, "step_profiled_ms": step_g_ms,
+            "differing_elements": differ, "compared_elements": compared, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -5702,6 +5838,7 @@ def main() -> int:
         return bench_cli_main(opts.bench_cli)
     from tti_torch import native
     from tti_torch.kernels import build as kbuild
+    from tti_torch.kernels import conv_epilogue as ce
     from tti_torch.kernels import int8conv as ik
     from tti_torch.kernels import maskstats as ms
     from tti_torch.kernels import nms as nk
@@ -5719,13 +5856,14 @@ def main() -> int:
 
     # Phase 2: build, one nvcc per source, started together.
     t0 = time.perf_counter()
-    kbuild.compile_all(("maskstats", "warp_p1", "nms", "int8conv"))
+    kbuild.compile_all(("maskstats", "warp_p1", "nms", "int8conv", "conv_epilogue"))
     ms.build()
     wp.build()
     nk.build()
     ik.build()
+    ce.build()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, maskstats.cu, warp_p1.cu, "
-        "nms.cu and int8conv.cu)")
+        "nms.cu, int8conv.cu and conv_epilogue.cu)")
     for name, text in sorted(kbuild.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -5819,6 +5957,11 @@ def main() -> int:
     flush = lambda: flush_buf.zero_()
     int8 = check_int8(torch, ms, wp, ik, flush, first_int8, first_scale)
     phase_done("5c (int8)")
+
+    # Phase 5j: kernel G, the float convolutions' bias and SiLU.
+    log("kernel G (the float convolutions' bias and SiLU; CUDA events, L2 flushed):")
+    epilogue = check_epilogue(torch, ce, flush)
+    phase_done("5j (kernel G)")
 
     # Phase 5d: the frozen step, exported, saved, loaded and run on the card.
     log("the frozen step (torch.export through the kernels' operators):")
@@ -6038,6 +6181,24 @@ def main() -> int:
         k["space_launches"] = {tag: n.get(k["name"], 0) for tag, n in space_launches.items()}
         # Launches in phase 5i's bench process (TTI_BENCH_CONFIGS=all).
         k["bench_launches"] = bench_run["launches"].get(k["name"], 0)
+    # Kernel G's row, after the loop above: phases 5d-5i count kernels A-F only.
+    g = epilogue["per_step"]
+    kernels.append({
+        "name": "bias_act", "route": "cuda", "source": "tti_torch/kernels/csrc/conv_epilogue.cu",
+        "replaces": "none (tti leaves the bias and SiLU to XLA's fusion)",
+        "launches": epilogue["launches"],
+        "differing_elements": epilogue["differing_elements"],
+        "compared_elements": epilogue["compared_elements"],
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": "bytes",
+        "library_ms": g["library_ms"],
+        "library": "the parent route: cuDNN's in-place bias add, then F.silu",
+        "timed_on": f"the deploy step's {EPILOGUES} epilogues at batch {BATCH}, summed",
+        "step_profiled_ms": epilogue["step_profiled_ms"],
+        "launches_per_step": {"deploy": epilogue["launches"],
+                              **{k: v["launches"]["bias_act"] for k, v in int8.items()
+                                 if isinstance(v, dict) and "launches" in v}},
+        "epilogues": epilogue["rows"],
+    })
     phase_done("9 (kernel timings)")
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s (its limit: 1200 s)")
     log(json.dumps({"card": card, "steps": {

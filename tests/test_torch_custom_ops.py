@@ -1,4 +1,4 @@
-"""The six kernel operators of ``tti_torch.kernels`` (``torch.ops.tti_torch.*``):
+"""The seven kernel operators of ``tti_torch.kernels`` (``torch.ops.tti_torch.*``):
 ``torch.library.opcheck`` on CPU inputs (schema, fake implementation against
 the CPU one, the dispatcher's traces), and the fake outputs' shapes, dtypes
 and strides held to the CPU implementation's, kernel E's channels_last
@@ -10,6 +10,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+import tti_torch.kernels.conv_epilogue as ce
 import tti_torch.kernels.int8conv as ik
 import tti_torch.kernels.maskstats as ms
 import tti_torch.kernels.nms as knms
@@ -66,6 +67,13 @@ def _scale_args(dtype, channels_last):
     return (x.contiguous(memory_format=torch.channels_last) if channels_last else x,)
 
 
+def _epilogue_args(dtype, channels_last, act):
+    g = torch.Generator().manual_seed(7)
+    y = (torch.randn((2, 24, 5, 3), generator=g) * 3).to(dtype)
+    return (y.contiguous(memory_format=torch.channels_last) if channels_last else y,
+            torch.randn(24, generator=g).to(dtype), act)
+
+
 CASES = {
     "mask_stats_soft": (OPS.mask_stats_soft.default, lambda: _mask_args(torch.bfloat16)),
     "mask_stats_soft_f32": (OPS.mask_stats_soft.default, lambda: _mask_args(torch.float32)),
@@ -80,6 +88,9 @@ CASES = {
                              lambda: _scale_args(torch.float32, False)),
     "act_scale_per_sample_cl_bf16": (OPS.act_scale_per_sample.default,
                                      lambda: _scale_args(torch.bfloat16, True)),
+    "bias_act_cl_bf16": (OPS.bias_act.default, lambda: _epilogue_args(torch.bfloat16, True, True)),
+    "bias_act_nchw_f32_no_act": (OPS.bias_act.default,
+                                 lambda: _epilogue_args(torch.float32, False, False)),
 }
 
 
@@ -140,6 +151,7 @@ def test_wrappers_call_the_operators(monkeypatch):
     spy(wp, "_OP")
     spy(ik, "_CONV_OP")
     spy(ik, "_SCALE_OP")
+    spy(ce, "_OP")
     monkeypatch.setitem(ms._OPS, True, (lambda op: lambda *a: seen.append("soft") or op(*a))(
         ms._OPS[True]))
     monkeypatch.setitem(ms._OPS, False, (lambda op: lambda *a: seen.append("binary") or op(*a))(
@@ -151,7 +163,8 @@ def test_wrappers_call_the_operators(monkeypatch):
     ik.act_scale_per_sample(*_scale_args(torch.float32, False))
     ms.mask_stats_soft(*_mask_args(torch.bfloat16))
     ms.mask_stats_binary(*_mask_args(torch.float32))
-    assert seen == ["_OP", "_OP", "_CONV_OP", "_SCALE_OP", "soft", "binary"]
+    ce.bias_act(*_epilogue_args(torch.float32, True, True))
+    assert seen == ["_OP", "_OP", "_CONV_OP", "_SCALE_OP", "soft", "binary", "_OP"]
 
 
 def test_mask_stats_dict_is_rebuilt_from_the_operator():

@@ -13,9 +13,10 @@ preprocess, postprocess or measurement code.
 - One program per device. ``tti`` lowers one StableHLO for several
   platforms; a torch trace records its device in factory calls, so the port
   traces the step once per requested device ("cuda", "cpu") and keeps every
-  program in one artifact. The CUDA program launches kernels A-F through
+  program in one artifact. The CUDA program launches kernels A-G through
   their operators; the CPU program reaches their plain versions through the
-  same operators.
+  same operators (the CPU trace of a float model records no kernel G: its
+  convolutions take their biases).
 - Weights stay arguments, as in ``tti``: the model's parameters and buffers
   (``v<i>``) and every other tensor of the pipeline, the warp's weights and
   the calibration (``w<i>``), are inputs of the program, stored once beside
@@ -46,7 +47,8 @@ from typing import Any, BinaryIO, Callable
 
 import torch
 
-import tti_torch.kernels.int8conv  # noqa: F401  (registers the kernels' operators)
+import tti_torch.kernels.conv_epilogue  # noqa: F401  (registers the kernels' operators)
+import tti_torch.kernels.int8conv  # noqa: F401
 import tti_torch.kernels.maskstats  # noqa: F401
 import tti_torch.kernels.nms  # noqa: F401
 import tti_torch.kernels.warp_p1  # noqa: F401

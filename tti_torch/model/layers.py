@@ -12,6 +12,13 @@ Every convolution computes in its input's dtype: parameters are cast to it
 (a no-op when they already have it), so a float32 model fed bfloat16
 activations trains in mixed precision with float32 parameters and float32
 gradients, as flax's ``dtype=bf16, param_dtype=f32`` does.
+
+A biased float convolution of a CUDA input that needs no gradient runs
+without its bias, and kernel G (:func:`tti_torch.kernels.conv_epilogue.bias_act`)
+adds the bias and, in a ``Conv`` block, applies SiLU in one pass, bit-equal
+to cuDNN's bias add and ``F.silu`` (:func:`fused_epilogue`). Elsewhere, on
+the CPU and in training, the convolution takes its bias and ``F.silu``
+follows.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from tti_torch.kernels.conv_epilogue import bias_act
 from tti_torch.kernels.int8conv import act_scale_per_sample, int8_conv2d, pack_qweight
 from tti_torch.parallel.mesh import all_reduce_sum
 from tti_torch.preprocess.letterbox import jit_divide
@@ -36,24 +44,41 @@ def autopad(k: int, d: int = 1) -> int:
     return (d * (k - 1) + 1) // 2
 
 
+def fused_epilogue(x: torch.Tensor, conv: nn.Module) -> bool:
+    """Whether ``conv``'s bias (and its block's SiLU) go to kernel G: a
+    convolution with a bias, on a CUDA input, with no gradient to record."""
+    return (conv.bias is not None and x.is_cuda
+            and not (torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad)))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in its input's dtype; ``padding``
-    overrides the module's own."""
+    overrides the module's own; ``act``: SiLU after the bias. The bias and
+    SiLU go to kernel G where :func:`fused_epilogue` allows."""
 
-    def forward(self, x: torch.Tensor, padding: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding: int | None = None,
+                act: bool = False) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        pad = self.padding if padding is None else padding
+        if fused_epilogue(x, self):
+            y = F.conv2d(x, w, None, self.stride, pad, self.dilation, self.groups)
+            return bias_act(y, self.bias.to(x.dtype), act)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        if padding is None:
-            return self._conv_forward(x, self.weight.to(x.dtype), bias)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, padding)
+        y = F.conv2d(x, w, bias, self.stride, pad, self.dilation, self.groups)
+        return F.silu(y) if act else y
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (stride = kernel, no padding) that computes in
-    its input's dtype."""
+    its input's dtype; the bias goes to kernel G as :class:`Conv2d`'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        if fused_epilogue(x, self):
+            return bias_act(F.conv_transpose2d(x, w, None, self.stride), self.bias.to(x.dtype),
+                            False)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride)
+        return F.conv_transpose2d(x, w, bias, self.stride)
 
 
 class BatchNorm(nn.Module):
@@ -216,10 +241,11 @@ class Conv(nn.Module):
                 xscale = self.space.max(xscale)
             return int8_conv2d(xin, self.qpacked, self.qscale, self.bias, xscale, self.k,
                                self.s, pad, self.act)
-        x = self.conv(xin) if pad == self.p else self.conv(xin, padding=pad)
+        padding = None if pad == self.p else pad
         if hasattr(self, "bn"):
-            x = self.bn(x)
-        return F.silu(x) if self.act else x
+            x = self.bn(self.conv(xin, padding))
+            return F.silu(x) if self.act else x
+        return self.conv(xin, padding, self.act)
 
 
 class Bottleneck(nn.Module):
